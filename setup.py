@@ -14,7 +14,9 @@ setup(
     license="MIT",
     keywords="contour jax tpu pallas equivalent-latitude effective-diffusivity",
     packages=find_packages(exclude=["docs", "tests", "examples", "tools"]),
-    package_data={"xcontour_tpu": ["../csrc/*.cpp"]},
+    # the PyTorch port builds its CUDA sources with nvcc at first use
+    package_data={"xcontour_tpu": ["../csrc/*.cpp"],
+                  "xcontour_tpu_torch": ["csrc/*.cu"]},
     entry_points={
         "console_scripts": ["xcontour-tpu = xcontour_tpu.cli:main"],
     },

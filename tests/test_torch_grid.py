@@ -1,0 +1,115 @@
+"""The port's grid metrics and synthetic data against the JAX package.
+
+The metric maths is float64 numpy in both packages, so in float64 every
+leaf must agree bit for bit; ``synth_pv`` must return identical arrays.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xcontour_tpu import grid as jgrid
+from xcontour_tpu.utils.synth import synth_pv as jax_synth_pv
+import xcontour_tpu_torch as xt
+from xcontour_tpu_torch.utils.synth import synth_pv
+
+LEAVES = ("ydef", "xdef", "dA", "dxF", "dyF", "mask")
+STATIC = ("dim_names", "latlon", "periodic_x", "bc_y")
+
+
+def _assert_same_grid(jg, tg):
+    for name in LEAVES:
+        a, b = getattr(jg, name), getattr(tg, name)
+        if a is None:
+            assert b is None, name
+            continue
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=name)
+    for name in STATIC:
+        assert tuple(np.atleast_1d(getattr(jg, name))) == \
+            tuple(np.atleast_1d(getattr(tg, name))), name
+
+
+@pytest.mark.parametrize("nlat,nlon,masked", [(41, 64, False), (64, 128, True),
+                                              (721 // 8 + 1, 1440 // 8, False)])
+def test_from_latlon_matches_jax_bitwise(nlat, nlon, masked):
+    lat = np.linspace(-90.0, 90.0, nlat)
+    lon = np.linspace(0.0, 360.0 - 360.0 / nlon, nlon)
+    mask = None
+    if masked:
+        mask = np.ones((nlat, nlon))
+        mask[nlat // 3: nlat // 2, nlon // 4: nlon // 2] = 0.0
+    jg = jgrid.from_latlon(lat, lon, mask=mask, dtype=jnp.float64)
+    tg = xt.from_latlon(lat, lon, mask=mask, dtype=torch.float64)
+    _assert_same_grid(jg, tg)
+    assert tg.periodic_x and tg.latlon and tg.shape == (nlat, nlon)
+
+
+def test_grid_from_numpy_carries_a_jax_grid():
+    lat = np.linspace(-80.0, 80.0, 40)
+    lon = np.linspace(0.0, 355.0, 72)
+    jg = jgrid.from_latlon(lat, lon, dtype=jnp.float64, bc_y="reflect")
+    leaves = {k: None if getattr(jg, k) is None else np.asarray(getattr(jg, k))
+              for k in LEAVES}
+    tg = xt.grid_from_numpy(**leaves, dim_names=jg.dim_names,
+                            latlon=jg.latlon, periodic_x=jg.periodic_x,
+                            bc_y=jg.bc_y)
+    _assert_same_grid(jg, tg)
+    _assert_same_grid(jg, xt.from_latlon(lat, lon, dtype=torch.float64,
+                                         bc_y="reflect"))
+    # f32 cast of the carried grid equals the port's own f32 grid
+    t32 = xt.grid_from_numpy(**leaves, latlon=True, periodic_x=True,
+                             dtype=torch.float32)
+    own = xt.from_latlon(lat, lon, dtype=torch.float32)
+    for name in ("ydef", "xdef", "dA", "dxF", "dyF"):
+        assert torch.equal(getattr(t32, name), getattr(own, name)), name
+
+
+def test_cartesian_and_metrics_builders_match_jax():
+    y = np.linspace(0.0, 5e5, 24)
+    x = np.linspace(0.0, 8e5, 40)
+    _assert_same_grid(jgrid.from_cartesian(y, x, periodic_x=True,
+                                           dtype=jnp.float64),
+                      xt.from_cartesian(y, x, periodic_x=True,
+                                        dtype=torch.float64))
+    dA = np.random.default_rng(3).uniform(1.0, 2.0, (24, 40))
+    dxF = np.linspace(1.0, 2.0, 40)           # 1-D line element, broadcast
+    _assert_same_grid(jgrid.from_metrics(y, x, dA, dxF=dxF, dtype=jnp.float64),
+                      xt.from_metrics(y, x, dA, dxF=dxF, dtype=torch.float64))
+
+
+def test_grid_to_and_helpers():
+    tg = xt.from_latlon(np.linspace(-90, 90, 19), np.arange(0, 360, 20.0),
+                        dtype=torch.float64)
+    moved = tg.to("cpu")
+    assert dataclasses.is_dataclass(moved) and moved.periodic_x
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        tg.latlon = False
+    np.testing.assert_allclose(float(tg.dA.sum()), 4 * np.pi * 6371200.0 ** 2,
+                               rtol=1e-12)
+    lats = np.linspace(-90, 90, 13)
+    np.testing.assert_allclose(
+        xt.latitude_lengths_at(torch.as_tensor(lats)).numpy(),
+        np.asarray(jgrid.latitude_lengths_at(jnp.asarray(lats))), rtol=1e-15)
+    areas = np.linspace(0.0, 5.1e14, 11)
+    np.testing.assert_allclose(
+        xt.equivalent_latitudes(torch.as_tensor(areas)).numpy(),
+        np.asarray(jgrid.equivalent_latitudes(jnp.asarray(areas))),
+        rtol=1e-13, atol=1e-12)
+
+
+def test_descending_latitude_warns():
+    with pytest.warns(UserWarning, match="DESCENDING"):
+        xt.from_latlon(np.linspace(90, -90, 7), np.arange(0, 360, 45.0))
+
+
+@pytest.mark.parametrize("nlev,nlat,nlon,seed", [(3, 41, 64, 1), (15, 25, 48, 7)])
+def test_synth_pv_matches_jax_package(nlev, nlat, nlon, seed):
+    got, dims = synth_pv(nlev=nlev, nlat=nlat, nlon=nlon, seed=seed)
+    want, wdims = jax_synth_pv(nlev=nlev, nlat=nlat, nlon=nlon, seed=seed)
+    assert dims == wdims and got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -1,0 +1,145 @@
+"""Contour-space core: the conservative-rearrangement engine.
+
+Counterpart of the subset of ``xcontour_tpu/core.py`` that the Keff+LWA step
+uses: contour levels, the histogram conditional integrals, the A(Y_eq)
+lookup table, and the Keff algebra (d/dA, Leq^2, normalized Keff) plus the
+contour -> coordinate interpolation.
+
+Array conventions: plane fields (..., Ny, Nx) with the equivalent dim at
+axis -2; contour-space tensors (..., N) with the contour index last.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import numpy as np
+import torch
+
+from .ops.gradient import gradient_index
+from .ops.histogram import weighted_cdf
+from .ops.interp import interp1d
+
+
+def cal_contours(tracer: torch.Tensor, N: int, *,
+                 increase: bool = True) -> torch.Tensor:
+    """N equally spaced levels between each batch element's NaN-skipping
+    min and max, min->max if ``increase`` else max->min.  The last level is
+    pinned to the extremum (np.linspace semantics), so the extreme cell is
+    never dropped from a >=-CDF; an all-NaN element gives NaN levels."""
+    isn = torch.isnan(tracer)
+    inf = torch.tensor(float("inf"), dtype=tracer.dtype, device=tracer.device)
+    nan = torch.tensor(float("nan"), dtype=tracer.dtype, device=tracer.device)
+    mmin = torch.where(isn, inf, tracer).amin(dim=(-2, -1))
+    mmax = torch.where(isn, -inf, tracer).amax(dim=(-2, -1))
+    mmin = torch.where(mmin == inf, nan, mmin)
+    mmax = torch.where(mmax == -inf, nan, mmax)
+    start, end = (mmin, mmax) if increase else (mmax, mmin)
+    steps = (end - start) / (N - 1.0)
+    levels = (steps[..., None] * torch.arange(N, dtype=tracer.dtype,
+                                              device=tracer.device)
+              + start[..., None])
+    levels[..., -1] = end
+    return levels
+
+
+def cal_integral_within_contours_hist(tracer, contours, dA, integrand=None, *,
+                                      lt: bool = False):
+    """Histogram conditional integrals: weights = integrand*dA, NaN -> 0."""
+    wei = dA if integrand is None else integrand * dA
+    return weighted_cdf(tracer, contours, torch.broadcast_to(wei, tracer.shape),
+                        lt)
+
+
+@dataclasses.dataclass(frozen=True)
+class Table:
+    """One-to-one map y = F(x) between area (values) and equivalent
+    coordinate (coords), direction-aware both ways."""
+
+    values: torch.Tensor  # (..., Ny) table values (e.g. area A)
+    coords: torch.Tensor  # (Ny,) equivalent coordinates
+
+    @classmethod
+    def from_numpy(cls, values, coords, *, dtype=None, device=None) -> "Table":
+        """A precomputed table carried across as numpy arrays."""
+        def t(a):
+            out = torch.as_tensor(np.array(a), device=device)
+            return out if dtype is None else out.to(dtype)
+        return cls(values=t(values), coords=t(coords))
+
+    def to(self, device) -> "Table":
+        return Table(values=self.values.to(device),
+                     coords=self.coords.to(device))
+
+    def _inc_values(self) -> bool:
+        """Direction of the values.  Every batch element must agree (the
+        reference raises "not every time or level is increasing/decreasing");
+        the check reads the device once per Table."""
+        cached = self.__dict__.get("_inc")
+        if cached is not None:
+            return cached
+        v = self.values.reshape(-1, self.values.shape[-1])
+        inc = (v[:, -1] > v[:, 0]).cpu()
+        if not bool((inc == inc[0]).all()):
+            raise ValueError(
+                "Table: not every batch element (time/level) is "
+                "increasing/decreasing — mixed-direction table values")
+        object.__setattr__(self, "_inc", bool(inc[0]))
+        return self.__dict__["_inc"]
+
+    def lookup_coordinates(self, values: torch.Tensor) -> torch.Tensor:
+        """Given values (y), return coordinates (x)."""
+        return interp1d(values, self.values, self.coords,
+                        increasing=self._inc_values())
+
+    def lookup_values(self, coords: torch.Tensor) -> torch.Tensor:
+        """Given coordinates (x), return values (y)."""
+        inc_cd = self.coords[-1] > self.coords[0]
+        return interp1d(coords, self.coords, self.values, increasing=inc_cd)
+
+
+def cal_area_eqCoord_table_hist(mask, ydef, dA, *, increase: bool,
+                                lt: bool) -> Table:
+    """Histogram A(y_eq) table: the masked y-coordinate field itself,
+    histogrammed with dA weights.  Which comparison applies depends on the
+    coordinate's direction relative to ``increase``; both CDFs are taken and
+    the right one selected, so no device value is read."""
+    y = ydef
+    y_incre = ~(y[-1] < y[0])
+    ctr_var = torch.broadcast_to(y[:, None], mask.shape)
+    ctr_var = torch.where(mask == 1, ctr_var,
+                          torch.full_like(ctr_var, float("nan")))
+    w = torch.broadcast_to(dA, mask.shape)
+    cdf_lt = weighted_cdf(ctr_var, y, w, lt)
+    cdf_gt = weighted_cdf(ctr_var, y, w, not lt)
+    values = torch.where(y_incre == increase, cdf_lt, cdf_gt)
+    return Table(values=values, coords=ydef)
+
+
+def cal_gradient_wrt_area(var, area):
+    """dVar/dA via centered differences along the contour index (0/0 gives
+    NaN, x/0 inf: the plain division)."""
+    return gradient_index(var, -1) / gradient_index(area, -1)
+
+
+def cal_sqared_equivalent_length(dgrdSdA, dqdA):
+    """Leq^2 = (d int|grad q|^2 dA / dA) / (dq/dA)^2.  (The name keeps the
+    reference API's typo.)"""
+    return dgrdSdA / (dqdA * dqdA)
+
+
+def cal_normalized_Keff(Leq2, Lmin, mask: float = 1e5):
+    """nkeff = Leq^2 / Lmin / Lmin, NaN at and above ``mask``.  Two
+    sequential divisions, not /(Lmin*Lmin): that is how the reference and
+    the float64 oracle round, and the fused form can flip the threshold."""
+    nkeff = Leq2 / Lmin / Lmin
+    return torch.where(nkeff < mask, nkeff,
+                       torch.full_like(nkeff, float("nan")))
+
+
+def interp_to_coords(predef, eq_coords, var):
+    """Remap a contour-indexed variable (..., N) onto prescribed coordinate
+    values; the direction of ``eq_coords`` is taken from its first batch
+    element, like the reference."""
+    flat = eq_coords.reshape(-1, eq_coords.shape[-1])
+    return interp1d(predef, eq_coords, var,
+                    increasing=flat[0, 0] < flat[0, -1])

@@ -1,0 +1,1 @@
+"""diagnostics of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,76 @@
+"""Local finite-amplitude wave activity (LWA, Huang-Nakamura 2016).
+
+Counterpart of ``xcontour_tpu/diagnostics/lwa.py`` for ``local_wave_activity``
+with the 'lin' and 'dense' methods.  'lin' runs the K3 wrapper (the exact
+mask linearization for part='all': 4 ops per pair, float32 noise floor
+~5e-5 of the field max); 'dense' runs the K4 wrapper (the reference's
+pairwise 3-valued mask and summation order, ~1e-6, any part).
+
+The kernels and their plain versions (the JAX package's ``_lwa_lin_xla``
+and ``_lwa_dense_xla``) live side by side in ``kernels/lwa.py``.
+
+Conventions: fields are (..., Ny, Nx) with the equivalent dim at axis -2;
+sorted profiles Q are (..., Ny).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..kernels import lwa as _kl
+
+
+def nanmax(t: torch.Tensor) -> torch.Tensor:
+    """Maximum over all elements, skipping NaN (NaN if all are NaN)."""
+    return torch.where(torch.isnan(t), float("-inf"), t).amax().where(
+        ~torch.isnan(t).all(), float("nan"))
+
+
+def _resolve_method(method: str, part: str) -> str:
+    """'auto' gives 'dense' for part selections and 'lin' otherwise, at every
+    Ny.  'fast' (the sort-merge path) is not ported: ROADMAP Queue 1 item 13,
+    which also re-measures its crossover on the H100."""
+    if method not in ("auto", "lin", "dense", "fast"):
+        raise ValueError(f"method={method!r} not in "
+                         "['auto', 'lin', 'dense', 'fast']")
+    if method == "fast":
+        raise NotImplementedError(
+            "lwa method 'fast' (sort-merge) is not ported yet: ROADMAP "
+            "Queue 1 item 13")
+    if method == "auto":
+        return "dense" if part != "all" else "lin"
+    if method == "lin" and part != "all":
+        raise ValueError("method='lin' only supports part='all' "
+                         "(W+/W- selections multiply the two indicators)")
+    return method
+
+
+def local_wave_activity(q: torch.Tensor, Q: torch.Tensor, dA: torch.Tensor,
+                        ydef: torch.Tensor, *, increase: bool,
+                        part: str = "all",
+                        weight: Optional[torch.Tensor] = None,
+                        method: str = "auto") -> torch.Tensor:
+    """LWA (..., Ny, Nx) with the surface index j along axis -2.
+
+    q : (..., Ny, Nx) tracer;  Q : (..., Ny) sorted profile on ``ydef``;
+    dA : (Ny, Nx) cell areas;  ydef : (Ny,), strictly monotone.
+    ``weight`` is the composed integration weight W(y, x); the default is
+    the reference's wei*dA with wei = dA/max(dA).
+    """
+    part = part.lower()
+    method = _resolve_method(method, part)
+    W = dA / nanmax(dA) * dA if weight is None else weight
+    batch = q.shape[:-2]
+    Ny, Nx = q.shape[-2:]
+    if ydef.shape != (Ny,):
+        raise ValueError(f"ydef {tuple(ydef.shape)} does not match Ny={Ny}")
+    qf = q.reshape(-1, Ny, Nx).contiguous()
+    Qf = torch.broadcast_to(Q, batch + (Ny,)).reshape(-1, Ny).contiguous()
+    W = torch.broadcast_to(W, (Ny, Nx)).contiguous()
+    if method == "lin":
+        out = _kl.lwa_lin(qf, Qf, W, increase=increase)
+    else:
+        out = _kl.lwa_dense(qf, Qf, W, increase=increase, part=part)
+    return out.reshape(batch + (Ny, Nx))

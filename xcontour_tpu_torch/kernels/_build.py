@@ -1,0 +1,106 @@
+"""Build the CUDA sources into one shared library and bind it with ctypes.
+
+At first use, ``nvcc`` compiles every ``xcontour_tpu_torch/csrc/*.cu`` into
+``build/xcontour_tpu_torch/libxcontour_<hash>.so`` beside the package (the
+hash covers the sources and flags, so an edit rebuilds).  The library has a
+plain C interface: pointers and the stream are ``void*``, sizes ``int``,
+and every entry point returns the launch's ``cudaGetLastError()``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "xcontour_tpu_torch"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+P, I = ctypes.c_void_p, ctypes.c_int
+
+# C entry points: name -> argtypes (restype is int, a cudaError_t)
+SIGNATURES = {
+    # q, rdx, rdy, out, B, Ny, Nx, periodic_x, bc_y, stream
+    "xc_squared_gradient": [P, P, P, P, I, I, I, I, I, P],
+    # values, edges, weights, partial, out, B, G, N, C, nblk, chunk, stream
+    "xc_weighted_cdf": [P, P, P, P, P, I, I, I, I, I, I, P],
+    # qc, Wz, Qt, Qc, qk, Wv, E, out, B, Ny, Nx, increase, stream
+    "xc_lwa_lin": [P, P, P, P, P, P, P, P, I, I, I, I, P],
+    # q, Wz, Q, out, B, Ny, Nx, increase, part, stream
+    "xc_lwa_dense": [P, P, P, P, I, I, I, I, I, P],
+}
+
+_LIB = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _digest(srcs) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the library if this exact source set has not been built;
+    return its path.  The compiler's output (``-Xptxas -v``: registers,
+    shared memory, spills per kernel) is kept beside it, see
+    :func:`build_log`."""
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    out = BUILD_DIR / f"libxcontour_{_digest(srcs)}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def build_log() -> str:
+    """The compiler's output for the current library (building it first)."""
+    return build().with_suffix(".log").read_text()
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB

@@ -1,0 +1,86 @@
+"""K2: the direct multi-channel weighted CDF (CUDA: ``csrc/hist.cu``).
+
+Replaces ``xcontour_tpu/kernels/hist_pallas.py`` (``_kernel``, launched by
+``histogram_pallas_multi`` and ``histogram_pallas``):
+
+    out[b, c, k] = sum of weights[b, c, g] over cells with
+                   edges[b, 0] <= values[b, g] < edges[b, k + 1]
+
+with the top edge inclusive at k = N-1.  NaN values and NaN weights add
+nothing.  The kernel digitizes each value once, by binary search against the
+edges, and adds every channel's weight into that bin; the plain version is
+the digitize + segment-sum + cumsum form of ``_edges_cdf_xla``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import Kernel, check_cuda_inputs, check_status, stream_handle
+
+KERNEL = Kernel("weighted_cdf", "xcontour_tpu_torch/csrc/hist.cu",
+                "xcontour_tpu/kernels/hist_pallas.py:31")
+
+# cells each block of the first pass digitizes (32 per thread at 256 threads)
+_CHUNK = 8192
+# the first pass holds the edges and a (C, N) histogram in shared memory
+_SMEM_LIMIT = 227 * 1024
+
+
+def weighted_cdf_plain(values: torch.Tensor, edges: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+    """values (B, G); edges (B, N+1) ascending; weights (B, C, G) ->
+    (B, C, N) ascending CDF."""
+    B, C, G = weights.shape
+    N = edges.shape[-1] - 1
+    # searchsorted(side='right') - 1, the top edge inclusive; valid where
+    # edges[0] <= v <= edges[N] (never NaN)
+    idx = torch.searchsorted(edges.contiguous(), values.contiguous(),
+                             right=True) - 1
+    top = edges[:, -1:]
+    idx = torch.where(values == top, N - 1, idx).clamp(0, N - 1)
+    valid = (values >= edges[:, :1]) & (values <= top)
+    w = torch.where(torch.isnan(weights) | ~valid[:, None, :],
+                    torch.zeros_like(weights), weights)
+    hist = torch.zeros((B, C, N), dtype=weights.dtype, device=weights.device)
+    hist.scatter_add_(2, idx[:, None, :].expand(B, C, G), w)
+    return torch.cumsum(hist, dim=-1)
+
+
+def weighted_cdf(values: torch.Tensor, edges: torch.Tensor,
+                 weights: torch.Tensor) -> torch.Tensor:
+    """Multi-channel ascending CDF, (B, G) x (B, N+1) x (B, C, G) ->
+    (B, C, N).  CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
+    if values.device.type == "cpu":
+        return weighted_cdf_plain(values, edges, weights)
+    check_cuda_inputs(KERNEL.name, values=values, edges=edges,
+                      weights=weights)
+    if values.dim() != 2 or edges.dim() != 2 or weights.dim() != 3:
+        raise ValueError(f"{KERNEL.name}: expected values (B, G), edges "
+                         "(B, N+1), weights (B, C, G)")
+    B, G = values.shape
+    C = weights.shape[1]
+    N = edges.shape[1] - 1
+    if edges.shape[0] != B or weights.shape[0] != B or weights.shape[2] != G:
+        raise ValueError(f"{KERNEL.name}: shapes {tuple(values.shape)}, "
+                         f"{tuple(edges.shape)}, {tuple(weights.shape)} disagree")
+    if N < 1 or C < 1:
+        raise ValueError(f"{KERNEL.name}: need N >= 1 bins and C >= 1 channels")
+    if (N + 1 + C * N) * 4 > _SMEM_LIMIT:
+        raise ValueError(f"{KERNEL.name}: {C} channels x {N} bins exceed "
+                         "the shared-memory histogram")
+    if B * C * G >= 2 ** 31:
+        raise ValueError(f"{KERNEL.name}: more than 2^31 weights")
+    from ._build import library
+    nblk = -(-G // _CHUNK)
+    partial = torch.empty((B, nblk, C, N), dtype=values.dtype,
+                          device=values.device)
+    out = torch.empty((B, C, N), dtype=values.dtype, device=values.device)
+    status = library().xc_weighted_cdf(
+        values.data_ptr(), edges.data_ptr(), weights.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), B, G, N, C, nblk, _CHUNK,
+        stream_handle())
+    check_status(KERNEL.name, status)
+    KERNEL.launches += 1
+    return out

@@ -1,0 +1,63 @@
+"""Finite-difference gradients on the analysis plane.
+
+Counterpart of ``xcontour_tpu/ops/stencil.py``: second-order centered
+differences, periodic or extended x boundaries, y walls per ``bc_y``, and
+the spherical metric dx = R cos(lat) dlon.  :func:`squared_gradient` runs
+the K1 kernel wrapper (:mod:`..kernels.stencil`) at every size.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..grid import Grid
+from ..kernels import stencil as _k1
+from ..kernels.stencil import _centered_x, _centered_y
+from .gradient import gradient_index
+from ..utils.constants import Rearth as _REARTH
+
+
+def _spacing(grid: Grid, dtype):
+    """Physical grid spacings (np.gradient of the coordinate vectors),
+    computed in ``dtype`` like the JAX package: at the poles of a lat/lon
+    grid cos(lat) is then tiny but not zero in float32, so |grad q|^2 stays
+    finite there."""
+    y = grid.ydef.to(dtype)
+    x = grid.xdef.to(dtype)
+    gy = gradient_index(y)
+    gx = gradient_index(x)
+    if grid.latlon:
+        d2r = np.pi / 180.0
+        dy = gy * d2r * _REARTH
+        dx = torch.cos(y * d2r)[:, None] * (gx * d2r * _REARTH)[None, :]
+    else:
+        dy = gy
+        dx = torch.broadcast_to(gx[None, :], (y.shape[0], x.shape[0]))
+    return dy, dx
+
+
+def gradient(q: torch.Tensor, grid: Grid, bc_y: str | None = None):
+    """(dq/dy, dq/dx) in physical units on the plane (..., Ny, Nx).
+    ``bc_y`` None selects the grid's."""
+    if bc_y is None:
+        bc_y = grid.bc_y
+    dy, dx = _spacing(grid, q.dtype)
+    qx = _centered_x(q, grid.periodic_x) / dx
+    qy = _centered_y(q, bc_y) / dy[:, None]
+    return qy, qx
+
+
+def squared_gradient(q: torch.Tensor, grid: Grid,
+                     bc_y: str | None = None) -> torch.Tensor:
+    """|grad q|^2 (the Keff integrand) of (..., Ny, Nx) snapshots, through
+    the K1 wrapper (reciprocal spacings, multiplied)."""
+    if bc_y is None:
+        bc_y = grid.bc_y
+    dy, dx = _spacing(grid, q.dtype)
+    Ny, Nx = q.shape[-2:]
+    rdx = (1.0 / dx).contiguous()
+    rdy = (1.0 / dy).contiguous()
+    out = _k1.squared_gradient(q.reshape(-1, Ny, Nx).contiguous(), rdx, rdy,
+                               periodic_x=grid.periodic_x, bc_y=bc_y)
+    return out.reshape(q.shape)
