@@ -1,7 +1,8 @@
 """The port's grid metrics and synthetic data against the JAX package.
 
 The metric maths is float64 numpy in both packages, so in float64 every
-leaf must agree bit for bit; ``synth_pv`` must return identical arrays.
+leaf must agree bit for bit; ``synth_pv`` and ``synth_internalwave`` must
+return identical arrays.
 """
 
 import dataclasses
@@ -12,9 +13,10 @@ import pytest
 import torch
 
 from xcontour_tpu import grid as jgrid
+from xcontour_tpu.utils.synth import synth_internalwave as jax_synth_iw
 from xcontour_tpu.utils.synth import synth_pv as jax_synth_pv
 import xcontour_tpu_torch as xt
-from xcontour_tpu_torch.utils.synth import synth_pv
+from xcontour_tpu_torch.utils.synth import synth_internalwave, synth_pv
 
 LEAVES = ("ydef", "xdef", "dA", "dxF", "dyF", "mask")
 STATIC = ("dim_names", "latlon", "periodic_x", "bc_y")
@@ -113,3 +115,37 @@ def test_synth_pv_matches_jax_package(nlev, nlat, nlon, seed):
     for k in want:
         assert got[k].dtype == want[k].dtype, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("nt,nz,nx,seed", [(3, 100, 448, 2), (5, 24, 40, 9)])
+def test_synth_internalwave_matches_jax_package(nt, nz, nx, seed):
+    got, dims = synth_internalwave(nt=nt, nz=nz, nx=nx, seed=seed)
+    want, wdims = jax_synth_iw(nt=nt, nz=nz, nx=nx, seed=seed)
+    assert dims == wdims and got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("partial,periodic", [(True, True), (False, False)])
+def test_from_xz_matches_jax_bitwise(partial, periodic):
+    """The MITgcm x-z plane: decreasing Z, partial bottom cells (hFacC in
+    (0, 1)) and the fluid mask, in float64 bit for bit; float32 equals the
+    port's own cast."""
+    v, _ = synth_internalwave(nt=1, nz=30, nx=56, seed=4)
+    hf = v["hFacC"] if partial else None
+    mask = v["maskC"] if partial else None
+    kw = dict(hFacC=hf, mask=mask, periodic_x=periodic)
+    jg = jgrid.from_xz(v["Z"], v["XC"], dtype=jnp.float64, **kw)
+    tg = xt.from_xz(v["Z"], v["XC"], dtype=torch.float64, **kw)
+    _assert_same_grid(jg, tg)
+    assert tg.dim_names == ("Z", "XC") and not tg.latlon
+    assert bool(tg.ydef[0] > tg.ydef[-1])              # z decreases
+    if partial:
+        frac = (v["hFacC"] > 0) & (v["hFacC"] < 1)
+        assert frac.any()
+        np.testing.assert_allclose(
+            tg.dA.numpy(), v["yA"].astype(np.float64), rtol=1e-5)
+    t32 = xt.from_xz(v["Z"], v["XC"], dtype=torch.float32, **kw)
+    for name in ("ydef", "xdef", "dA", "dxF", "dyF"):
+        assert torch.equal(getattr(t32, name), getattr(tg, name).float()), name

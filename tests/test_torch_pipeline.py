@@ -5,7 +5,8 @@ Every output key is compared, NaN patterns included.  Tolerances, relative
 to each key's largest magnitude: float64 1e-10 (summation order only);
 float32 2e-5 for the sorted state (contours, areas, Yeq, Lmin, Q), 1e-4 for
 Leq2 and nkeff (differences of CDFs along the contour index amplify the
-order-of-summation noise), and the 'lin' floor 1.5e-4 for lwa.
+order-of-summation noise), and the 'lin' floors 1.5e-4 for lwa and 5e-5 for
+lwa2 (``test_torch_lwa2``).
 """
 
 import os
@@ -27,7 +28,9 @@ from xcontour_tpu_torch import kernels
 from xcontour_tpu_torch.kernels import hist, lwa, stencil
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-F32_TOL = dict(Leq2=1e-4, nkeff=1e-4, lwa=1.5e-4, Leq2_at=1e-4, nkeff_at=1e-4)
+F32_TOL = dict(Leq2=1e-4, nkeff=1e-4, lwa=1.5e-4, Leq2_at=1e-4, nkeff_at=1e-4,
+               lwa2=5e-5, dgrdSdA=1e-4, dqdA=1e-4, dgrdSdA_at=1e-4,
+               dqdA_at=1e-4)
 
 
 def _inputs(nlat=40, nlon=64, masked=False, seed=1):
@@ -43,7 +46,7 @@ def _inputs(nlat=40, nlon=64, masked=False, seed=1):
     return lat, lon, q, mask
 
 
-def _compare(got, want, dtype):
+def _compare(got, want, dtype, f32_tol=F32_TOL):
     assert set(got) == set(want)
     for k in want:
         a = got[k].numpy()
@@ -52,7 +55,7 @@ def _compare(got, want, dtype):
         assert np.array_equal(np.isnan(a), np.isnan(b)), k
         m = np.isfinite(b)
         assert np.array_equal(m, np.isfinite(a)), k
-        tol = 1e-10 if dtype == "f64" else F32_TOL.get(k, 2e-5)
+        tol = 1e-10 if dtype == "f64" else f32_tol.get(k, 2e-5)
         scale = np.abs(b[m]).max() if m.any() else 1.0
         np.testing.assert_allclose(a[m], b[m], rtol=0, atol=tol * scale,
                                    err_msg=k)
@@ -124,16 +127,20 @@ def test_mixed_direction_table_raises():
 def test_unported_options_raise():
     lat, lon, q, _ = _inputs(nlat=16, nlon=32)
     tg = xt.from_latlon(lat, lon, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="K5"):
-        xt.keff_lwa_pipeline(torch.as_tensor(q), tg, N=9, with_lwa2=True)
+    out = xt.keff_lwa_pipeline(torch.as_tensor(q), tg, N=9, with_lwa2=True)
+    assert out["lwa2"].shape == q.shape
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         xt.keff_lwa_pipeline(torch.as_tensor(q), tg, N=9, lwa_method="fast")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        xt.keff_lwa_pipeline(torch.as_tensor(q), tg, N=9, with_lwa2=True,
+                             lwa_method="fast")
     with pytest.raises(ValueError, match="lmin"):
         xt.keff_lwa_pipeline(torch.as_tensor(q), tg, N=9, lmin="exact")
 
 
 def test_cpu_tensors_launch_no_kernel():
-    records = [stencil.KERNEL, hist.KERNEL, lwa.KERNEL_LIN, lwa.KERNEL_DENSE]
+    records = [stencil.KERNEL, hist.KERNEL, lwa.KERNEL_LIN, lwa.KERNEL_DENSE,
+               lwa.KERNEL_LIN2, lwa.KERNEL_DENSE_TALL]
     assert all(isinstance(r, kernels.Kernel) for r in records)
     for r in records:
         r.launches = 0
@@ -141,9 +148,9 @@ def test_cpu_tensors_launch_no_kernel():
     tg = xt.from_latlon(lat, lon, dtype=torch.float32)
     for method in ("auto", "dense"):
         out = xt.keff_lwa_pipeline(torch.as_tensor(q).float(), tg, N=17,
-                                   lwa_method=method)
-        assert out["lwa"].shape == q.shape
-    assert [r.launches for r in records] == [0, 0, 0, 0]
+                                   lwa_method=method, with_lwa2=True)
+        assert out["lwa"].shape == out["lwa2"].shape == q.shape
+    assert [r.launches for r in records] == [0] * len(records)
 
 
 def test_package_imports_without_jax():

@@ -1,9 +1,9 @@
 """Contour-space core: the conservative-rearrangement engine.
 
-Counterpart of the subset of ``xcontour_tpu/core.py`` that the Keff+LWA step
-uses: contour levels, the histogram conditional integrals, the A(Y_eq)
-lookup table, and the Keff algebra (d/dA, Leq^2, normalized Keff) plus the
-contour -> coordinate interpolation.
+Counterpart of the subset of ``xcontour_tpu/core.py`` that the Keff/LWA
+pipelines use: contour levels, the conditional integrals (histogram and
+broadcast paths), the A(Y_eq) lookup tables, and the Keff algebra (d/dA,
+Leq^2, normalized Keff) plus the contour -> coordinate interpolation.
 
 Array conventions: plane fields (..., Ny, Nx) with the equivalent dim at
 axis -2; contour-space tensors (..., N) with the contour index last.
@@ -48,6 +48,31 @@ def cal_integral_within_contours_hist(tracer, contours, dA, integrand=None, *,
     wei = dA if integrand is None else integrand * dA
     return weighted_cdf(tracer, contours, torch.broadcast_to(wei, tracer.shape),
                         lt)
+
+
+# contour levels per step of the broadcast paths: bounds their
+# (..., chunk, Ny, Nx) temporaries
+_CHUNK = 16
+
+
+def cal_integral_within_contours(tracer, contours, dA, integrand=None, *,
+                                 lt: bool = False):
+    """Broadcast path: for each contour C, the NaN-skipping integral of
+    ``integrand`` * dA where tracer < C (``lt``) or > C, chunked over
+    contour levels."""
+    if integrand is None:
+        integrand = tracer - tracer + 1.0     # NaN where the tracer is NaN
+    batch = tracer.shape[:-2]
+    ctr = torch.broadcast_to(contours, batch + contours.shape[-1:])
+    f_dA = (integrand * dA)[..., None, :, :]
+    t = tracer[..., None, :, :]
+    zero = torch.zeros((), dtype=f_dA.dtype, device=f_dA.device)
+    outs = []
+    for k in range(0, ctr.shape[-1], _CHUNK):
+        c = ctr[..., k:k + _CHUNK, None, None]            # (..., c, 1, 1)
+        cond = t < c if lt else t > c
+        outs.append(torch.nansum(torch.where(cond, f_dA, zero), dim=(-2, -1)))
+    return torch.cat(outs, dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +120,33 @@ class Table:
         """Given coordinates (x), return values (y)."""
         inc_cd = self.coords[-1] > self.coords[0]
         return interp1d(coords, self.coords, self.values, increasing=inc_cd)
+
+
+def cal_area_eqCoord_table(mask, ydef, dA, *, increase: bool,
+                           lt: bool) -> Table:
+    """Conditional-integration A(y_eq) table: for each surface y_j, the
+    fluid area on one side of it, the side set by the coordinate's
+    direction relative to ``increase`` and by ``lt``, chunked over
+    surfaces.  The increasing end is forced to the total fluid area."""
+    y = ydef
+    # the area where y < y_j, or where y > y_j; selected on the device
+    below = ((y[-1] > y[0]) == increase) == lt
+    mdA = (mask * dA)[..., None, :, :]
+    zero = torch.zeros((), dtype=mdA.dtype, device=mdA.device)
+    outs = []
+    for k in range(0, y.shape[0], _CHUNK):
+        yj = y[k:k + _CHUNK, None]                          # (c, 1)
+        cond = torch.where(below, y[None, :] < yj, y[None, :] > yj)
+        w = torch.where(cond[:, :, None], mdA, zero)       # (..., c, Ny, Nx)
+        outs.append(torch.abs(torch.nansum(w, dim=(-2, -1))))
+    tbl = torch.cat(outs, dim=-1)
+    max_area = torch.abs(torch.nansum(mask * dA, dim=(-2, -1)))
+    incr = tbl[..., -1] > tbl[..., 0]
+    last = torch.where(incr, max_area, tbl[..., -1])
+    first = torch.where(incr, tbl[..., 0], max_area)
+    tbl[..., -1] = last
+    tbl[..., 0] = first
+    return Table(values=tbl, coords=ydef)
 
 
 def cal_area_eqCoord_table_hist(mask, ydef, dA, *, increase: bool,

@@ -1,10 +1,11 @@
 """Local finite-amplitude wave activity (LWA, Huang-Nakamura 2016).
 
 Counterpart of ``xcontour_tpu/diagnostics/lwa.py`` for ``local_wave_activity``
-with the 'lin' and 'dense' methods.  'lin' runs the K3 wrapper (the exact
-mask linearization for part='all': 4 ops per pair, float32 noise floor
-~5e-5 of the field max); 'dense' runs the K4 wrapper (the reference's
-pairwise 3-valued mask and summation order, ~1e-6, any part).
+and ``local_wave_activity2`` (the impulse-Casimir variant) with the 'lin'
+and 'dense' methods.  'lin' runs the K3 (LWA) or K5 (LWA2) wrapper (the
+exact mask linearization for part='all': 4 ops per pair, float32 noise
+floor ~5e-5 of the field max); 'dense' runs the K4 wrapper (the
+reference's pairwise 3-valued mask and summation order, ~1e-6, any part).
 
 The kernels and their plain versions (the JAX package's ``_lwa_lin_xla``
 and ``_lwa_dense_xla``) live side by side in ``kernels/lwa.py``.
@@ -47,6 +48,26 @@ def _resolve_method(method: str, part: str) -> str:
     return method
 
 
+def _lwa(q, Q, dA, ydef, increase, part, weight, method, variant2):
+    part = part.lower()
+    method = _resolve_method(method, part)
+    W = dA / nanmax(dA) * dA if weight is None else weight
+    batch = q.shape[:-2]
+    Ny, Nx = q.shape[-2:]
+    if ydef.shape != (Ny,):
+        raise ValueError(f"ydef {tuple(ydef.shape)} does not match Ny={Ny}")
+    qf = q.reshape(-1, Ny, Nx).contiguous()
+    Qf = torch.broadcast_to(Q, batch + (Ny,)).reshape(-1, Ny).contiguous()
+    W = torch.broadcast_to(W, (Ny, Nx)).contiguous()
+    if method == "lin":
+        lin = _kl.lwa_lin2 if variant2 else _kl.lwa_lin
+        out = lin(qf, Qf, W, increase=increase)
+    else:
+        out = _kl.lwa_dense(qf, Qf, W, increase=increase, part=part,
+                            variant2=variant2)
+    return out.reshape(batch + (Ny, Nx))
+
+
 def local_wave_activity(q: torch.Tensor, Q: torch.Tensor, dA: torch.Tensor,
                         ydef: torch.Tensor, *, increase: bool,
                         part: str = "all",
@@ -59,18 +80,15 @@ def local_wave_activity(q: torch.Tensor, Q: torch.Tensor, dA: torch.Tensor,
     ``weight`` is the composed integration weight W(y, x); the default is
     the reference's wei*dA with wei = dA/max(dA).
     """
-    part = part.lower()
-    method = _resolve_method(method, part)
-    W = dA / nanmax(dA) * dA if weight is None else weight
-    batch = q.shape[:-2]
-    Ny, Nx = q.shape[-2:]
-    if ydef.shape != (Ny,):
-        raise ValueError(f"ydef {tuple(ydef.shape)} does not match Ny={Ny}")
-    qf = q.reshape(-1, Ny, Nx).contiguous()
-    Qf = torch.broadcast_to(Q, batch + (Ny,)).reshape(-1, Ny).contiguous()
-    W = torch.broadcast_to(W, (Ny, Nx)).contiguous()
-    if method == "lin":
-        out = _kl.lwa_lin(qf, Qf, W, increase=increase)
-    else:
-        out = _kl.lwa_dense(qf, Qf, W, increase=increase, part=part)
-    return out.reshape(batch + (Ny, Nx))
+    return _lwa(q, Q, dA, ydef, increase, part, weight, method, False)
+
+
+def local_wave_activity2(q: torch.Tensor, Q: torch.Tensor, dA: torch.Tensor,
+                         ydef: torch.Tensor, *, increase: bool,
+                         part: str = "all",
+                         weight: Optional[torch.Tensor] = None,
+                         method: str = "auto") -> torch.Tensor:
+    """Impulse-Casimir LWA2: qe = q(y_j, x) - Q(y), the mask built with the
+    flipped ``increase`` flag while the part selection keeps the original.
+    Arguments as in :func:`local_wave_activity`."""
+    return _lwa(q, Q, dA, ydef, increase, part, weight, method, True)

@@ -159,6 +159,32 @@ def from_cartesian(y, x, mask: Optional[np.ndarray] = None,
         dim_names=dim_names, latlon=False, periodic_x=periodic_x)
 
 
+def from_xz(z, x, hFacC: Optional[np.ndarray] = None,
+            mask: Optional[np.ndarray] = None,
+            dim_names: Tuple[str, str] = ("Z", "XC"),
+            periodic_x: bool = True, dtype=torch.float32,
+            device=None) -> Grid:
+    """Vertical-plane (X-Z) metrics, MITgcm style: ``dA`` is the face area
+    yA = drF * hFacC * dxF with partial cells, ``dyF`` = drF * hFacC, and
+    drF comes from the center spacing with the first level mirrored.  The
+    depth coordinate may decrease (MITgcm's Z runs 0 -> -H)."""
+    z = np.asarray(z, np.float64)
+    x = np.asarray(x, np.float64)
+    dx = np.abs(np.diff(_edges_from_centers(x)))
+    tmp = np.diff(z)
+    tmp = np.concatenate([[z[0] - tmp[0]], z])
+    drF = np.abs(np.diff(tmp))
+    hf = np.ones((z.size, x.size)) if hFacC is None else np.asarray(hFacC, np.float64)
+    yA = drF[:, None] * hf * dx[None, :]
+    return Grid(
+        ydef=_tensor(z, dtype, device), xdef=_tensor(x, dtype, device),
+        dA=_tensor(yA, dtype, device),
+        dxF=_tensor(np.broadcast_to(dx[None, :], yA.shape), dtype, device),
+        dyF=_tensor(np.broadcast_to(drF[:, None], yA.shape) * hf, dtype, device),
+        mask=None if mask is None else _tensor(mask, dtype, device),
+        dim_names=dim_names, latlon=False, periodic_x=periodic_x)
+
+
 def from_metrics(ydef, xdef, dA, dxF=None, dyF=None, mask=None,
                  dim_names: Tuple[str, str] = ("y", "x"), latlon: bool = False,
                  periodic_x: bool = False, dtype=torch.float32,

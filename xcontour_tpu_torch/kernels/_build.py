@@ -1,6 +1,7 @@
 """Build the CUDA sources into one shared library and bind it with ctypes.
 
-At first use, ``nvcc`` compiles every ``xcontour_tpu_torch/csrc/*.cu`` into
+At first use, one ``nvcc`` per ``xcontour_tpu_torch/csrc/*.cu``, all started
+together, compiles the sources, and a last one links them into
 ``build/xcontour_tpu_torch/libxcontour_<hash>.so`` beside the package (the
 hash covers the sources and flags, so an edit rebuilds).  The library has a
 plain C interface: pointers and the stream are ``void*``, sizes ``int``,
@@ -22,7 +23,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "xcontour_tpu_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I = ctypes.c_void_p, ctypes.c_int
 
@@ -34,8 +35,10 @@ SIGNATURES = {
     "xc_weighted_cdf": [P, P, P, P, P, I, I, I, I, I, I, P],
     # qc, Wz, Qt, Qc, qk, Wv, E, out, B, Ny, Nx, increase, stream
     "xc_lwa_lin": [P, P, P, P, P, P, P, P, I, I, I, I, P],
-    # q, Wz, Q, out, B, Ny, Nx, increase, part, stream
-    "xc_lwa_dense": [P, P, P, P, I, I, I, I, I, P],
+    # q, Wz, Q, out, B, Ny, Nx, increase, part, variant2, stream
+    "xc_lwa_dense": [P, P, P, P, I, I, I, I, I, I, P],
+    # q, Q, W, c0, E, out, B, Ny, Nx, increase, stream
+    "xc_lwa_lin2": [P, P, P, P, P, P, I, I, I, I, P],
 }
 
 _LIB = None
@@ -64,7 +67,7 @@ def _digest(srcs) -> str:
 
 def build() -> Path:
     """Compile the library if this exact source set has not been built;
-    return its path.  The compiler's output (``-Xptxas -v``: registers,
+    return its path.  The compilers' output (``-Xptxas -v``: registers,
     shared memory, spills per kernel) is kept beside it, see
     :func:`build_log`."""
     srcs = sorted(CSRC_DIR.glob("*.cu"))
@@ -72,19 +75,26 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (s.stem + ".o") for s in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [s.name for s, p in zip(srcs, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        lib = Path(tmp) / out.name
+        proc = subprocess.run([nvcc, "-shared", "-o", str(lib),
+                               *map(str, objs)], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
         out.with_suffix(".log").write_text(log)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        os.replace(lib, out)
     return out
 
 

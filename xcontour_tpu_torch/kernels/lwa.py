@@ -1,15 +1,21 @@
-"""K3 and K4: local wave activity kernels (CUDA: ``csrc/lwa.cu``).
+"""K3-K6: local wave activity kernels (CUDA: ``csrc/lwa.cu``).
 
 K3 (:func:`lwa_lin`) replaces ``_kernel_lin`` of
 ``xcontour_tpu/kernels/lwa_pallas.py``: the linearized part='all' LWA,
 -(R_j + E[j]), after centering on the profile midpoint.  Its plain version
 is the JAX package's ``_lwa_lin_xla``.
 
+K5 (:func:`lwa_lin2`) replaces ``_kernel_lin2`` of the same file: the
+linearized part='all' impulse-Casimir LWA2, qe = q(y_j, x) - Q(y).  Its
+plain version is ``_lwa_lin_xla(variant2=True)``.
+
 K4 (:func:`lwa_dense`) replaces ``_kernel`` of the same file (pairwise,
-variant2=False): the reference's 3-valued mask times qe*W summed over y,
+both variants): the reference's 3-valued mask times qe*W summed over y,
 parts all/upper/lower.  Its plain version is ``_lwa_dense_xla``.  Both the
 kernel and the plain version zero NaN weights like ``_lwa_dense_xla`` (the
-TPU kernel does not).
+TPU kernel does not).  K6 replaces ``_kernel_yblocked``, the TPU's form of
+the same sum for Ny > 3072; here one CUDA kernel serves every Ny, and a
+launch at such a Ny counts as K6's.
 
 Shapes: q (B, Ny, Nx) tracer, Q (B, Ny) sorted profile, W (Ny, Nx) composed
 weight -> (B, Ny, Nx), surface index j along axis 1.  The surface mask is
@@ -26,20 +32,33 @@ KERNEL_LIN = Kernel("lwa_lin", "xcontour_tpu_torch/csrc/lwa.cu",
                     "xcontour_tpu/kernels/lwa_pallas.py:86")
 KERNEL_DENSE = Kernel("lwa_dense", "xcontour_tpu_torch/csrc/lwa.cu",
                       "xcontour_tpu/kernels/lwa_pallas.py:216")
+KERNEL_LIN2 = Kernel("lwa_lin2", "xcontour_tpu_torch/csrc/lwa.cu",
+                     "xcontour_tpu/kernels/lwa_pallas.py:157")
+KERNEL_DENSE_TALL = Kernel("lwa_dense_tall", "xcontour_tpu_torch/csrc/lwa.cu",
+                           "xcontour_tpu/kernels/lwa_pallas.py:262")
 
 _PARTS = {"all": 0, "upper": 1, "lower": 2}
+
+# the JAX package's y-blocked regime: a (Ny, 128) float32 panel over its
+# 1.5 MB VMEM budget (lwa_pallas.py:430)
+TALL_NY = 3072
+
+
+def _shift(Q):
+    """Mean of each profile's finite values (0 for an all-invalid one)."""
+    validQ = torch.isfinite(Q)
+    mean = torch.nanmean(torch.where(validQ, Q, torch.full_like(Q, float("nan"))), -1)
+    return torch.where(validQ.any(-1), mean, torch.zeros_like(mean))
 
 
 def _center(q, Q):
     """Shift by the mean of the finite profile values (exact for LWA: the
     mask depends only on sign(q - Q_j)); it keeps the R and E terms from
     cancelling large magnitudes in float32."""
-    validQ = torch.isfinite(Q)
-    mean = torch.nanmean(torch.where(validQ, Q, torch.full_like(Q, float("nan"))), -1)
-    c0 = torch.where(validQ.any(-1), mean, torch.zeros_like(mean)).to(q.dtype)
+    c0 = _shift(Q).to(q.dtype)
     qc = q - c0[:, None, None]
     Qc = Q - c0[:, None]
-    Qt = torch.where(validQ, Qc, torch.zeros_like(Qc))
+    Qt = torch.where(torch.isfinite(Q), Qc, torch.zeros_like(Qc))
     return qc, Qc, Qt
 
 
@@ -52,12 +71,18 @@ def _surface_chunks(Ny: int):
     return [slice(j, min(Ny, j + _CHUNK)) for j in range(0, Ny, _CHUNK)]
 
 
+def _prefix_E(inc):
+    """E[0] = 0, E[j] = sum of the increments below j, along axis 1."""
+    B, _, Nx = inc.shape
+    zero = torch.zeros((B, 1, Nx), dtype=inc.dtype, device=inc.device)
+    return torch.cat([zero, torch.cumsum(inc, dim=1)], dim=1)
+
+
 def lwa_lin_plain(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
                   increase: bool) -> torch.Tensor:
     """Linearized part='all' LWA in plain PyTorch (``_lwa_lin_xla``): the
     E t-term by the telescoping recurrence plus a chunked 4-op c-term
     reduction per surface."""
-    B, Ny, Nx = q.shape
     qc, Qc, Qt = _center(q, Q)
     sent = float("inf") if increase else float("-inf")
     valid = torch.isfinite(q) & torch.isfinite(W)
@@ -65,19 +90,45 @@ def lwa_lin_plain(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
     Wv = torch.where(valid, W, torch.zeros_like(qc))
     qt = torch.where(valid, qc, torch.zeros_like(qc))
     P0 = torch.cumsum(Wv, dim=1) - Wv
-    inc = ((Qt[:, 1:, None] - qt[:, :-1]) * Wv[:, :-1]
-           + (Qt[:, 1:] - Qt[:, :-1])[..., None] * P0[:, :-1])
-    E = torch.cat([torch.zeros((B, 1, Nx), dtype=q.dtype, device=q.device),
-                   torch.cumsum(inc, dim=1)], dim=1)
+    E = _prefix_E((Qt[:, 1:, None] - qt[:, :-1]) * Wv[:, :-1]
+                  + (Qt[:, 1:] - Qt[:, :-1])[..., None] * P0[:, :-1])
     zero = torch.zeros((), dtype=q.dtype, device=q.device)
     rows = []
-    for js in _surface_chunks(Ny):
+    for js in _surface_chunks(q.shape[1]):
         Qj = Qc[:, js, None, None]                        # (B, c, 1, 1)
         qe = qk[:, None] - Qj                             # (B, c, Ny, Nx)
         ext = torch.minimum(qe, zero) if increase else torch.maximum(qe, zero)
         R = (ext * Wv[:, None]).sum(2)                    # (B, c, Nx)
         row = -(R + E[:, js])
         rows.append(torch.where(torch.isnan(Qj[..., 0]), zero, row))
+    return torch.cat(rows, dim=1)
+
+
+def lwa_lin2_plain(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
+                   increase: bool) -> torch.Tensor:
+    """Linearized part='all' LWA2 in plain PyTorch
+    (``_lwa_lin_xla(variant2=True)``): invalid profile rows become
+    sentinels with zero weight, the t-term E follows the variant-2
+    telescoping recurrence, and a non-finite surface value gives 0."""
+    qc, Qc, Qt = _center(q, Q)
+    validQ = torch.isfinite(Q)
+    sent = float("inf") if increase else float("-inf")
+    Qs = torch.where(validQ, Qc, torch.full_like(Qc, sent))
+    Wv = torch.where(validQ[:, :, None] & torch.isfinite(W), W,
+                     torch.zeros_like(qc))
+    P0 = torch.cumsum(Wv, dim=1) - Wv
+    qt = torch.where(torch.isfinite(q), qc, torch.zeros_like(qc))
+    E = _prefix_E((Qt[:, :-1, None] - qt[:, 1:]) * Wv[:, :-1]
+                  - (qt[:, 1:] - qt[:, :-1]) * P0[:, :-1])
+    zero = torch.zeros((), dtype=q.dtype, device=q.device)
+    rows = []
+    for js in _surface_chunks(q.shape[1]):
+        qrow = qc[:, js]                                  # (B, c, Nx)
+        qe = qrow[:, :, None, :] - Qs[:, None, :, None]   # (B, c, Ny, Nx)
+        ext = torch.maximum(qe, zero) if increase else torch.minimum(qe, zero)
+        R = (ext * Wv[:, None]).sum(2)                    # (B, c, Nx)
+        row = -(R + E[:, js])
+        rows.append(torch.where(torch.isfinite(qrow), row, zero))
     return torch.cat(rows, dim=1)
 
 
@@ -102,21 +153,28 @@ def _part_zero(mask, part: str, increase: bool):
 
 
 def lwa_dense_plain(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
-                    increase: bool, part: str = "all") -> torch.Tensor:
+                    increase: bool, part: str = "all",
+                    variant2: bool = False) -> torch.Tensor:
     """Pairwise LWA in plain PyTorch (``_lwa_dense_xla``): excluded and NaN
-    terms are exact zeros, NaN weights count as zero."""
+    terms are exact zeros, NaN weights count as zero.  ``variant2`` takes
+    qe = q(y_j, x) - Q(y) with the mask built from ``not increase`` and
+    the part selected with ``increase`` (the reference's LWA2)."""
     if part not in _PARTS:
         raise ValueError("part must be in ['all', 'upper', 'lower']")
-    B, Ny, Nx = q.shape
+    Ny = q.shape[1]
     Wz = torch.where(torch.isnan(W), torch.zeros_like(W), W)
     iy = torch.arange(Ny, device=q.device)
     zero = torch.zeros((), dtype=q.dtype, device=q.device)
     rows = []
     for js in _surface_chunks(Ny):
         jj = torch.arange(js.start, js.stop, device=q.device)
-        qe = q[:, None] - Q[:, js, None, None]             # (B, c, Ny, Nx)
+        if variant2:
+            qe = q[:, js, None, :] - Q[:, None, :, None]   # (B, c, Ny, Nx)
+        else:
+            qe = q[:, None] - Q[:, js, None, None]          # (B, c, Ny, Nx)
         m = (iy[None, :] >= jj[:, None])[None, :, :, None]
-        mz = _part_zero(_mask3(qe, m, increase), part, increase)
+        mask = _mask3(qe, m, increase != variant2)
+        mz = _part_zero(mask, part, increase)
         qz = torch.where(torch.isnan(qe), zero, qe)
         rows.append(-(qz * mz * Wz).sum(2))
     return torch.cat(rows, dim=1)
@@ -158,23 +216,51 @@ def lwa_lin(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
     return out
 
 
+def lwa_lin2(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
+             increase: bool) -> torch.Tensor:
+    """Linearized part='all' LWA2.  CPU tensors take the plain version;
+    CUDA tensors launch K5 (a prep kernel for E, then the surface kernel;
+    both center on the fly, so E is the only scratch)."""
+    if q.device.type == "cpu":
+        return lwa_lin2_plain(q, Q, W, increase=increase)
+    check_cuda_inputs(KERNEL_LIN2.name, q=q, Q=Q, W=W)
+    _check_shapes(KERNEL_LIN2.name, q, Q, W)
+    from ._build import library
+    B, Ny, Nx = q.shape
+    c0 = _shift(Q).contiguous()
+    E = torch.empty_like(q)
+    out = torch.empty_like(q)
+    status = library().xc_lwa_lin2(
+        q.data_ptr(), Q.data_ptr(), W.data_ptr(), c0.data_ptr(),
+        E.data_ptr(), out.data_ptr(), B, Ny, Nx, int(increase),
+        stream_handle())
+    check_status(KERNEL_LIN2.name, status)
+    KERNEL_LIN2.launches += 1
+    return out
+
+
 def lwa_dense(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
-              increase: bool, part: str = "all") -> torch.Tensor:
-    """Pairwise LWA for part all/upper/lower.  CPU tensors take the plain
-    version; CUDA tensors launch K4."""
+              increase: bool, part: str = "all",
+              variant2: bool = False) -> torch.Tensor:
+    """Pairwise LWA (or LWA2 with ``variant2``) for part all/upper/lower.
+    CPU tensors take the plain version; CUDA tensors launch K4, counted as
+    K6 when Ny > ``TALL_NY``."""
     if part not in _PARTS:
         raise ValueError("part must be in ['all', 'upper', 'lower']")
     if q.device.type == "cpu":
-        return lwa_dense_plain(q, Q, W, increase=increase, part=part)
-    check_cuda_inputs(KERNEL_DENSE.name, q=q, Q=Q, W=W)
-    _check_shapes(KERNEL_DENSE.name, q, Q, W)
+        return lwa_dense_plain(q, Q, W, increase=increase, part=part,
+                               variant2=variant2)
+    record = KERNEL_DENSE_TALL if q.shape[-2] > TALL_NY else KERNEL_DENSE
+    check_cuda_inputs(record.name, q=q, Q=Q, W=W)
+    _check_shapes(record.name, q, Q, W)
     from ._build import library
     B, Ny, Nx = q.shape
     Wz = torch.where(torch.isnan(W), torch.zeros_like(W), W)
     out = torch.empty_like(q)
     status = library().xc_lwa_dense(
         q.data_ptr(), Wz.data_ptr(), Q.data_ptr(), out.data_ptr(),
-        B, Ny, Nx, int(increase), _PARTS[part], stream_handle())
-    check_status(KERNEL_DENSE.name, status)
-    KERNEL_DENSE.launches += 1
+        B, Ny, Nx, int(increase), _PARTS[part], int(variant2),
+        stream_handle())
+    check_status(record.name, status)
+    record.launches += 1
     return out

@@ -1,9 +1,10 @@
-"""The flagship combined Keff + LWA step.
+"""The Keff and LWA pipelines.
 
-Counterpart of ``keff_lwa_pipeline`` in ``xcontour_tpu/pipeline.py``: the
-full effective-diffusivity chain and the local wave activity from one shared
-sorted state (table, contours and areas computed once), over a batch of
-(..., Ny, Nx) snapshots.  It runs eagerly; the JAX version's static flags
+Counterparts of ``keff_pipeline``, ``lwa_pipeline`` and
+``keff_lwa_pipeline`` in ``xcontour_tpu/pipeline.py``: the effective-
+diffusivity chain, the sorted-state + local wave activity chain, and the
+combined step that runs both from one shared sorted state, over a batch of
+(..., Ny, Nx) snapshots.  They run eagerly; the JAX versions' static flags
 are plain Python arguments.
 """
 
@@ -20,6 +21,142 @@ from .ops.histogram import weighted_cdf_multi
 from .ops.interp import interp1d
 from .ops.stencil import squared_gradient
 
+_LMIN = ("analytic", "dxF", "frac")
+
+
+def _check_modes(lmin: Optional[str] = None, metric: Optional[str] = None):
+    if lmin is not None and lmin not in _LMIN:
+        raise ValueError(f"unknown lmin mode {lmin!r}")
+    if metric is not None and metric not in ("dA", "dy"):
+        raise ValueError(f"unknown LWA metric {metric!r}")
+
+
+def _lmin(lmin: str, Yeq, grid: Grid, mask, ydef):
+    """The minimum contour length at each equivalent coordinate:
+    'analytic' 2*pi*R*cos(Yeq); 'dxF' the masked zonal sum of dxF
+    interpolated to Yeq; 'frac' latitude_lengths_at(lat) times the zonal
+    fluid fraction."""
+    if lmin == "analytic":
+        return latitude_lengths_at(Yeq)
+    if lmin == "dxF":
+        pre_lmin = torch.sum(mask * grid.dxF.to(ydef.dtype), dim=-1)
+    else:
+        frac = torch.sum(mask, dim=-1) / mask.shape[-1]
+        pre_lmin = frac * latitude_lengths_at(ydef)
+    return interp1d(Yeq, ydef, pre_lmin, increasing=ydef[-1] > ydef[0])
+
+
+def _keff(ctr, intArea, intgrdS, Lmin, nkeff_mask: float) -> dict:
+    """d/dA of the |grad q|^2 integral and of the contours, Leq^2, nkeff."""
+    dgrdSdA = core.cal_gradient_wrt_area(intgrdS, intArea)
+    dqdA = core.cal_gradient_wrt_area(ctr, intArea)
+    Leq2 = core.cal_sqared_equivalent_length(dgrdSdA, dqdA)
+    nkeff = core.cal_normalized_Keff(Leq2, Lmin, nkeff_mask)
+    return dict(dgrdSdA=dgrdSdA, dqdA=dqdA, Leq2=Leq2, nkeff=nkeff)
+
+
+def _lwa_weight(metric: str, grid: Grid, dA):
+    """The LWA weight: None for 'dA' (the default wei*dA), wei*dyF for
+    'dy'."""
+    if metric == "dA":
+        return None
+    return dA / _lwa.nanmax(dA) * grid.dyF.to(dA.dtype)
+
+
+def keff_pipeline(tracer: torch.Tensor, grid: Grid,
+                  grdS: Optional[torch.Tensor] = None,
+                  mask: Optional[torch.Tensor] = None,
+                  pre_y: Optional[torch.Tensor] = None, *, N: int = 251,
+                  increase: bool = True, lt: bool = True, hist: bool = True,
+                  lmin: str = "dxF", nkeff_mask: float = 2e7,
+                  table: Optional[core.Table] = None) -> dict:
+    """The effective-diffusivity chain on (..., Ny, Nx) snapshots: contours
+    -> conditional area and |grad q|^2 integrals -> A(Y_eq) lookup -> d/dA
+    -> Leq^2 -> nkeff, plus interpolation onto ``pre_y``.
+
+    hist : the histogram integrals and table (K2) if True, else the
+        broadcast ones (:func:`core.cal_integral_within_contours`,
+        :func:`core.cal_area_eqCoord_table`).
+    lmin : 'dxF', 'analytic' or 'frac' (see ``keff_lwa_pipeline``).
+
+    Returns ``{'origin': {...}}`` with contour, intArea, Yeq, intgrdS,
+    dgrdSdA, dqdA, Leq2, Lmin, nkeff and table (the table's values), and
+    with ``pre_y`` an ``'interp'`` section holding every origin key but
+    table interpolated onto it.
+    """
+    _check_modes(lmin=lmin)
+    dtype = tracer.dtype
+    ydef = grid.ydef.to(dtype)
+    dA = grid.dA.to(dtype)
+    if mask is None:
+        mask = grid.fluid_mask(dtype)
+    if grdS is None:
+        grdS = squared_gradient(tracer, grid)
+
+    ctr = core.cal_contours(tracer, N, increase=increase)
+    if hist:
+        if table is None:
+            table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
+                                                     increase=increase, lt=lt)
+        intArea, intgrdS = weighted_cdf_multi(tracer, ctr, [dA, grdS * dA], lt)
+    else:
+        if table is None:
+            table = core.cal_area_eqCoord_table(mask, ydef, dA,
+                                                increase=increase, lt=lt)
+        intArea = core.cal_integral_within_contours(tracer, ctr, dA, lt=lt)
+        intgrdS = core.cal_integral_within_contours(tracer, ctr, dA, grdS,
+                                                    lt=lt)
+    Yeq = table.lookup_coordinates(intArea)
+    Lmin = _lmin(lmin, Yeq, grid, mask, ydef)
+    k = _keff(ctr, intArea, intgrdS, Lmin, nkeff_mask)
+    origin = dict(contour=ctr, intArea=intArea, Yeq=Yeq, intgrdS=intgrdS,
+                  dgrdSdA=k["dgrdSdA"], dqdA=k["dqdA"], Leq2=k["Leq2"],
+                  Lmin=Lmin, nkeff=k["nkeff"], table=table.values)
+    out = dict(origin=origin)
+    if pre_y is not None:
+        pre_y = pre_y.to(dtype)
+        out["interp"] = {key: core.interp_to_coords(pre_y, Yeq, v)
+                         for key, v in origin.items() if key != "table"}
+    return out
+
+
+def lwa_pipeline(tracer: torch.Tensor, grid: Grid,
+                 mask: Optional[torch.Tensor] = None, *, N: int = 121,
+                 increase: bool = True, lt: bool = True, part: str = "all",
+                 metric: str = "dA", lwa_method: str = "auto",
+                 table: Optional[core.Table] = None) -> dict:
+    """The sorted-state + local wave activity chain: contours -> areas ->
+    latEq -> the sorted profile Q on the grid's coordinates -> LWA and the
+    impulse-Casimir LWA2.
+
+    metric : 'dA' (wei*dA) or 'dy' (wei*dyF).
+    lwa_method : 'auto', 'lin' or 'dense' (see
+        :func:`diagnostics.lwa.local_wave_activity`).
+    table : a precomputed A(Y_eq) table, reusable across snapshots.
+
+    Returns a dict with contour, intArea, latEq, Q, lwa and lwa2.
+    """
+    _check_modes(metric=metric)
+    dtype = tracer.dtype
+    ydef = grid.ydef.to(dtype)
+    dA = grid.dA.to(dtype)
+    weight = _lwa_weight(metric, grid, dA)
+    if mask is None:
+        mask = grid.fluid_mask(dtype)
+
+    if table is None:
+        table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
+                                                 increase=increase, lt=lt)
+    ctr = core.cal_contours(tracer, N, increase=increase)
+    intArea = core.cal_integral_within_contours_hist(tracer, ctr, dA, lt=lt)
+    latEq = table.lookup_coordinates(intArea)
+    Q = core.interp_to_coords(ydef, latEq, ctr)
+    kw = dict(increase=increase, part=part, weight=weight, method=lwa_method)
+    lwa = _lwa.local_wave_activity(tracer, Q, dA, ydef, **kw)
+    lwa2 = _lwa.local_wave_activity2(tracer, Q, dA, ydef, **kw)
+    return dict(contour=ctr, intArea=intArea, latEq=latEq, Q=Q, lwa=lwa,
+                lwa2=lwa2)
+
 
 def keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
                       grdS: Optional[torch.Tensor] = None,
@@ -35,6 +172,7 @@ def keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
            'dxF'      — masked zonal sum of dxF interpolated to Yeq;
            'frac'     — latitude_lengths_at(lat) * zonal fluid fraction.
     metric : LWA weight, 'dA' (wei*dA) or 'dy' (wei*dyF).
+    with_lwa2 : also return the impulse-Casimir LWA2 (``lwa2``).
     table : a precomputed A(Y_eq) table.  It depends only on (mask, ydef,
         dA), so a loop over many snapshots builds it once with
         core.cal_area_eqCoord_table_hist and passes it in.
@@ -42,16 +180,9 @@ def keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
         (``*_at`` keys).
 
     Returns a dict with contour, intArea, intgrdS, Yeq, Lmin, Leq2, nkeff,
-    Q and lwa.
+    Q and lwa (and lwa2).
     """
-    if with_lwa2:
-        raise NotImplementedError(
-            "with_lwa2 needs the LWA2 kernel (K5), which is not ported yet "
-            "(ROADMAP Queue 1 item 10)")
-    if lmin not in ("analytic", "dxF", "frac"):
-        raise ValueError(f"unknown lmin mode {lmin!r}")
-    if metric not in ("dA", "dy"):
-        raise ValueError(f"unknown LWA metric {metric!r}")
+    _check_modes(lmin=lmin, metric=metric)
     dtype = tracer.dtype
     ydef = grid.ydef.to(dtype)
     dA = grid.dA.to(dtype)
@@ -67,33 +198,19 @@ def keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
     # the area and |grad q|^2 integrals share one digitize pass
     intArea, intgrdS = weighted_cdf_multi(tracer, ctr, [dA, grdS * dA], lt)
     Yeq = table.lookup_coordinates(intArea)
-
-    if lmin == "analytic":
-        Lmin = latitude_lengths_at(Yeq)
-    elif lmin == "dxF":
-        pre_lmin = torch.sum(mask * grid.dxF.to(dtype), dim=-1)
-        Lmin = interp1d(Yeq, ydef, pre_lmin, increasing=ydef[-1] > ydef[0])
-    else:
-        lat_len = latitude_lengths_at(ydef)
-        frac = torch.sum(mask, dim=-1) / mask.shape[-1]
-        Lmin = interp1d(Yeq, ydef, frac * lat_len,
-                        increasing=ydef[-1] > ydef[0])
-
-    dgrdSdA = core.cal_gradient_wrt_area(intgrdS, intArea)
-    dqdA = core.cal_gradient_wrt_area(ctr, intArea)
-    Leq2 = core.cal_sqared_equivalent_length(dgrdSdA, dqdA)
-    nkeff = core.cal_normalized_Keff(Leq2, Lmin, 2e7)
+    Lmin = _lmin(lmin, Yeq, grid, mask, ydef)
+    k = _keff(ctr, intArea, intgrdS, Lmin, 2e7)
 
     Q = core.interp_to_coords(ydef, Yeq, ctr)
-    weight = (dA / _lwa.nanmax(dA) * grid.dyF.to(dtype)
-              if metric == "dy" else None)
-    lwa = _lwa.local_wave_activity(tracer, Q, dA, ydef, increase=increase,
-                                   part="all", weight=weight,
-                                   method=lwa_method)
+    kw = dict(increase=increase, part="all",
+              weight=_lwa_weight(metric, grid, dA), method=lwa_method)
+    lwa = _lwa.local_wave_activity(tracer, Q, dA, ydef, **kw)
     out = dict(contour=ctr, intArea=intArea, intgrdS=intgrdS, Yeq=Yeq,
-               Lmin=Lmin, Leq2=Leq2, nkeff=nkeff, Q=Q, lwa=lwa)
+               Lmin=Lmin, Leq2=k["Leq2"], nkeff=k["nkeff"], Q=Q, lwa=lwa)
+    if with_lwa2:
+        out["lwa2"] = _lwa.local_wave_activity2(tracer, Q, dA, ydef, **kw)
     if pre_y is not None:
         pre_y = pre_y.to(dtype)
-        for k in ("Leq2", "nkeff", "Lmin"):
-            out[k + "_at"] = core.interp_to_coords(pre_y, Yeq, out[k])
+        for key in ("Leq2", "nkeff", "Lmin"):
+            out[key + "_at"] = core.interp_to_coords(pre_y, Yeq, out[key])
     return out
