@@ -9,7 +9,10 @@ port's paths through the entry points a user calls: ``keff_lwa_pipeline``
 (721x1440 global isentropic PV, 15 levels per step, N=241, a seeded
 below-ground NaN patch on the lowest levels), at the JAX bench's headline
 shape (32x256x512), on the LAPE configuration (MITgcm x-z internal-wave
-plane, 64 snapshots of 100x448 per step) and on a tall 2x4096x512 grid.
+plane, 64 snapshots of 100x448 per step) and on a tall 2x4096x512 grid;
+and the geometry paths ``clength_pipeline`` (ERA5, N=121 and N=401),
+``fractal_pipeline`` (headline shape, strides 1-32, box counting) and
+``local_contour_lengths`` (ERA5 snapshots, window 101, stride 10).
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card: nvidia-smi name and power limit, torch's device name;
@@ -17,7 +20,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   3. kernel checks: K1-K5 (K4 in both variants) against their plain PyTorch
      versions on the same CUDA tensors at ERA5 and headline shapes, the
      kernels' other modes at the headline shape, and K6 (the dense kernel,
-     both variants) at 2x4096x512, each within its stated bound;
+     both variants) at 2x4096x512, each within its stated bound; K7
+     (ERA5 lat-lon N=121 and N=401, headline Cartesian N=121) and K8 (an
+     ERA5 snapshot) against their plain versions run in float64, beside
+     the float32 plain versions' own errors; the exact-empty rule on the
+     card (seed-7 tie fields, windows at their own minimum);
   4. the paths: for each, every launch count set to 0 just before it and
      read just after; a path fails if a kernel it runs was not launched.
      keff_lwa_pipeline at ERA5 ('auto' and 'dense', 4 steps reusing one
@@ -26,12 +33,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      streaming), part='upper' at the headline shape, the LAPE
      configuration and the tall grid ('dense', K6); keff_pipeline at ERA5
      (hist=True, pre_y) and at the headline shape (hist=False);
-     keff_lwa_pipeline(with_lwa2=True) once.  The outputs are checked
-     (shapes, finite values, monotone areas, coordinates in range, LAPE
-     positive-definite to the float32 floor);
+     keff_lwa_pipeline(with_lwa2=True) once; clength_pipeline at ERA5
+     (N=121 and N=401, the same streaming), fractal_pipeline at the
+     headline shape, local_contour_lengths on every level of the ERA5
+     steps.  The outputs are checked (shapes, finite values, monotone
+     areas, coordinates in range, LAPE positive-definite to the float32
+     floor, empty extreme levels, positive interior lengths, the median
+     fractal dimension in [1, 2));
   5. card against CPU: one small step of keff_lwa_pipeline, lwa_pipeline
-     ('auto' and 'dense'), the LAPE configuration and keff_pipeline
-     (hist True and False) on the card against the same step on the CPU
+     ('auto' and 'dense'), the LAPE configuration, keff_pipeline (hist
+     True and False), clength_pipeline, fractal_pipeline and
+     local_contour_lengths on the card against the same step on the CPU
      (plain versions), float32, stated tolerances;
   6. timing with CUDA events: per-kernel and plain-version ms, snapshots/s
      of each streamed step, peak device memory of each path.
@@ -59,6 +71,12 @@ TALL = dict(B=2, nlat=4096, nlon=512, N=241)
 # examples/ex3_lape_ocean.py's grid, 64 snapshots a step
 LAPE = dict(B=64, nz=100, nx=448, N=121)
 STREAM_STEPS = 4
+# the geometry paths: the JAX bench's two contour counts (bench.py:1025),
+# the fractal ladder of examples/ex4_contour_length.py, the reference's
+# local-length window (tests/test_localLength.py)
+CLENGTH_N = (121, 401)
+FRACTAL_STRIDES = (1, 2, 4, 8, 16, 32)
+LOCAL = dict(window=101, stride=10)
 
 # kernel vs plain version on the same CUDA tensors, relative to the plain
 # output's largest magnitude
@@ -71,22 +89,36 @@ STREAM_STEPS = 4
 #       LWA2 bound, 5e-5, is set on grids of at most 91 rows)
 #   K6: K4's sums over 4096 rows, 5.7x ERA5's 721; a random walk at
 #       2x4096x512 measured 2.3-3.9e-6 on an H100, so twice K4's bound
+#   K7, K8: against the plain version run in float64 on the same card
+#       inputs (so a kernel more exact than its float32 plain form is not
+#       taken for a wrong one): float32 sums of ~10^5 segment lengths, each
+#       within a few ulps; at ERA5 an H100 measured 1.5e-7 (K7) and 1.3e-7
+#       (K8), the float32 plain versions 1.1e-7 and 6.0e-7
 KERNEL_BOUNDS = dict(squared_gradient=1e-6, weighted_cdf=1e-5,
                      lwa_lin=1.5e-4, lwa_dense=5e-6, lwa_dense_v2=5e-6,
                      lwa_lin2=1.5e-4, lwa_dense_tall=1e-5,
-                     lwa_dense_tall_v2=1e-5)
+                     lwa_dense_tall_v2=1e-5, contour_lengths=2e-6,
+                     local_lengths=2e-6)
 # card (kernels) against CPU (plain versions), float32, relative to each
 # output's largest magnitude: summation order for the sorted state (2e-5);
 # Yeq and Lmin come from a table lookup of float32 areas, where near the
 # poles dYeq/dA is steep (1e-4); Leq2 differences CDFs along the contour
 # index (1e-4); lwa at the 'lin' floor; nkeff = Leq2 / Lmin^2 with
 # Lmin ~ cos(Yeq): near the poles a Yeq difference of d radians moves it by
-# 2 tan(Yeq) d, ~1e3 times the area noise, and a value at its 2e7
-# threshold may be NaN on one side only; latEq is Yeq under lwa_pipeline's
-# name; dgrdSdA and dqdA difference CDFs like Leq2; lwa2 at lwa's bound.
+# 2 tan(Yeq) d, ~1e3 times the area noise, and a value at its threshold
+# may be NaN on one side only; latEq is Yeq under lwa_pipeline's name;
+# dgrdSdA and dqdA difference CDFs like Leq2; lwa2 at lwa's bound; the
+# contour means cmGrd and cmInvGrd difference CDFs like Leq2; rulers scale
+# with cos(Yeq); D and D_bc are log-log slopes over three lengths, where the
+# shortest contours' relative error counts in full (the CPU suite measured
+# 9e-5 between the port and the JAX package).  local_contour_lengths runs
+# at the CPU's window means on both sides (a window's length can jump with
+# its level near a saddle), and the window means are compared on their own.
 # An interpolated key (``*_at``) takes its source key's tolerance.
 CARD_CPU_TOL = dict(Yeq=1e-4, latEq=1e-4, Lmin=1e-4, Leq2=1e-4, nkeff=2e-3,
-                    lwa=1.5e-4, lwa2=1.5e-4, dgrdSdA=1e-4, dqdA=1e-4)
+                    lwa=1.5e-4, lwa2=1.5e-4, dgrdSdA=1e-4, dqdA=1e-4,
+                    cmGrd=1e-4, cmInvGrd=1e-4, rulers=1e-4, D=5e-4,
+                    D_bc=5e-4)
 CARD_CPU_TOL_DEFAULT = 2e-5
 NKEFF_MASK = 2e7
 
@@ -136,13 +168,13 @@ def rel_err(got, want):
     return err, err / scale if scale > 0 else err
 
 
-def threshold_agree(got, want, tol):
-    """nkeff is NaN at and above its threshold: a cell NaN on one side only
-    is accepted when the other side lies within ``tol`` of the threshold,
-    and then set NaN on both sides."""
+def threshold_agree(got, want, tol, mask=NKEFF_MASK):
+    """nkeff is NaN at and above its threshold ``mask``: a cell NaN on one
+    side only is accepted when the other side lies within ``tol`` of the
+    threshold, and then set NaN on both sides."""
     one = torch.isnan(got) ^ torch.isnan(want)
     other = torch.where(torch.isnan(got), want, got)[one]
-    if bool((other < NKEFF_MASK * (1 - tol)).any()):
+    if bool((other < mask * (1 - tol)).any()):
         raise AssertionError("nkeff NaN where the other side is below the "
                              "threshold")
     nan = torch.full_like(got, float("nan"))
@@ -271,6 +303,168 @@ def variant_cases(q, grid):
     return cases
 
 
+def length_cases(era_q, era_grid, head_q):
+    """name -> (bound key, kernel call, float32 plain call, float64 plain
+    call) for K7 at ERA5 (lat-lon, N = 121 and 401) and at the headline
+    shape (Cartesian, 10 km spacing, N = 121), and K8 on one ERA5
+    snapshot at its rolling-mean levels: the inputs the geometry paths
+    give them."""
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch.kernels import length
+
+    def k7(q, ctr, yc, xc, latlon):
+        d = lambda a: a.double()
+        return ("contour_lengths",
+                lambda: length.contour_lengths(q, ctr, yc, xc, latlon=latlon),
+                lambda: length.contour_lengths_plain(q, ctr, yc, xc,
+                                                     latlon=latlon, chunk=2),
+                lambda: length.contour_lengths_plain(d(q), d(ctr), d(yc),
+                                                     d(xc), latlon=latlon,
+                                                     chunk=2))
+    yc = torch.deg2rad(era_grid.ydef).contiguous()
+    xc = torch.deg2rad(era_grid.xdef).contiguous()
+    cases = {f"contour_lengths_n{N}": k7(era_q, xt.cal_contours(era_q, N),
+                                         yc, xc, True)
+             for N in CLENGTH_N}
+    B, Ny, Nx = head_q.shape
+    hy = torch.arange(Ny, dtype=torch.float32, device=head_q.device) * 1e4
+    hx = torch.arange(Nx, dtype=torch.float32, device=head_q.device) * 1e4
+    cases["contour_lengths_cartesian"] = k7(
+        head_q, xt.cal_contours(head_q, HEADLINE["N"]), hy, hx, False)
+    q0 = era_q[0].contiguous()
+    lv = xt.rolling_mean(q0, LOCAL["window"], LOCAL["stride"])[0].contiguous()
+    kw = dict(LOCAL, latlon=True)
+    cases["local_lengths"] = (
+        "local_lengths",
+        lambda: length.local_lengths(q0, lv, yc, xc, **kw),
+        lambda: length.local_lengths_plain(q0, lv, yc, xc, **kw),
+        lambda: length.local_lengths_plain(q0.double(), lv.double(),
+                                           yc.double(), xc.double(), **kw))
+    return cases
+
+
+def check_length_kernel(name, bound_key, kern, plain, plain64):
+    """K7 or K8 against its plain version run in float64 on the same card
+    inputs, beside the float32 plain version's own error; the empty
+    contours (exact zeros) must agree.  Returns the kernel's max abs
+    error."""
+    got, p32, want = kern(), plain(), plain64()
+    torch.cuda.synchronize()
+    for label, x in (("kernel", got), ("float32 plain version", p32)):
+        _expect(torch.equal(x == 0, want == 0),
+                f"{name}: the {label}'s empty contours differ from the "
+                "float64 plain version's")
+    err, rel = rel_err(got, want)
+    perr, prel = rel_err(p32, want)
+    bound = KERNEL_BOUNDS[bound_key]
+    ok = rel <= bound
+    log(f"phase 3 kernel {name} {tuple(got.shape)}: against float64 plain: "
+        f"kernel max_abs_err {err:.6g} rel {rel:.3e}, float32 plain "
+        f"max_abs_err {perr:.6g} rel {prel:.3e}; bound {bound:g} "
+        f"{'OK' if ok else 'FAIL'}")
+    _expect(ok, f"{name} disagrees with its float64 plain version")
+    return err
+
+
+def tie_checks(dev):
+    """The exact-empty rule on the card: K7 on 256 seeded 12x14 fields at
+    [min, mid, max] (lat-lon and Cartesian) and K8 on 64 windows of 9x9
+    cells at their own minimum give exactly 0 at every min level, max level
+    and window minimum (the TPU kernels' reciprocal edge fractions leave
+    ulps of length there)."""
+    from xcontour_tpu_torch.kernels import length
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                  device=dev)
+    rng = np.random.default_rng(7)
+    d = rng.normal(size=(256, 12, 14)) * rng.uniform(0.1, 1000.0, (256, 1, 1)) \
+        + rng.uniform(-50.0, 50.0, (256, 1, 1))
+    lo, hi = d.min(axis=(1, 2)), d.max(axis=(1, 2))
+    lev = np.stack([lo, 0.5 * (lo + hi), hi], axis=1)
+    for latlon, y, x in ((True, np.deg2rad(np.linspace(-60, 60, 12)),
+                          np.deg2rad(np.linspace(0, 348, 14))),
+                         (False, np.linspace(0, 1900, 12),
+                          np.linspace(0, 2900, 14))):
+        out = length.contour_lengths(T(d), T(lev), T(y), T(x), latlon=latlon)
+        zeros = [int((out[:, k] == 0).sum()) for k in range(3)]
+        log(f"phase 3 tie K7 latlon={latlon}: exact zeros at [min, mid, max] "
+            f"{zeros} of 256")
+        _expect(zeros == [256, 0, 256],
+                f"K7 breaks the exact-empty rule (latlon={latlon})")
+    rng = np.random.default_rng(7)
+    f = rng.normal(size=(80, 80)) * rng.uniform(0.1, 1000.0) \
+        + rng.uniform(-50.0, 50.0)
+    wmin = f.reshape(8, 10, 8, 10).min(axis=(1, 3))
+    out = length.local_lengths(T(f), T(wmin),
+                               T(np.deg2rad(np.linspace(-60, 60, 80))),
+                               T(np.deg2rad(np.linspace(0, 300, 80))),
+                               window=10, stride=10, latlon=True)
+    zeros = int((out == 0).sum())
+    log(f"phase 3 tie K8: exact zeros at the window minima {zeros} of 64")
+    _expect(zeros == 64, "K8 breaks the exact-empty rule")
+
+
+def _unique_min(q):
+    """Batch elements whose minimum is attained once: only there must the
+    minimum level be empty (a tie of two corners is a real segment)."""
+    qn = torch.where(torch.isnan(q), torch.full_like(q, float("inf")), q)
+    return (qn == qn.amin(dim=(-2, -1), keepdim=True)).sum(dim=(-2, -1)) == 1
+
+
+def check_clength(out, q, N, where):
+    """clength_pipeline's outputs: shapes, the maximum level empty (NaN),
+    the minimum level too where the minimum is unique, interior lengths
+    finite and positive.  Returns the share of interior levels with
+    Leq >= L >= Lmin within 1e-3 (informational)."""
+    B = q.shape[0]
+    _shapes(out, {k: (B, N) for k in out}, where)
+    _finite(out, ("contour", "intArea", "Yeq", "Lmin"), where)
+    L = out["lengths"]
+    _expect(bool(torch.isnan(L[:, -1]).all()), f"{where}: max level not empty")
+    _expect(bool(torch.isnan(L[_unique_min(q), 0]).all()),
+            f"{where}: a unique minimum's level is not empty")
+    inner = L[:, 1:-1]
+    _expect(bool(torch.isfinite(inner).all() and (inner > 0).all()),
+            f"{where}: an interior length is not finite and positive")
+    Leq = torch.sqrt(out["Leq2"][:, 1:-1])
+    chain = (Leq * (1 + 1e-3) >= inner) & (inner * (1 + 1e-3) >= out["Lmin"][:, 1:-1])
+    return chain.double().mean().item()
+
+
+def check_fractal(out, q, N, where):
+    """fractal_pipeline's outputs: shapes; at stride 1 the maximum level
+    empty, the minimum too where unique, interior lengths finite and
+    positive; every finite length positive; the median D in [1, 2) (a
+    plane curve, examples/ex4_contour_length.py).  Returns the medians of
+    D and D_bc."""
+    B, S = q.shape[0], len(FRACTAL_STRIDES)
+    _shapes(out, dict(contour=(B, N), Yeq=(B, N), lengths=(B, N, S),
+                      rulers=(B, N, S), D=(B, N), bclens=(B, N, S),
+                      D_bc=(B, N)), where)
+    L = out["lengths"]
+    _expect(bool(torch.isnan(L[:, -1, 0]).all()), f"{where}: max level not empty")
+    _expect(bool(torch.isnan(L[_unique_min(q), 0, 0]).all()),
+            f"{where}: a unique minimum's level is not empty")
+    inner = L[:, 1:-1, 0]
+    _expect(bool(torch.isfinite(inner).all() and (inner > 0).all()),
+            f"{where}: an interior stride-1 length is not finite and positive")
+    _expect(bool((L[torch.isfinite(L)] > 0).all()), f"{where}: a length <= 0")
+    med = torch.nanmedian(out["D"]).item()
+    _expect(1.0 <= med < 2.0, f"{where}: median D {med} outside [1, 2)")
+    return med, torch.nanmedian(out["D_bc"]).item()
+
+
+def check_local(outs, where):
+    """local_contour_lengths on each level: (Wy, Wx) lengths, every window
+    finite and positive (its level is its own mean), centres of length
+    Wy and Wx."""
+    for lengths, cy, cx in outs:
+        _expect(lengths.shape == (cy.shape[0], cx.shape[0]),
+                f"{where}: lengths {tuple(lengths.shape)} vs centres "
+                f"{tuple(cy.shape)}, {tuple(cx.shape)}")
+        _expect(bool(torch.isfinite(lengths).all() and (lengths > 0).all()),
+                f"{where}: a window length is not finite and positive")
+
+
 def _expect(cond, msg):
     if not cond:
         raise AssertionError(msg)
@@ -366,14 +560,15 @@ def flat_keff(out):
     return flat
 
 
-def card_vs_cpu(label, cpu, gpu):
+def card_vs_cpu(label, cpu, gpu, nkeff_mask=NKEFF_MASK):
     """Every key of a CPU step against the card's, within CARD_CPU_TOL."""
     worst = []
     for k, want in cpu.items():
         got = gpu[k].cpu()
         base = k[:-3] if k.endswith("_at") else k
         if base == "nkeff":
-            got, want = threshold_agree(got, want, CARD_CPU_TOL["nkeff"])
+            got, want = threshold_agree(got, want, CARD_CPU_TOL["nkeff"],
+                                        nkeff_mask)
         _, rel = rel_err(got, want)
         tol = CARD_CPU_TOL.get(base, CARD_CPU_TOL_DEFAULT)
         worst.append(f"{k} {rel:.2e}/{tol:g}")
@@ -422,13 +617,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing is run", file=sys.stderr)
         return 1
     import xcontour_tpu_torch as xt
-    from xcontour_tpu_torch.kernels import _build, hist, lwa, stencil
+    from xcontour_tpu_torch.kernels import _build, hist, length, lwa, stencil
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     records = [stencil.KERNEL, hist.KERNEL, lwa.KERNEL_LIN, lwa.KERNEL_DENSE,
-               lwa.KERNEL_LIN2, lwa.KERNEL_DENSE_TALL]
+               lwa.KERNEL_LIN2, lwa.KERNEL_DENSE_TALL, length.KERNEL_LENGTHS,
+               length.KERNEL_LOCAL_LENGTHS]
 
     # 1. the card
     card = nvidia_smi_line()
@@ -494,6 +690,12 @@ def main() -> int:
         log(f"phase 3 variant {name}: rel {rel:.3e} bound {bound:g} "
             f"{'OK' if ok else 'FAIL'}")
         _expect(ok, f"{name} disagrees with its plain version")
+
+    # K7 and K8 against their plain versions in float64, and the tie rule
+    cases["length"] = length_cases(era_steps[0], era_grid, head_q)
+    for name, (bound_key, kern, plain, plain64) in cases["length"].items():
+        errs[name] = check_length_kernel(name, bound_key, kern, plain, plain64)
+    tie_checks(dev)
 
     # 4. the paths, through the entry points a user calls
     totals = {r.name: 0 for r in records}
@@ -649,6 +851,57 @@ def main() -> int:
                    "lwa tall dense")
     log("phase 4 keff era5 hist, keff headline broadcast, keff_lwa with_lwa2, "
         "lwa tall dense: checks OK")
+
+    # the geometry paths: clength_pipeline at ERA5 (K2 once for its five
+    # integrals, K7), fractal_pipeline at the headline shape (K2, K7 once a
+    # stride), local_contour_lengths on each ERA5 level (K8)
+    for N in CLENGTH_N:
+        def run(N=N):
+            table = era_table()
+            fn = lambda q, t: xt.clength_pipeline(q, era_grid, N=N, table=t)
+            outs, times = timed_steps(lambda q: fn(q, table), era_steps[:S])
+            own, own_t = timed_steps(lambda q: fn(q, None), era_steps[S:])
+            return outs + own, times, own_t
+        outs, times, own_t = drive(f"clength era5 N={N}",
+                                   {"weighted_cdf": SE, "contour_lengths": SE},
+                                   run)
+        shares = [check_clength(out, era_steps[i], N,
+                                f"clength era5 N={N} step {i}")
+                  for i, out in enumerate(outs)]
+        rates[f"clength_era5_n{N}"] = (ERA5["B"] / statistics.median(times),
+                                       ERA5["B"] / own_t[0], times)
+        log(f"phase 4 clength era5 N={N}: {S} steps with table reuse, step s "
+            f"{[round(t, 5) for t in times]}, own-table step {own_t[0]:.5f} s: "
+            f"checks OK; share of interior levels with Leq >= L >= Lmin "
+            f"(1e-3) {[round(x, 4) for x in shares]}")
+    nf = 3
+    outs, times = drive(
+        "fractal headline",
+        {"weighted_cdf": nf, "contour_lengths": nf * len(FRACTAL_STRIDES)},
+        lambda: timed_steps(
+            lambda q: xt.fractal_pipeline(q, head_grid, N=HEADLINE["N"],
+                                          strides=FRACTAL_STRIDES,
+                                          table=head_table),
+            [head_q] * nf))
+    meds = [check_fractal(out, head_q, HEADLINE["N"], "fractal headline")
+            for out in outs]
+    rates["fractal_headline"] = (HEADLINE["B"] / statistics.median(times[1:]),
+                                 None, times)
+    log(f"phase 4 fractal headline: step s {[round(t, 5) for t in times]}: "
+        f"checks OK; median D, D_bc {[round(x, 4) for x in meds[0]]}")
+
+    def run_local():
+        return timed_steps(
+            lambda q: [xt.local_contour_lengths(q[k], era_grid.ydef,
+                                                era_grid.xdef, **LOCAL)
+                       for k in range(q.shape[0])], era_steps[:S])
+    outs, times = drive("local era5", {"local_lengths": ERA5["B"] * S},
+                        run_local)
+    for i, out in enumerate(outs):
+        check_local(out, f"local era5 step {i}")
+    rates["local_era5"] = (ERA5["B"] / statistics.median(times), None, times)
+    log(f"phase 4 local era5: {S} steps of {ERA5['B']} calls, step s "
+        f"{[round(t, 5) for t in times]}: checks OK")
     log(f"phase 4 launches over all paths: {totals}")
     missing = [n for n, c in totals.items() if c == 0]
     _expect(not missing, f"kernels never launched by the paths: {missing}")
@@ -685,6 +938,22 @@ def main() -> int:
                     flat_keff(xt.keff_pipeline(sq_cpu, cgrid, pre_y=spre, **kw)),
                     flat_keff(xt.keff_pipeline(sq_gpu, ggrid,
                                                pre_y=spre.to(dev), **kw)))
+    card_vs_cpu("clength 2x256x512", xt.clength_pipeline(sq_cpu, cgrid, N=121),
+                xt.clength_pipeline(sq_gpu, ggrid, N=121), nkeff_mask=1e5)
+    fkw = dict(N=121, strides=(1, 2, 4))
+    card_vs_cpu("fractal 2x256x512", xt.fractal_pipeline(sq_cpu, cgrid, **fkw),
+                xt.fractal_pipeline(sq_gpu, ggrid, **fkw))
+
+    means = xt.rolling_mean(sq_cpu[0], 33, 8)[0]
+
+    def local(q, grid):
+        lengths, cy, cx = xt.local_contour_lengths(
+            q[0], grid.ydef, grid.xdef, window=33, stride=8,
+            levels=means.to(q.device))
+        return dict(local_lengths=lengths, cy=cy, cx=cx,
+                    means=xt.rolling_mean(q[0], 33, 8)[0])
+    card_vs_cpu("local 256x512 window 33", local(sq_cpu, cgrid),
+                local(sq_gpu, ggrid))
 
     # 6. timing with CUDA events
     timing = {}
@@ -695,6 +964,11 @@ def main() -> int:
             timing[name if label == "tall" else (label, name)] = (k_ms, p_ms)
             log(f"phase 6 time {name} {label}: kernel {k_ms:.4f} ms, plain "
                 f"{p_ms:.4f} ms")
+    # one timed call of each float32 plain version (N = 401 takes seconds)
+    for name, (_, kern, plain, _) in cases["length"].items():
+        timing[name] = (cuda_ms(kern, 20), cuda_ms(plain, 1))
+        log(f"phase 6 time {name}: kernel {timing[name][0]:.4f} ms, plain "
+            f"{timing[name][1]:.4f} ms")
     for key, (reuse, own, times) in rates.items():
         extra = "" if own is None else f", own-table step {own:.1f}"
         log(f"phase 6 rate {key}: {reuse:.1f} snapshots/s (median step, "
@@ -712,13 +986,20 @@ def main() -> int:
             e.update(max_abs_err_v2=errs[v2_key], ms_v2=timing[v2][0],
                      plain_ms_v2=timing[v2][1])
         return e
+    k7_main = f"contour_lengths_n{CLENGTH_N[0]}"
     kernels_line = {"kernels": [
         entry(r, ("era5", r.name), r.name) for r in records[:3]] + [
         entry(lwa.KERNEL_DENSE, ("era5", "lwa_dense"), "lwa_dense",
               "lwa_dense_v2"),
         entry(lwa.KERNEL_LIN2, ("era5", "lwa_lin2"), "lwa_lin2"),
         entry(lwa.KERNEL_DENSE_TALL, "lwa_dense_tall", "lwa_dense_tall",
-              "lwa_dense_tall_v2")]}
+              "lwa_dense_tall_v2"),
+        dict(entry(length.KERNEL_LENGTHS, k7_main, k7_main),
+             **{f"{m}_{tag}": v for tag in (f"n{CLENGTH_N[1]}", "cartesian")
+                for m, v in zip(("max_abs_err", "ms", "plain_ms"),
+                                (errs[f"contour_lengths_{tag}"],
+                                 *timing[f"contour_lengths_{tag}"]))}),
+        entry(length.KERNEL_LOCAL_LENGTHS, "local_lengths", "local_lengths")]}
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,14 @@ hand-written CUDA kernels for NVIDIA Hopper (H100).
 The port of ``xcontour_tpu`` (JAX/Pallas), which stays beside it as the
 reference.  This package imports torch and numpy only.  It covers the
 three Keff/LWA pipelines (:func:`keff_pipeline`, :func:`lwa_pipeline` and
-the combined :func:`keff_lwa_pipeline`) and what they run: grid metrics
+the combined :func:`keff_lwa_pipeline`), the two geometry pipelines
+(:func:`clength_pipeline`, :func:`fractal_pipeline`) and windowed local
+lengths (:func:`local_contour_lengths`), and what they run: grid metrics
 (latitude-longitude, Cartesian and the MITgcm x-z plane), the |grad q|^2
 stencil, the weighted-CDF engine and the broadcast conditional integrals,
-the A(Y_eq) tables, the Keff algebra, and local wave activity in both the
-LWA and the impulse-Casimir LWA2 form.
+the A(Y_eq) tables, the Keff algebra and the contour means, local wave
+activity in both the LWA and the impulse-Casimir LWA2 form, marching-squares
+perimeters, box counting, coarsening and the fractal dimension.
 
 Plain PyTorch versions run on CPU tensors; CUDA tensors go through the
 kernels in ``csrc/``, which ``nvcc`` builds at first use.
@@ -18,23 +21,34 @@ __version__ = "0.1.0"
 
 from . import core, grid
 from .core import (Table, cal_area_eqCoord_table,
-                   cal_area_eqCoord_table_hist, cal_contours,
+                   cal_area_eqCoord_table_hist, cal_contour_mean,
+                   cal_contour_mean_hist, cal_contour_weigh_mean,
+                   cal_contour_weigh_mean_hist, cal_contours,
                    cal_gradient_wrt_area, cal_integral_within_contours,
                    cal_integral_within_contours_hist, cal_normalized_Keff,
                    cal_sqared_equivalent_length, interp_to_coords)
+from .diagnostics.fractal import fractal_dimension, loglog_slope
+from .diagnostics.length import contour_crossing, contour_lengths
+from .diagnostics.local_length import local_contour_lengths, rolling_mean
 from .diagnostics.lwa import local_wave_activity, local_wave_activity2
 from .grid import (Grid, equivalent_latitudes, from_cartesian, from_latlon,
                    from_metrics, from_xz, grid_from_numpy, latitude_lengths_at)
 from .ops.stencil import gradient, squared_gradient
-from .pipeline import keff_lwa_pipeline, keff_pipeline, lwa_pipeline
+from .pipeline import (clength_pipeline, fractal_pipeline,
+                       keff_lwa_pipeline, keff_pipeline, lwa_pipeline)
+from .utils.coarsen import coarsen
 
 __all__ = [
     "Grid", "Table", "cal_area_eqCoord_table", "cal_area_eqCoord_table_hist",
-    "cal_contours", "cal_gradient_wrt_area", "cal_integral_within_contours",
-    "cal_integral_within_contours_hist", "cal_normalized_Keff",
-    "cal_sqared_equivalent_length", "core", "equivalent_latitudes",
+    "cal_contour_mean", "cal_contour_mean_hist", "cal_contour_weigh_mean",
+    "cal_contour_weigh_mean_hist", "cal_contours", "cal_gradient_wrt_area",
+    "cal_integral_within_contours", "cal_integral_within_contours_hist",
+    "cal_normalized_Keff", "cal_sqared_equivalent_length", "clength_pipeline",
+    "coarsen", "contour_crossing", "contour_lengths", "core",
+    "equivalent_latitudes", "fractal_dimension", "fractal_pipeline",
     "from_cartesian", "from_latlon", "from_metrics", "from_xz", "gradient",
     "grid", "grid_from_numpy", "interp_to_coords", "keff_lwa_pipeline",
-    "keff_pipeline", "latitude_lengths_at", "local_wave_activity",
-    "local_wave_activity2", "lwa_pipeline", "squared_gradient",
+    "keff_pipeline", "latitude_lengths_at", "local_contour_lengths",
+    "local_wave_activity", "local_wave_activity2", "loglog_slope",
+    "lwa_pipeline", "rolling_mean", "squared_gradient",
 ]

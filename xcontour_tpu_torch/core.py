@@ -1,9 +1,10 @@
 """Contour-space core: the conservative-rearrangement engine.
 
 Counterpart of the subset of ``xcontour_tpu/core.py`` that the Keff/LWA
-pipelines use: contour levels, the conditional integrals (histogram and
-broadcast paths), the A(Y_eq) lookup tables, and the Keff algebra (d/dA,
-Leq^2, normalized Keff) plus the contour -> coordinate interpolation.
+and geometry pipelines use: contour levels, the conditional integrals
+(histogram and broadcast paths), the A(Y_eq) lookup tables, the Keff
+algebra (d/dA, Leq^2, normalized Keff), the contour means, and the
+contour -> coordinate interpolation.
 
 Array conventions: plane fields (..., Ny, Nx) with the equivalent dim at
 axis -2; contour-space tensors (..., N) with the contour index last.
@@ -34,7 +35,9 @@ def cal_contours(tracer: torch.Tensor, N: int, *,
     mmin = torch.where(mmin == inf, nan, mmin)
     mmax = torch.where(mmax == -inf, nan, mmax)
     start, end = (mmin, mmax) if increase else (mmax, mmin)
-    steps = (end - start) / (N - 1.0)
+    # a true division on every device: CUDA divides by a Python scalar
+    # through its reciprocal, an ulp away from the CPU's (and XLA's) levels
+    steps = (end - start) / torch.full_like(end, N - 1.0)
     levels = (steps[..., None] * torch.arange(N, dtype=tracer.dtype,
                                               device=tracer.device)
               + start[..., None])
@@ -171,6 +174,46 @@ def cal_gradient_wrt_area(var, area):
     """dVar/dA via centered differences along the contour index (0/0 gives
     NaN, x/0 inf: the plain division)."""
     return gradient_index(var, -1) / gradient_index(area, -1)
+
+
+def cal_contour_weigh_mean(tracer, contours, dA, integrand, area=None, *,
+                           lt: bool = False):
+    """Thickness-weighted line average d(int f dA)/dA, broadcast
+    integrals."""
+    intA = cal_integral_within_contours(tracer, contours, dA, integrand, lt=lt)
+    if area is None:
+        area = cal_integral_within_contours(tracer, contours, dA, lt=lt)
+    return cal_gradient_wrt_area(intA, area)
+
+
+def cal_contour_weigh_mean_hist(tracer, contours, dA, integrand, area=None, *,
+                                lt: bool = False):
+    """:func:`cal_contour_weigh_mean` with histogram integrals."""
+    intA = cal_integral_within_contours_hist(tracer, contours, dA, integrand,
+                                             lt=lt)
+    if area is None:
+        area = cal_integral_within_contours_hist(tracer, contours, dA, lt=lt)
+    return cal_gradient_wrt_area(intA, area)
+
+
+def cal_contour_mean(tracer, contours, dA, integrand, grdm, area=None, *,
+                     lt: bool = False):
+    """Along-contour mean <f |grad q|> / <|grad q|>, broadcast integrals
+    (0/0 gives NaN: the plain division)."""
+    upper = cal_contour_weigh_mean(tracer, contours, dA, integrand * grdm,
+                                   area, lt=lt)
+    lower = cal_contour_weigh_mean(tracer, contours, dA, grdm, area, lt=lt)
+    return upper / lower
+
+
+def cal_contour_mean_hist(tracer, contours, dA, integrand, grdm, area=None, *,
+                          lt: bool = False):
+    """:func:`cal_contour_mean` with histogram integrals."""
+    upper = cal_contour_weigh_mean_hist(tracer, contours, dA, integrand * grdm,
+                                        area, lt=lt)
+    lower = cal_contour_weigh_mean_hist(tracer, contours, dA, grdm, area,
+                                        lt=lt)
+    return upper / lower
 
 
 def cal_sqared_equivalent_length(dgrdSdA, dqdA):

@@ -1,0 +1,155 @@
+"""Contour geometry: perimeter lengths and box-counting crossing lengths.
+
+Counterpart of ``xcontour_tpu/diagnostics/length.py``.  Perimeters are
+traversal-free marching squares (every cell measures its own segments, a
+sum per level) through the K7 wrapper (:mod:`..kernels.length`); an empty
+contour gives NaN.  Box counting pads x once by the largest stride, takes
+the NaN-skipping min and max over (stride+1)-point windows, and counts the
+boxes that straddle each level.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..kernels import length as _k7
+from ..utils.constants import Rearth as _REARTH
+
+
+def contour_lengths(data: torch.Tensor, contours: torch.Tensor,
+                    ydef: torch.Tensor, xdef: torch.Tensor, *,
+                    latlon: bool = False, Rearth: float = _REARTH,
+                    chunk: int = 8) -> torch.Tensor:
+    """Perimeter of each contour level.
+
+    data : (..., Ny, Nx); contours : (..., N) or (N,); ydef/xdef :
+    coordinate vectors (degrees if latlon, meters otherwise).  Returns
+    (..., N); a contour of zero total length gives NaN.  ``chunk`` bounds
+    the plain version's memory (levels per step).
+    """
+    # radians in the coordinate's own dtype, then the data's dtype
+    yc = torch.deg2rad(ydef) if latlon else ydef
+    xc = torch.deg2rad(xdef) if latlon else xdef
+    yc = yc.to(data.dtype).contiguous()
+    xc = xc.to(data.dtype).contiguous()
+    batch = data.shape[:-2]
+    Ny, Nx = data.shape[-2:]
+    N = contours.shape[-1]
+    ctr = torch.broadcast_to(contours, batch + (N,))
+    totals = _k7.contour_lengths(
+        data.reshape(-1, Ny, Nx).contiguous(), ctr.reshape(-1, N).contiguous(),
+        yc, xc, latlon=latlon, chunk=chunk).reshape(batch + (N,))
+    totals = torch.where(totals == 0, torch.full_like(totals, float("nan")),
+                         totals)
+    return totals * Rearth if latlon else totals
+
+
+_PAD_MODES = ("edge", "wrap", "reflect", "symmetric", "constant")
+
+
+def _pad_index(n: int, pad: int, mode: str, device) -> torch.Tensor:
+    """Source columns of ``pad`` columns appended to ``n`` by np.pad's
+    ``mode`` (edge, wrap, reflect, symmetric)."""
+    j = torch.arange(n, n + pad, device=device)
+    if mode == "edge":
+        return torch.full_like(j, n - 1)
+    if mode == "wrap":
+        return j % n
+    if mode == "reflect":
+        if n == 1:
+            return torch.zeros_like(j)
+        j = j % (2 * n - 2)
+        return torch.where(j >= n, 2 * n - 2 - j, j)
+    j = j % (2 * n)                                      # symmetric
+    return torch.where(j >= n, 2 * n - 1 - j, j)
+
+
+def _pad_x(a: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
+    """np.pad(a, [(0, 0), ..., (0, pad)], mode) along the last axis;
+    'constant' appends zeros."""
+    if mode not in _PAD_MODES:
+        raise ValueError(f"pad mode {mode!r} is not supported; use one of "
+                         f"{_PAD_MODES}")
+    if pad == 0:
+        return a
+    if mode == "constant":
+        tail = a.new_zeros(a.shape[:-1] + (pad,))
+    else:
+        tail = a[..., _pad_index(a.shape[-1], pad, mode, a.device)]
+    return torch.cat([a, tail], dim=-1)
+
+
+def _window_minmax(data: torch.Tensor, stride: int):
+    """NaN-skipping (min, max) over (stride+1) x (stride+1) windows
+    advancing by stride; an all-NaN window gives (+inf, -inf).  NaN is
+    replaced by +-inf first: torch's reductions propagate it."""
+    nan = torch.isnan(data)
+    lo = torch.where(nan, torch.full_like(data, float("inf")), data)
+    hi = torch.where(nan, torch.full_like(data, float("-inf")), data)
+
+    def windows(a):
+        return a.unfold(-2, stride + 1, stride).unfold(-2, stride + 1, stride)
+    return windows(lo).amin(dim=(-2, -1)), windows(hi).amax(dim=(-2, -1))
+
+
+# contour levels per step of the crossing sums: bounds their
+# (..., chunk, boxes) temporaries
+_CHUNK = 16
+
+
+def _crossing_one_stride(data, contours, area, stride: int, pad_x: int,
+                         mode: str, quirks: bool):
+    batch = data.shape[:-2]
+    d = _pad_x(data, pad_x, mode)
+    a = _pad_x(area, pad_x, mode)
+    jj, nn = d.shape[-2:]
+    Jn = int(np.round(jj / stride))
+    In = int(np.round(nn / stride))
+    i_bound = (Jn - 1) if quirks else (In - 1)
+    # the reference's quirks loop can ask for more column boxes than the
+    # padded width holds (its numpy slices clamp, core.py:1545-1550); NaN
+    # columns make the NaN-skipping windows reproduce the clamped blocks
+    extra = max(0, i_bound * stride + 1 - nn)
+    if extra:
+        d = torch.cat([d, d.new_full(d.shape[:-1] + (extra,), float("nan"))], -1)
+        a = torch.cat([a, a.new_full(a.shape[:-1] + (extra,), float("nan"))], -1)
+    wmin, wmax = _window_minmax(d, stride)
+    wmin = wmin[..., :Jn - 1, :i_bound]
+    wmax = wmax[..., :Jn - 1, :i_bound]
+    if quirks:
+        a_box = a[:Jn - 1, :i_bound]   # the reference indexes area by box
+    else:
+        a_box = a[::stride, ::stride][:Jn - 1, :i_bound]
+    contrib = torch.sqrt(a_box) * stride
+    contrib = torch.where(torch.isnan(contrib), torch.zeros_like(contrib),
+                          contrib)
+    ctr = torch.broadcast_to(contours, batch + contours.shape[-1:])
+    zero = torch.zeros((), dtype=contrib.dtype, device=contrib.device)
+    outs = []
+    for k in range(0, ctr.shape[-1], _CHUNK):
+        c = ctr[..., k:k + _CHUNK, None, None]          # (..., c, 1, 1)
+        crossing = (wmin[..., None, :, :] <= c) & (wmax[..., None, :, :] > c)
+        outs.append(torch.where(crossing, contrib, zero).sum(dim=(-2, -1)))
+    return torch.cat(outs, dim=-1)
+
+
+def contour_crossing(data, contours, area, stride=1, *, mode: str = "edge",
+                     quirks: bool = False):
+    """Box-counting crossing length(s): every (stride+1)-point box whose
+    values straddle a level adds sqrt(area) * stride.
+
+    ``stride`` is an int or a sequence of ints (then a list is returned).
+    x is padded once by the largest stride with np.pad's ``mode`` ('edge',
+    'wrap', 'reflect', 'symmetric' or 'constant').  ``quirks=True`` keeps
+    the reference's indexing bugs (column boxes bounded by the row count,
+    area indexed by box); the default is the corrected full-width form.
+    """
+    if isinstance(stride, Sequence):
+        pad_x = int(max(stride))
+        return [_crossing_one_stride(data, contours, area, int(s), pad_x,
+                                     mode, quirks) for s in stride]
+    return _crossing_one_stride(data, contours, area, int(stride),
+                                int(stride), mode, quirks)

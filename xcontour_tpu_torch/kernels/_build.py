@@ -39,6 +39,12 @@ SIGNATURES = {
     "xc_lwa_dense": [P, P, P, P, I, I, I, I, I, I, P],
     # q, Q, W, c0, E, out, B, Ny, Nx, increase, stream
     "xc_lwa_lin2": [P, P, P, P, P, P, I, I, I, I, P],
+    # data, levels, n0, n1, y, x, partial, out, B, Ny, Nx, N, n_rb, n_cb,
+    # y_batched, x_batched, latlon, stream
+    "xc_contour_lengths": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                           P],
+    # data, levels, y, x, out, Ny, Nx, Wy, Wx, window, stride, latlon, stream
+    "xc_local_lengths": [P, P, P, P, P, I, I, I, I, I, I, I, P],
 }
 
 _LIB = None

@@ -1,0 +1,244 @@
+"""K7-K8: marching-squares contour lengths (CUDA: ``csrc/length.cu``).
+
+K7 (:func:`contour_lengths`) replaces ``_kernel`` of
+``xcontour_tpu/kernels/length_pallas.py`` (launched by
+``contour_lengths_pallas``): the total perimeter of each level of each batch
+element, skimage 'low' saddles, haversine (radians, unit sphere) or hypot
+lengths, no segment in a cell with a NaN corner, 0 for an empty contour.
+Its plain version is the XLA twin ``_lengths_totals_xla``.
+
+K8 (:func:`local_lengths`) replaces ``_local_kernel`` of the same file
+(launched by ``local_lengths_pallas``): the length inside each window of a
+2-D field at that window's own level.  Its plain version is
+``_local_totals_xla_raw`` of ``diagnostics/local_length.py``.
+
+Both follow the twin's tie rule: edge fractions by division and vertices
+that land bitwise on a corner at a fraction of 0 or 1, so a level equal to
+the field's minimum totals exactly 0.  A NaN level is evaluated at 0 and
+its total set to 0; the public functions turn a 0 total into NaN.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import Kernel, check_cuda_inputs, check_status, stream_handle
+
+KERNEL_LENGTHS = Kernel("contour_lengths", "xcontour_tpu_torch/csrc/length.cu",
+                        "xcontour_tpu/kernels/length_pallas.py:188")
+KERNEL_LOCAL_LENGTHS = Kernel("local_lengths",
+                              "xcontour_tpu_torch/csrc/length.cu",
+                              "xcontour_tpu/kernels/length_pallas.py:417")
+
+# K7's tile of cells (csrc/length.cu kRB x kCB), the unit of its level pretest
+_RB, _CB = 16, 128
+
+
+def _level_total(level, v00, v01, v10, v11, y0, y1, x0, x1, nan_cell,
+                 latlon: bool):
+    """The twin's ``_level_total_length``: summed in-cell segment lengths
+    of each level over the last two axes.  NaN corners are zeroed before
+    classification and their cells dropped."""
+    zero = torch.zeros((), dtype=v00.dtype, device=v00.device)
+    v00, v01, v10, v11 = (torch.where(nan_cell, zero, v)
+                          for v in (v00, v01, v10, v11))
+    a00, a01, a10, a11 = (v > level for v in (v00, v01, v10, v11))
+
+    def frac(va, vb):
+        d = vb - va
+        return torch.where(d == 0, zero,
+                           (level - va) / torch.where(d == 0, zero + 1, d))
+
+    def lerp(f, c0, c1):
+        # the convex combination: f = 0 or 1 lands bitwise on a corner
+        return (1.0 - f) * c0 + f * c1
+
+    top = (y0, lerp(frac(v00, v01), x0, x1))
+    bot = (y1, lerp(frac(v10, v11), x0, x1))
+    lef = (lerp(frac(v00, v10), y0, y1), x0)
+    rig = (lerp(frac(v01, v11), y0, y1), x1)
+
+    def seglen(p, q):
+        if not latlon:
+            return torch.hypot(p[0] - q[0], p[1] - q[1])
+        a = (torch.sin((q[0] - p[0]) * 0.5) ** 2
+             + torch.cos(p[0]) * torch.cos(q[0])
+             * torch.sin((q[1] - p[1]) * 0.5) ** 2)
+        return 2.0 * torch.arcsin(torch.sqrt(torch.clamp(a, 0.0, 1.0)))
+
+    def sel(c, p, q):
+        return (torch.where(c, p[0], q[0]), torch.where(c, p[1], q[1]))
+
+    iso00 = (a00 != a01) & (a00 != a10) & (a01 == a11)
+    iso01 = (a01 != a00) & (a01 != a11) & (a00 == a10)
+    iso10 = (a10 != a00) & (a10 != a11) & (a00 == a01)
+    iso11 = (a11 != a01) & (a11 != a10) & (a01 == a00)
+    horiz = (a00 == a01) & (a10 == a11) & (a00 != a10)
+    verti = (a00 == a10) & (a01 == a11) & (a00 != a01)
+    sad_main = a00 & a11 & ~a01 & ~a10
+    sad_anti = a01 & a10 & ~a00 & ~a11
+
+    p1 = sel(horiz, lef, sel(iso10 | iso11, bot, top))
+    q1 = sel(iso00 | iso10 | sad_main, lef, sel(verti, bot, rig))
+    exists1 = iso00 | iso01 | iso10 | iso11 | horiz | verti | sad_main | sad_anti
+    L = torch.where(exists1, seglen(p1, q1), zero)
+    L = L + torch.where(sad_main | sad_anti, seglen(bot, sel(sad_main, rig, lef)),
+                        zero)
+    return torch.where(nan_cell, zero, L).sum(dim=(-2, -1))
+
+
+def _per_batch(c: torch.Tensor, B: int) -> torch.Tensor:
+    return torch.broadcast_to(c, (B, c.shape[-1]))
+
+
+def contour_lengths_plain(data: torch.Tensor, levels: torch.Tensor,
+                          yc: torch.Tensor, xc: torch.Tensor, *, latlon: bool,
+                          chunk: int = 8) -> torch.Tensor:
+    """data (B, Ny, Nx); levels (B, N); yc (Ny,) or (B, Ny); xc (Nx,) or
+    (B, Nx) -> (B, N) raw totals, ``chunk`` levels at a time."""
+    B = data.shape[0]
+    N = levels.shape[-1]
+    y = _per_batch(yc, B)[:, None, :, None]               # (B, 1, Ny, 1)
+    x = _per_batch(xc, B)[:, None, None, :]               # (B, 1, 1, Nx)
+    d = data[:, None]
+    v00, v01 = d[..., :-1, :-1], d[..., :-1, 1:]
+    v10, v11 = d[..., 1:, :-1], d[..., 1:, 1:]
+    nan_cell = (torch.isnan(v00) | torch.isnan(v01) | torch.isnan(v10)
+                | torch.isnan(v11))
+    y0, y1 = y[..., :-1, :], y[..., 1:, :]
+    x0, x1 = x[..., :-1], x[..., 1:]
+    zero = torch.zeros((), dtype=data.dtype, device=data.device)
+    outs = []
+    for k in range(0, N, max(1, chunk)):
+        lev = levels[:, k:k + chunk]
+        nan_lev = torch.isnan(lev)
+        ls = torch.where(nan_lev, zero, lev)[..., None, None]
+        tot = _level_total(ls, v00, v01, v10, v11, y0, y1, x0, x1, nan_cell,
+                           latlon)
+        outs.append(torch.where(nan_lev, zero, tot))
+    if not outs:
+        return levels.new_zeros((B, 0))
+    return torch.cat(outs, dim=-1)
+
+
+def _check_coords(name, c, B, n, what):
+    if c.dim() not in (1, 2) or c.shape[-1] != n or \
+            (c.dim() == 2 and c.shape[0] != B):
+        raise ValueError(f"{name}: {what} must be ({n},) or ({B}, {n}), "
+                         f"got {tuple(c.shape)}")
+
+
+def contour_lengths(data: torch.Tensor, levels: torch.Tensor,
+                    yc: torch.Tensor, xc: torch.Tensor, *, latlon: bool,
+                    chunk: int = 8) -> torch.Tensor:
+    """Raw perimeter totals (B, N) of data (B, Ny, Nx) at levels (B, N);
+    coordinates shared, (Ny,)/(Nx,), or per batch element, (B, Ny)/(B, Nx),
+    in radians if ``latlon``.  CPU tensors take the plain version (``chunk``
+    levels at a time); CUDA tensors launch K7 (a pass over tiles that also
+    finds each tile's range of sorted levels, then a sum)."""
+    if data.device.type == "cpu":
+        return contour_lengths_plain(data, levels, yc, xc, latlon=latlon,
+                                     chunk=chunk)
+    name = KERNEL_LENGTHS.name
+    check_cuda_inputs(name, data=data, levels=levels, yc=yc, xc=xc)
+    if data.dim() != 3 or levels.dim() != 2:
+        raise ValueError(f"{name}: expected data (B, Ny, Nx), levels (B, N)")
+    B, Ny, Nx = data.shape
+    N = levels.shape[1]
+    if levels.shape[0] != B:
+        raise ValueError(f"{name}: levels {tuple(levels.shape)} do not match "
+                         f"{B} batch elements")
+    _check_coords(name, yc, B, Ny, "yc")
+    _check_coords(name, xc, B, Nx, "xc")
+    if Ny < 2 or Nx < 2:
+        raise ValueError(f"{name}: need Ny, Nx >= 2")
+    if data.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: more than 2^31 cells")
+    if B > 65535:
+        raise ValueError(f"{name}: more than 65535 batch elements")
+    if B == 0 or N == 0:
+        return levels.new_zeros((B, N))
+    from ._build import library
+    lev_s, order = torch.sort(levels, dim=-1, stable=True)   # NaN last
+    lev_s = lev_s.contiguous()
+    n_rb, n_cb = -(-(Ny - 1) // _RB), -(-(Nx - 1) // _CB)
+    n0 = torch.empty((B, n_rb * n_cb), dtype=torch.int32, device=data.device)
+    n1 = torch.empty_like(n0)
+    partial = torch.empty((B, n_rb * n_cb, N), dtype=data.dtype,
+                          device=data.device)
+    out_s = torch.empty((B, N), dtype=data.dtype, device=data.device)
+    status = library().xc_contour_lengths(
+        data.data_ptr(), lev_s.data_ptr(), n0.data_ptr(), n1.data_ptr(),
+        yc.data_ptr(), xc.data_ptr(), partial.data_ptr(), out_s.data_ptr(),
+        B, Ny, Nx, N, n_rb, n_cb, int(yc.dim() == 2), int(xc.dim() == 2),
+        int(latlon), stream_handle())
+    check_status(name, status)
+    KERNEL_LENGTHS.launches += 1
+    # unsort: sorted position k holds the result of original level order[k]
+    return torch.empty_like(out_s).scatter_(1, order, out_s)
+
+
+def _anchors(n: int, window: int, stride: int) -> range:
+    return range(0, n - window + 1, stride)
+
+
+def local_lengths_plain(data: torch.Tensor, levels: torch.Tensor,
+                        yc: torch.Tensor, xc: torch.Tensor, *, window: int,
+                        stride: int, latlon: bool) -> torch.Tensor:
+    """data (Ny, Nx); levels (Wy, Wx) -> (Wy, Wx) raw window totals: one
+    row of windows at a time through :func:`contour_lengths_plain`, each
+    window a batch element with its own x coordinates."""
+    Ny, Nx = data.shape
+    oy = _anchors(Ny, window, stride)
+    Wx = len(_anchors(Nx, window, stride))
+    if len(oy) == 0 or Wx == 0:
+        return levels.new_zeros((len(oy), Wx))
+    xwin = xc.unfold(0, window, stride)                   # (Wx, window)
+    rows = []
+    for iy, y0 in enumerate(oy):
+        patches = data[y0:y0 + window].unfold(1, window, stride)
+        rows.append(contour_lengths_plain(
+            patches.permute(1, 0, 2), levels[iy, :, None],
+            yc[y0:y0 + window], xwin, latlon=latlon)[:, 0])
+    return torch.stack(rows)
+
+
+def local_lengths(data: torch.Tensor, levels: torch.Tensor, yc: torch.Tensor,
+                  xc: torch.Tensor, *, window: int, stride: int,
+                  latlon: bool) -> torch.Tensor:
+    """Raw length (Wy, Wx) inside each window of ``window`` x ``window``
+    points of data (Ny, Nx), anchored every ``stride`` points, at that
+    window's level (Wy, Wx); coordinates (Ny,), (Nx,), radians if
+    ``latlon``.  CPU tensors take the plain version; CUDA tensors launch
+    K8, which reads each window from the field in place."""
+    if data.device.type == "cpu":
+        return local_lengths_plain(data, levels, yc, xc, window=window,
+                                   stride=stride, latlon=latlon)
+    name = KERNEL_LOCAL_LENGTHS.name
+    check_cuda_inputs(name, data=data, levels=levels, yc=yc, xc=xc)
+    if data.dim() != 2:
+        raise ValueError(f"{name}: data must be (Ny, Nx)")
+    Ny, Nx = data.shape
+    Wy = len(_anchors(Ny, window, stride))
+    Wx = len(_anchors(Nx, window, stride))
+    if levels.shape != (Wy, Wx):
+        raise ValueError(f"{name}: levels {tuple(levels.shape)}, expected "
+                         f"({Wy}, {Wx})")
+    if yc.shape != (Ny,) or xc.shape != (Nx,):
+        raise ValueError(f"{name}: coordinates {tuple(yc.shape)}, "
+                         f"{tuple(xc.shape)} do not match ({Ny}, {Nx})")
+    if window < 1 or stride < 1:
+        raise ValueError(f"{name}: window and stride must be >= 1")
+    if data.numel() >= 2 ** 31 or Wy > 65535:
+        raise ValueError(f"{name}: more than 2^31 cells or 65535 window rows")
+    if Wy == 0 or Wx == 0:
+        return levels.new_zeros((Wy, Wx))
+    from ._build import library
+    out = torch.empty((Wy, Wx), dtype=data.dtype, device=data.device)
+    status = library().xc_local_lengths(
+        data.data_ptr(), levels.data_ptr(), yc.data_ptr(), xc.data_ptr(),
+        out.data_ptr(), Ny, Nx, Wy, Wx, window, stride, int(latlon),
+        stream_handle())
+    check_status(name, status)
+    KERNEL_LOCAL_LENGTHS.launches += 1
+    return out

@@ -1,10 +1,11 @@
-"""The Keff and LWA pipelines.
+"""The Keff, LWA and contour-geometry pipelines.
 
-Counterparts of ``keff_pipeline``, ``lwa_pipeline`` and
-``keff_lwa_pipeline`` in ``xcontour_tpu/pipeline.py``: the effective-
-diffusivity chain, the sorted-state + local wave activity chain, and the
-combined step that runs both from one shared sorted state, over a batch of
-(..., Ny, Nx) snapshots.  They run eagerly; the JAX versions' static flags
+Counterparts of ``keff_pipeline``, ``lwa_pipeline``, ``keff_lwa_pipeline``,
+``clength_pipeline`` and ``fractal_pipeline`` in
+``xcontour_tpu/pipeline.py``: the effective-diffusivity chain, the
+sorted-state + local wave activity chain, the combined step that runs both
+from one shared sorted state, the contour-length chain and the
+fractal-dimension chain, over a batch of (..., Ny, Nx) snapshots.  They run eagerly; the JAX versions' static flags
 are plain Python arguments.
 """
 
@@ -16,10 +17,14 @@ import torch
 
 from . import core
 from .diagnostics import lwa as _lwa
+from .diagnostics.fractal import fractal_dimension
+from .diagnostics.length import contour_crossing, contour_lengths
 from .grid import Grid, latitude_lengths_at
 from .ops.histogram import weighted_cdf_multi
 from .ops.interp import interp1d
-from .ops.stencil import squared_gradient
+from .ops.stencil import gradient, squared_gradient
+from .utils.coarsen import coarsen
+from .utils.constants import Rearth as _REARTH
 
 _LMIN = ("analytic", "dxF", "frac")
 
@@ -213,4 +218,97 @@ def keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
         pre_y = pre_y.to(dtype)
         for key in ("Leq2", "nkeff", "Lmin"):
             out[key + "_at"] = core.interp_to_coords(pre_y, Yeq, out[key])
+    return out
+
+
+def clength_pipeline(tracer: torch.Tensor, grid: Grid,
+                     mask: Optional[torch.Tensor] = None, *, N: int = 121,
+                     increase: bool = True, lt: bool = True,
+                     table: Optional[core.Table] = None) -> dict:
+    """The contour-length chain: perimeter lengths L (K7), the equivalent
+    length Leq (through Leq^2), the minimum length Lmin (zonal fluid
+    fraction times 2*pi*R*cos(lat) at Yeq), and the Cauchy-Schwarz contour
+    means of |grad q| (cmGrd) and 1/|grad q| (cmInvGrd).  Consumers check
+    Leq >= L >= Lmin.
+
+    The five conditional integrals (area, |grad q|^2, and the numerators
+    and denominator of the two contour means) share one digitize pass.
+
+    Returns a dict with contour, intArea, Yeq, lengths, Lmin, Leq2, nkeff,
+    cmGrd and cmInvGrd.
+    """
+    dtype = tracer.dtype
+    ydef = grid.ydef.to(dtype)
+    dA = grid.dA.to(dtype)
+    if mask is None:
+        mask = grid.fluid_mask(dtype)
+    qy, qx = gradient(tracer, grid)
+    grdS = qx * qx + qy * qy
+    grdm = torch.sqrt(grdS)
+
+    if table is None:
+        table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
+                                                 increase=increase, lt=lt)
+    ctr = core.cal_contours(tracer, N, increase=increase)
+    # the weights as cal_contour_mean_hist forms them: (f * grdm) * dA
+    intArea, intgrdS, int_gg, int_g, int_ig = weighted_cdf_multi(
+        tracer, ctr, [dA, grdS * dA, (grdm * grdm) * dA, grdm * dA,
+                      ((1.0 / grdm) * grdm) * dA], lt)
+    Yeq = table.lookup_coordinates(intArea)
+
+    lengths = contour_lengths(tracer, ctr, grid.ydef, grid.xdef,
+                              latlon=grid.latlon)
+    Lmin = _lmin("frac", Yeq, grid, mask, ydef)
+    lower = core.cal_gradient_wrt_area(int_g, intArea)
+    cmGrd = core.cal_gradient_wrt_area(int_gg, intArea) / lower
+    cmInvGrd = core.cal_gradient_wrt_area(int_ig, intArea) / lower
+    k = _keff(ctr, intArea, intgrdS, Lmin, 1e5)
+    return dict(contour=ctr, intArea=intArea, Yeq=Yeq, lengths=lengths,
+                Lmin=Lmin, Leq2=k["Leq2"], nkeff=k["nkeff"], cmGrd=cmGrd,
+                cmInvGrd=cmInvGrd)
+
+
+def fractal_pipeline(tracer: torch.Tensor, grid: Grid, *, N: int = 121,
+                     strides=(1, 2, 4, 8, 16, 32), increase: bool = True,
+                     lt: bool = True, box_counting: bool = True,
+                     table: Optional[core.Table] = None) -> dict:
+    """The fractal-dimension chain: contour lengths (K7) on a ladder of
+    grid coarsenings by ``strides`` (block means of the tracer and of the
+    coordinates), optionally box-counting crossing lengths, and the
+    log-log slope D per contour.  Rulers: stride * cos(Yeq) * dlon * R.
+
+    Returns a dict with contour, Yeq, lengths (..., N, S), rulers and D,
+    and with ``box_counting`` bclens and D_bc.
+    """
+    dtype = tracer.dtype
+    ydef = grid.ydef.to(dtype)
+    xdef = grid.xdef.to(dtype)
+    dA = grid.dA.to(dtype)
+    mask = grid.fluid_mask(dtype)
+
+    if table is None:
+        table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
+                                                 increase=increase, lt=lt)
+    ctr = core.cal_contours(tracer, N, increase=increase)
+    intArea = core.cal_integral_within_contours_hist(tracer, ctr, dA, lt=lt)
+    Yeq = table.lookup_coordinates(intArea)
+
+    lengths = []
+    for s in strides:
+        ys = ydef if s == 1 else ydef.reshape(-1, s).mean(dim=1)
+        xs = xdef if s == 1 else xdef.reshape(-1, s).mean(dim=1)
+        lengths.append(contour_lengths(coarsen(tracer, s), ctr, ys, xs,
+                                       latlon=grid.latlon))
+    L = torch.stack(lengths, dim=-1)                   # (..., N, S)
+
+    reso = grid.xdef[1] - grid.xdef[0]
+    rulers = (torch.as_tensor(strides, dtype=dtype, device=tracer.device)
+              * torch.cos(torch.deg2rad(Yeq))[..., None]
+              * torch.deg2rad(reso).to(dtype) * _REARTH)
+    out = dict(contour=ctr, Yeq=Yeq, lengths=L, rulers=rulers,
+               D=fractal_dimension(L, rulers))
+    if box_counting:
+        bc = contour_crossing(tracer, ctr, dA, list(strides))
+        out["bclens"] = torch.stack(bc, dim=-1)
+        out["D_bc"] = fractal_dimension(out["bclens"], rulers)
     return out
