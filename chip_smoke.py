@@ -20,7 +20,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   3. kernel checks: K1-K5 (K4 in both variants) against their plain PyTorch
      versions on the same CUDA tensors at ERA5 and headline shapes, the
      kernels' other modes at the headline shape, and K6 (the dense kernel,
-     both variants) at 2x4096x512, each within its stated bound; K7
+     both variants) at 2x4096x512, each within its stated bound; K3 and
+     the 12 instances of K4 (3 parts x 2 directions x 2 variants) on the
+     inputs that pin the XLA twin's behaviour (NaN and infinite weights,
+     +-inf cells, a NaN profile row, a tie) at 2x40x128 and, as K6, at
+     2x3104x128,
+     with the plain version's NaN pattern; K7
      (ERA5 lat-lon N=121 and N=401, headline Cartesian N=121) and K8 (an
      ERA5 snapshot) against their plain versions run in float64, beside
      the float32 plain versions' own errors; the exact-empty rule on the
@@ -45,8 +50,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      True and False), clength_pipeline, fractal_pipeline and
      local_contour_lengths on the card against the same step on the CPU
      (plain versions), float32, stated tolerances;
-  6. timing with CUDA events: per-kernel and plain-version ms, snapshots/s
-     of each streamed step, peak device memory of each path.
+  6. timing with CUDA events: for K1-K8 the kernel's and the plain
+     version's ms, the bound (the larger of bytes over HBM rate and FP32
+     instructions over instruction rate) and the share of it reached, and the
+     launches per step of the kernel's path; K4 part='upper' at ERA5; K3,
+     K4 and K6 at 8 as well as 16 surfaces a thread; snapshots/s of each
+     streamed step, peak device memory of each path.
 
 The last three lines are the kernels JSON, the card line from nvidia-smi,
 and {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
@@ -77,6 +86,9 @@ STREAM_STEPS = 4
 CLENGTH_N = (121, 401)
 FRACTAL_STRIDES = (1, 2, 4, 8, 16, 32)
 LOCAL = dict(window=101, stride=10)
+# the inputs of ROADMAP Queue 3 at test_torch_lwa.py's shape, and taller
+# than 3072 rows for K6
+QUEUE3_SHAPES = ((2, 40, 128), (2, 3104, 128))
 
 # kernel vs plain version on the same CUDA tensors, relative to the plain
 # output's largest magnitude
@@ -96,6 +108,7 @@ LOCAL = dict(window=101, stride=10)
 #       (K8), the float32 plain versions 1.1e-7 and 6.0e-7
 KERNEL_BOUNDS = dict(squared_gradient=1e-6, weighted_cdf=1e-5,
                      lwa_lin=1.5e-4, lwa_dense=5e-6, lwa_dense_v2=5e-6,
+                     lwa_dense_upper=5e-6,
                      lwa_lin2=1.5e-4, lwa_dense_tall=1e-5,
                      lwa_dense_tall_v2=1e-5, contour_lengths=2e-6,
                      local_lengths=2e-6)
@@ -121,6 +134,17 @@ CARD_CPU_TOL = dict(Yeq=1e-4, latEq=1e-4, Lmin=1e-4, Leq2=1e-4, nkeff=2e-3,
                     D_bc=5e-4)
 CARD_CPU_TOL_DEFAULT = 2e-5
 NKEFF_MASK = 2e7
+
+# the bound of a kernel: the larger of its bytes (each input read once,
+# each output written once) over the HBM rate and its FP32 instructions
+# over the instruction rate (67 TFLOP/s with an FMA counted twice: 33.5 T
+# instructions/s), the H100 SXM's published peaks at 700 W
+HBM_BYTES_PER_S = 3.35e12
+FP32_INSTR_PER_S = 33.5e12
+# no single PyTorch call computes any of K1-K8 (torch.histogram has no CUDA
+# form, torch.histc takes no weights; no call computes LWA, a metric-
+# weighted |grad q|^2 or contour lengths), so every library_ms is null
+LIBRARY_MS = None
 
 
 def log(*args):
@@ -196,10 +220,28 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def lwa_work(B, Ny, Nx, pairs=None):
+    """(bytes, FP32 instructions) of an LWA kernel: q, W, Q in, the field
+    out; 3 instructions (sub, min/max, FMA) per (surface, cell) pair, every
+    pair unless a part selection keeps fewer."""
+    pairs = B * Ny * Ny * Nx if pairs is None else pairs
+    return 4 * (2 * B * Ny * Nx + Ny * Nx + B * Ny), 3 * pairs
+
+
+def bound_ms(work):
+    """(bound ms, what bounds it) of (bytes, instructions)."""
+    nbytes, ops = work
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_INSTR_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def kernel_cases(q, grid, N):
-    """name -> (kernel call, plain call) for K1-K5 (K4 in both variants), at
-    the shapes the main path gives them: the inputs are what
-    keff_lwa_pipeline computes on the way."""
+    """name -> (kernel call, plain call, (bytes, instructions)) for K1-K5
+    (K4 in both variants and part='upper'), at the shapes the main path
+    gives them: the inputs are what keff_lwa_pipeline computes on the
+    way.  K1 counts 6 instructions a cell (two differences, their scaling,
+    the square sum), K2 one add per (cell, channel)."""
     import xcontour_tpu_torch as xt
     from xcontour_tpu_torch.diagnostics.lwa import nanmax
     from xcontour_tpu_torch.kernels import hist, lwa, stencil
@@ -217,28 +259,40 @@ def kernel_cases(q, grid, N):
                       (grdS * dA).reshape(B, -1)], 1).contiguous()
     Q = xt.keff_lwa_pipeline(q, grid, N=N)["Q"].contiguous()
     W = (dA / nanmax(dA) * dA).contiguous()
+    cells = B * Ny * Nx
+    lwa_all = lwa_work(B, Ny, Nx)
     return {
         "squared_gradient": (
             lambda: stencil.squared_gradient(q, rdx, rdy,
                                              periodic_x=grid.periodic_x),
             lambda: stencil.squared_gradient_plain(
-                q, rdx, rdy, periodic_x=grid.periodic_x)),
+                q, rdx, rdy, periodic_x=grid.periodic_x),
+            (4 * (2 * cells + rdx.numel() + rdy.numel()), 6 * cells)),
         "weighted_cdf": (
             lambda: hist.weighted_cdf(vf, edges.contiguous(), wf),
-            lambda: hist.weighted_cdf_plain(vf, edges, wf)),
+            lambda: hist.weighted_cdf_plain(vf, edges, wf),
+            (4 * (vf.numel() + wf.numel() + edges.numel()
+                  + wf.shape[0] * wf.shape[1] * (edges.shape[-1] - 1)),
+             wf.numel())),
         "lwa_lin": (
             lambda: lwa.lwa_lin(q, Q, W, increase=True),
-            lambda: lwa.lwa_lin_plain(q, Q, W, increase=True)),
+            lambda: lwa.lwa_lin_plain(q, Q, W, increase=True), lwa_all),
         "lwa_dense": (
             lambda: lwa.lwa_dense(q, Q, W, increase=True),
-            lambda: lwa.lwa_dense_plain(q, Q, W, increase=True)),
+            lambda: lwa.lwa_dense_plain(q, Q, W, increase=True), lwa_all),
+        # an increasing tracer's upper part keeps the pairs with y >= j
+        "lwa_dense_upper": (
+            lambda: lwa.lwa_dense(q, Q, W, increase=True, part="upper"),
+            lambda: lwa.lwa_dense_plain(q, Q, W, increase=True,
+                                        part="upper"),
+            lwa_work(B, Ny, Nx, B * Nx * Ny * (Ny + 1) // 2)),
         "lwa_lin2": (
             lambda: lwa.lwa_lin2(q, Q, W, increase=True),
-            lambda: lwa.lwa_lin2_plain(q, Q, W, increase=True)),
+            lambda: lwa.lwa_lin2_plain(q, Q, W, increase=True), lwa_all),
         "lwa_dense_v2": (
             lambda: lwa.lwa_dense(q, Q, W, increase=True, variant2=True),
             lambda: lwa.lwa_dense_plain(q, Q, W, increase=True,
-                                        variant2=True)),
+                                        variant2=True), lwa_all),
     }
 
 
@@ -250,14 +304,15 @@ def tall_cases(q, grid, N):
     from xcontour_tpu_torch.kernels import lwa
     Q = xt.lwa_pipeline(q, grid, N=N)["Q"].contiguous()
     W = (grid.dA / nanmax(grid.dA) * grid.dA).contiguous()
+    work = lwa_work(*q.shape)
     return {
         "lwa_dense_tall": (
             lambda: lwa.lwa_dense(q, Q, W, increase=True),
-            lambda: lwa.lwa_dense_plain(q, Q, W, increase=True)),
+            lambda: lwa.lwa_dense_plain(q, Q, W, increase=True), work),
         "lwa_dense_tall_v2": (
             lambda: lwa.lwa_dense(q, Q, W, increase=True, variant2=True),
             lambda: lwa.lwa_dense_plain(q, Q, W, increase=True,
-                                        variant2=True)),
+                                        variant2=True), work),
     }
 
 
@@ -305,10 +360,12 @@ def variant_cases(q, grid):
 
 def length_cases(era_q, era_grid, head_q):
     """name -> (bound key, kernel call, float32 plain call, float64 plain
-    call) for K7 at ERA5 (lat-lon, N = 121 and 401) and at the headline
-    shape (Cartesian, 10 km spacing, N = 121), and K8 on one ERA5
-    snapshot at its rolling-mean levels: the inputs the geometry paths
-    give them."""
+    call, (bytes, instructions)) for K7 at ERA5 (lat-lon, N = 121 and 401)
+    and at the headline shape (Cartesian, 10 km spacing, N = 121), and K8
+    on one ERA5 snapshot at its rolling-mean levels: the inputs the
+    geometry paths give them.  The instructions count 6 per cell a kernel
+    must classify (its corners' min and max) and leave out the segments
+    of the crossed cells, which depend on the data: a lower bound."""
     import xcontour_tpu_torch as xt
     from xcontour_tpu_torch.kernels import length
 
@@ -320,7 +377,9 @@ def length_cases(era_q, era_grid, head_q):
                                                      latlon=latlon, chunk=2),
                 lambda: length.contour_lengths_plain(d(q), d(ctr), d(yc),
                                                      d(xc), latlon=latlon,
-                                                     chunk=2))
+                                                     chunk=2),
+                (4 * (q.numel() + 2 * ctr.numel() + yc.numel() + xc.numel()),
+                 6 * q.numel()))
     yc = torch.deg2rad(era_grid.ydef).contiguous()
     xc = torch.deg2rad(era_grid.xdef).contiguous()
     cases = {f"contour_lengths_n{N}": k7(era_q, xt.cal_contours(era_q, N),
@@ -339,8 +398,65 @@ def length_cases(era_q, era_grid, head_q):
         lambda: length.local_lengths(q0, lv, yc, xc, **kw),
         lambda: length.local_lengths_plain(q0, lv, yc, xc, **kw),
         lambda: length.local_lengths_plain(q0.double(), lv.double(),
-                                           yc.double(), xc.double(), **kw))
+                                           yc.double(), xc.double(), **kw),
+        (4 * (q0.numel() + 2 * lv.numel() + yc.numel() + xc.numel()),
+         6 * lv.numel() * (LOCAL["window"] - 1) ** 2))
     return cases
+
+
+def queue3_case(seed, B, Ny, Nx, dev):
+    """tests/test_torch_lwa.py's _case at any shape (Ny >= 40, Nx >= 64):
+    sorted profiles, NaN cells, +inf cells, a -inf (surface) cell, a NaN
+    profile row, a NaN weight, an infinite weight and an exact
+    tracer-profile tie."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Ny, Nx)).cumsum(1) * 0.3
+    Q = np.sort(rng.standard_normal((B, Ny)) * 2.0, axis=-1)
+    W = rng.uniform(0.5, 1.5, (Ny, Nx))
+    q[0, 3:5, 7:11] = np.nan
+    Q[1, 6] = np.nan
+    q[1, 9, 2] = Q[1, 20]
+    q[0, 12, 40] = np.inf
+    q[1, 30, 41] = -np.inf
+    q[1, 32, 43] = np.inf
+    W[25, 60] = np.nan
+    W[33, 70] = np.inf
+    T = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    return T(q), T(Q), T(W)
+
+
+def queue3_checks(dev):
+    """K3 and K4's 12 instances (K6 at Ny > 3072) on the inputs where the
+    TPU kernel and the XLA twin differ: the kernel must give the plain
+    version's NaN pattern (the twin's inf * 0 = NaN) within the bounds."""
+    from xcontour_tpu_torch.kernels import lwa
+    for shape in QUEUE3_SHAPES:
+        label = "x".join(map(str, shape))
+        q, Q, W = queue3_case(4, *shape, dev)
+        tall = shape[1] > lwa.TALL_NY
+        nans = []
+        for v2 in (False, True):
+            for inc in (True, False):
+                for part in ("all", "upper", "lower"):
+                    kw = dict(increase=inc, part=part, variant2=v2)
+                    got = lwa.lwa_dense(q, Q, W, **kw)
+                    want = lwa.lwa_dense_plain(q, Q, W, **kw)
+                    _, rel = rel_err(got, want)
+                    key = ("lwa_dense_tall" if tall else "lwa_dense") + \
+                        ("_v2" if v2 else "")
+                    _expect(rel <= KERNEL_BOUNDS[key],
+                            f"queue-3 {label} {kw}: rel {rel:.3e}")
+                    nans.append(int(torch.isnan(want).sum()))
+        for inc in (True, False):
+            got = lwa.lwa_lin(q, Q, W, increase=inc)
+            _, rel = rel_err(got, lwa.lwa_lin_plain(q, Q, W, increase=inc))
+            _expect(rel <= KERNEL_BOUNDS["lwa_lin"] and
+                    bool((got[1, 6] == 0).all()),
+                    f"queue-3 {label} lwa_lin increase={inc}: rel {rel:.3e}")
+        _expect(min(nans) > 0, f"queue-3 {label}: an instance without NaN")
+        log(f"phase 3 queue-3 inputs {label}: K4's 12 instances and K3 "
+            f"(both directions) match the plain versions, NaN patterns "
+            f"included (NaN cells per K4 instance {nans})")
 
 
 def check_length_kernel(name, bound_key, kern, plain, plain64):
@@ -671,12 +787,12 @@ def main() -> int:
     for label, grid, q, N in (("era5", era_grid, era_steps[0], ERA5["N"]),
                               ("headline", head_grid, head_q, HEADLINE["N"])):
         cases[label] = kernel_cases(q, grid, N)
-        for name, (kern, plain) in cases[label].items():
+        for name, (kern, plain, _) in cases[label].items():
             err = check_kernel(label, name, kern, plain, tuple(q.shape))
             if label == "era5":
                 errs[name] = err
     cases["tall"] = tall_cases(tall_q, tall_grid, TALL["N"])
-    for name, (kern, plain) in cases["tall"].items():
+    for name, (kern, plain, _) in cases["tall"].items():
         errs[name] = check_kernel("tall", name, kern, plain,
                                   tuple(tall_q.shape))
 
@@ -690,16 +806,17 @@ def main() -> int:
         log(f"phase 3 variant {name}: rel {rel:.3e} bound {bound:g} "
             f"{'OK' if ok else 'FAIL'}")
         _expect(ok, f"{name} disagrees with its plain version")
+    queue3_checks(dev)
 
     # K7 and K8 against their plain versions in float64, and the tie rule
     cases["length"] = length_cases(era_steps[0], era_grid, head_q)
-    for name, (bound_key, kern, plain, plain64) in cases["length"].items():
+    for name, (bound_key, kern, plain, plain64, _) in cases["length"].items():
         errs[name] = check_length_kernel(name, bound_key, kern, plain, plain64)
     tie_checks(dev)
 
     # 4. the paths, through the entry points a user calls
     totals = {r.name: 0 for r in records}
-    peaks = {}
+    peaks, path_counts = {}, {}
 
     def drive(label, expect, fn):
         """Run one path with every launch count at 0; fail unless each
@@ -710,6 +827,7 @@ def main() -> int:
         result = fn()
         torch.cuda.synchronize()
         counts = {r.name: r.launches for r in records}
+        path_counts[label] = counts
         peaks[label] = torch.cuda.max_memory_allocated() / 2 ** 30
         for k, c in counts.items():
             totals[k] += c
@@ -908,8 +1026,8 @@ def main() -> int:
 
     # 5. card against CPU on one small step each
     slat, slon, spv = make_pv(2, 256, 512, 7)
-    cgrid, ggrid = xt.from_latlon(slat, slon), xt.from_latlon(slat, slon,
-                                                               device=dev)
+    cgrid = xt.from_latlon(slat, slon, device="cpu")
+    ggrid = xt.from_latlon(slat, slon, device=dev)
     sq_cpu, sq_gpu = torch.as_tensor(spv), torch.as_tensor(spv).to(dev)
     for method in ("auto", "dense"):
         kw = dict(N=121, lwa_method=method)
@@ -926,7 +1044,8 @@ def main() -> int:
         "lape 4x100x448",
         xt.lwa_pipeline(torch.as_tensor(sb),
                         xt.from_xz(sv["Z"], sv["XC"], sv["hFacC"],
-                                   mask=sv["maskC"]), lmask, **lkw),
+                                   mask=sv["maskC"], device="cpu"),
+                        lmask, **lkw),
         xt.lwa_pipeline(torch.as_tensor(sb).to(dev),
                         xt.from_xz(sv["Z"], sv["XC"], sv["hFacC"],
                                    mask=sv["maskC"], device=dev),
@@ -956,19 +1075,34 @@ def main() -> int:
                 local(sq_gpu, ggrid))
 
     # 6. timing with CUDA events
-    timing = {}
+    timing, work = {}, {}
     for label in ("era5", "headline", "tall"):
-        for name, (kern, plain) in cases[label].items():
-            k_ms = cuda_ms(kern, 20)
-            p_ms = cuda_ms(plain, 3)
-            timing[name if label == "tall" else (label, name)] = (k_ms, p_ms)
-            log(f"phase 6 time {name} {label}: kernel {k_ms:.4f} ms, plain "
-                f"{p_ms:.4f} ms")
+        for name, (kern, plain, w) in cases[label].items():
+            key = name if label == "tall" else (label, name)
+            timing[key], work[key] = (cuda_ms(kern, 20), cuda_ms(plain, 3)), w
+            log(f"phase 6 time {name} {label}: kernel {timing[key][0]:.4f} "
+                f"ms, plain {timing[key][1]:.4f} ms")
     # one timed call of each float32 plain version (N = 401 takes seconds)
-    for name, (_, kern, plain, _) in cases["length"].items():
-        timing[name] = (cuda_ms(kern, 20), cuda_ms(plain, 1))
+    for name, (_, kern, plain, _, w) in cases["length"].items():
+        timing[name], work[name] = (cuda_ms(kern, 20), cuda_ms(plain, 1)), w
         log(f"phase 6 time {name}: kernel {timing[name][0]:.4f} ms, plain "
             f"{timing[name][1]:.4f} ms")
+    # K3, K4 and K6 at 8 surfaces a thread against the wrappers' default,
+    # in turns (default, 8, 8, default)
+    default = lwa.SURFACES_PER_THREAD
+    for key in (("era5", "lwa_lin"), ("era5", "lwa_dense"),
+                ("era5", "lwa_dense_v2"), ("era5", "lwa_dense_upper"),
+                "lwa_dense_tall"):
+        label, name = key if isinstance(key, tuple) else ("tall", key)
+        kern = cases[label][name][0]
+        turns = []
+        for jpt in (default, 8, 8, default):
+            lwa.SURFACES_PER_THREAD = jpt
+            turns.append(cuda_ms(kern, 20))
+        lwa.SURFACES_PER_THREAD = default
+        log(f"phase 6 surfaces per thread {name} {label}: {turns[0]:.4f} "
+            f"/ {turns[3]:.4f} ms at {default}, {turns[1]:.4f} / "
+            f"{turns[2]:.4f} ms at 8")
     for key, (reuse, own, times) in rates.items():
         extra = "" if own is None else f", own-table step {own:.1f}"
         log(f"phase 6 rate {key}: {reuse:.1f} snapshots/s (median step, "
@@ -976,29 +1110,65 @@ def main() -> int:
     for label, peak in peaks.items():
         log(f"phase 6 peak device memory {label}: {peak:.3f} GiB")
 
-    def entry(r, key, err_key, v2_key=None):
+    # K1-K8 against their bounds, with launches per step of their paths
+    # (the table builds of the streamed runs included)
+    k7_main = f"contour_lengths_n{CLENGTH_N[0]}"
+    era_auto = "keff_lwa era5 auto"
+    table = [(stencil.KERNEL, ("era5", "squared_gradient"), era_auto, SE),
+             (hist.KERNEL, ("era5", "weighted_cdf"), era_auto, SE),
+             (lwa.KERNEL_LIN, ("era5", "lwa_lin"), era_auto, SE),
+             (lwa.KERNEL_DENSE, ("era5", "lwa_dense"), "keff_lwa era5 dense",
+              SE),
+             (lwa.KERNEL_LIN2, ("era5", "lwa_lin2"), "lwa era5 auto", SE),
+             (lwa.KERNEL_DENSE_TALL, "lwa_dense_tall", "lwa tall dense", 1),
+             (length.KERNEL_LENGTHS, k7_main, f"clength era5 N={CLENGTH_N[0]}",
+              SE),
+             (length.KERNEL_LOCAL_LENGTHS, "local_lengths", "local era5", S)]
+    bounds = {}
+    for i, (r, key, path, steps) in enumerate(table):
+        bounds[key] = bound_ms(work[key])
+        k_ms, p_ms = timing[key]
+        b_ms, b_by = bounds[key]
+        log(f"phase 6 kernel K{i + 1} {r.name}: {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / k_ms:.2f}% of bound, "
+            f"{path_counts[path][r.name] / steps:g} launches per step of "
+            f"'{path}', library call none")
+    for key in (("era5", "lwa_dense_v2"), ("era5", "lwa_dense_upper"),
+                "lwa_dense_tall_v2", f"contour_lengths_n{CLENGTH_N[1]}",
+                "contour_lengths_cartesian"):
+        bounds[key] = bound_ms(work[key])
+        k_ms, b_ms = timing[key][0], bounds[key][0]
+        log(f"phase 6 kernel {key}: {k_ms:.4f} ms, plain "
+            f"{timing[key][1]:.4f} ms, bound {b_ms:.4f} ms "
+            f"({bounds[key][1]}), {100 * b_ms / k_ms:.2f}% of bound")
+
+    def entry(r, key, err_key, extra=()):
         e = dict(name=r.name, route="cuda", source=r.source,
                  replaces=r.replaces, launches=totals[r.name],
                  max_abs_err=errs[err_key], ms=timing[key][0],
-                 plain_ms=timing[key][1])
-        if v2_key is not None:
-            v2 = ("era5", v2_key) if isinstance(key, tuple) else v2_key
-            e.update(max_abs_err_v2=errs[v2_key], ms_v2=timing[v2][0],
-                     plain_ms_v2=timing[v2][1])
+                 plain_ms=timing[key][1], bound_ms=bounds[key][0],
+                 bound_by=bounds[key][1], library_ms=LIBRARY_MS)
+        for tag, k in extra:
+            if k in errs:
+                e[f"max_abs_err_{tag}"] = errs[k]
+            tk = ("era5", k) if isinstance(key, tuple) else k
+            e.update({f"ms_{tag}": timing[tk][0],
+                      f"plain_ms_{tag}": timing[tk][1]})
+            if tk in bounds:
+                e[f"bound_ms_{tag}"] = bounds[tk][0]
         return e
-    k7_main = f"contour_lengths_n{CLENGTH_N[0]}"
     kernels_line = {"kernels": [
-        entry(r, ("era5", r.name), r.name) for r in records[:3]] + [
+        entry(r, key, key[1] if isinstance(key, tuple) else key)
+        for r, key, _, _ in table[:3]] + [
         entry(lwa.KERNEL_DENSE, ("era5", "lwa_dense"), "lwa_dense",
-              "lwa_dense_v2"),
+              (("v2", "lwa_dense_v2"), ("upper", "lwa_dense_upper"))),
         entry(lwa.KERNEL_LIN2, ("era5", "lwa_lin2"), "lwa_lin2"),
         entry(lwa.KERNEL_DENSE_TALL, "lwa_dense_tall", "lwa_dense_tall",
-              "lwa_dense_tall_v2"),
-        dict(entry(length.KERNEL_LENGTHS, k7_main, k7_main),
-             **{f"{m}_{tag}": v for tag in (f"n{CLENGTH_N[1]}", "cartesian")
-                for m, v in zip(("max_abs_err", "ms", "plain_ms"),
-                                (errs[f"contour_lengths_{tag}"],
-                                 *timing[f"contour_lengths_{tag}"]))}),
+              (("v2", "lwa_dense_tall_v2"),)),
+        entry(length.KERNEL_LENGTHS, k7_main, k7_main,
+              tuple((tag, f"contour_lengths_{tag}")
+                    for tag in (f"n{CLENGTH_N[1]}", "cartesian"))),
         entry(length.KERNEL_LOCAL_LENGTHS, "local_lengths", "local_lengths")]}
     print(json.dumps(kernels_line))
     print(card)

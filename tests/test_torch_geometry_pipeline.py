@@ -25,6 +25,9 @@ from xcontour_tpu.utils.synth import synth_pv
 import xcontour_tpu_torch as xt
 from xcontour_tpu_torch.kernels import length as k78
 
+# the grid constructors run on the card unless told otherwise
+CPU = "cpu"
+
 F32_TOL = dict(Leq2=1e-4, nkeff=1e-3, cmGrd=1e-4, cmInvGrd=1e-4, D=5e-4,
                D_bc=5e-4)
 
@@ -61,7 +64,7 @@ def _dtypes(dt):
 def test_contour_means_match_jax(hist):
     lat, lon, q = _inputs(nlat=32, nlon=48)
     jg = jgrid.from_latlon(lat, lon, dtype=jnp.float64)
-    tg = xt.from_latlon(lat, lon, dtype=torch.float64)
+    tg = xt.from_latlon(lat, lon, dtype=torch.float64, device=CPU)
     jq, tq = jnp.asarray(q), torch.as_tensor(q)
     jctr = jcore.cal_contours(jq, 17)
     tctr = xt.cal_contours(tq, 17)
@@ -105,7 +108,7 @@ def test_clength_pipeline_matches_jax(dt, masked, increase, lt):
         mask = np.ones(q.shape[-2:])
         mask[16:30, 40:60] = 0.0
     jg = jgrid.from_latlon(lat, lon, mask=mask, dtype=jdt)
-    tg = xt.from_latlon(lat, lon, mask=mask, dtype=tdt)
+    tg = xt.from_latlon(lat, lon, mask=mask, dtype=tdt, device=CPU)
     kw = dict(N=31, increase=increase, lt=lt)
     want = jpipe.clength_pipeline(jnp.asarray(q, jdt), jg, **kw)
     got = xt.clength_pipeline(torch.as_tensor(q).to(tdt), tg, **kw)
@@ -118,7 +121,7 @@ def test_fractal_pipeline_matches_jax(dt):
     jdt, tdt = _dtypes(dt)
     lat, lon, q = _inputs()
     jg = jgrid.from_latlon(lat, lon, dtype=jdt)
-    tg = xt.from_latlon(lat, lon, dtype=tdt)
+    tg = xt.from_latlon(lat, lon, dtype=tdt, device=CPU)
     kw = dict(N=31, strides=(1, 2, 4))
     want = jpipe.fractal_pipeline(jnp.asarray(q, jdt), jg, **kw)
     got = xt.fractal_pipeline(torch.as_tensor(q).to(tdt), tg, **kw)
@@ -132,7 +135,7 @@ def test_geometry_pipelines_reuse_a_table_and_launch_no_kernel_on_cpu():
         r.launches = 0
     lat, lon, q = _inputs(nlat=32, nlon=64)
     jg = jgrid.from_latlon(lat, lon, dtype=jnp.float64)
-    tg = xt.from_latlon(lat, lon, dtype=torch.float64)
+    tg = xt.from_latlon(lat, lon, dtype=torch.float64, device=CPU)
     jt = jcore.cal_area_eqCoord_table_hist(jg.fluid_mask(jnp.float64), jg.ydef,
                                            jg.dA, increase=True, lt=True)
     carried = xt.Table.from_numpy(np.asarray(jt.values), np.asarray(jt.coords))

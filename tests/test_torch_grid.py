@@ -18,6 +18,9 @@ from xcontour_tpu.utils.synth import synth_pv as jax_synth_pv
 import xcontour_tpu_torch as xt
 from xcontour_tpu_torch.utils.synth import synth_internalwave, synth_pv
 
+# the grid constructors run on the card unless told otherwise
+CPU = "cpu"
+
 LEAVES = ("ydef", "xdef", "dA", "dxF", "dyF", "mask")
 STATIC = ("dim_names", "latlon", "periodic_x", "bc_y")
 
@@ -34,6 +37,50 @@ def _assert_same_grid(jg, tg):
             tuple(np.atleast_1d(getattr(tg, name))), name
 
 
+def _constructor_cases():
+    """constructor name -> (the port's call, the JAX package's grid) on the
+    same small inputs, float64."""
+    lat, lon = np.linspace(-80.0, 80.0, 9), np.linspace(0.0, 350.0, 36)
+    y, x = np.linspace(0.0, 8e5, 9), np.linspace(0.0, 1.4e6, 15)
+    z = -np.linspace(5.0, 395.0, 9)
+    hf = np.random.default_rng(2).uniform(0.3, 1.0, (9, 15))
+    dA = np.random.default_rng(3).uniform(1.0, 2.0, (9, 15))
+    f64 = dict(dtype=jnp.float64)
+    jll = jgrid.from_latlon(lat, lon, **f64)
+    leaves = {k: np.asarray(getattr(jll, k)) for k in LEAVES if k != "mask"}
+    return {
+        "from_latlon": (lambda **kw: xt.from_latlon(lat, lon, **kw),
+                        jll),
+        "from_cartesian": (lambda **kw: xt.from_cartesian(y, x, **kw),
+                           jgrid.from_cartesian(y, x, **f64)),
+        "from_xz": (lambda **kw: xt.from_xz(z, x, hf, **kw),
+                    jgrid.from_xz(z, x, hf, **f64)),
+        "from_metrics": (lambda **kw: xt.from_metrics(y, x, dA, **kw),
+                         jgrid.from_metrics(y, x, dA, **f64)),
+        "grid_from_numpy": (
+            lambda **kw: xt.grid_from_numpy(
+                **leaves, dim_names=jll.dim_names, latlon=True,
+                periodic_x=jll.periodic_x, **kw),
+            jll),
+    }
+
+
+@pytest.mark.parametrize("constructor", ["from_latlon", "from_cartesian",
+                                     "from_xz", "from_metrics",
+                                     "grid_from_numpy"])
+def test_constructors_default_to_the_card(constructor, monkeypatch):
+    """No ``device`` means the card: on a host without one the constructor
+    raises and names ``device='cpu'`` rather than falling back; with
+    ``device='cpu'`` it builds the grid it built before, bit for bit."""
+    build, jg = _constructor_cases()[constructor]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(dtype=torch.float64)
+    tg = build(dtype=torch.float64, device=CPU)
+    assert tg.dA.device.type == "cpu"
+    _assert_same_grid(jg, tg)
+
+
 @pytest.mark.parametrize("nlat,nlon,masked", [(41, 64, False), (64, 128, True),
                                               (721 // 8 + 1, 1440 // 8, False)])
 def test_from_latlon_matches_jax_bitwise(nlat, nlon, masked):
@@ -44,7 +91,7 @@ def test_from_latlon_matches_jax_bitwise(nlat, nlon, masked):
         mask = np.ones((nlat, nlon))
         mask[nlat // 3: nlat // 2, nlon // 4: nlon // 2] = 0.0
     jg = jgrid.from_latlon(lat, lon, mask=mask, dtype=jnp.float64)
-    tg = xt.from_latlon(lat, lon, mask=mask, dtype=torch.float64)
+    tg = xt.from_latlon(lat, lon, mask=mask, dtype=torch.float64, device=CPU)
     _assert_same_grid(jg, tg)
     assert tg.periodic_x and tg.latlon and tg.shape == (nlat, nlon)
 
@@ -57,14 +104,14 @@ def test_grid_from_numpy_carries_a_jax_grid():
               for k in LEAVES}
     tg = xt.grid_from_numpy(**leaves, dim_names=jg.dim_names,
                             latlon=jg.latlon, periodic_x=jg.periodic_x,
-                            bc_y=jg.bc_y)
+                            bc_y=jg.bc_y, device=CPU)
     _assert_same_grid(jg, tg)
     _assert_same_grid(jg, xt.from_latlon(lat, lon, dtype=torch.float64,
-                                         bc_y="reflect"))
+                                         bc_y="reflect", device=CPU))
     # f32 cast of the carried grid equals the port's own f32 grid
     t32 = xt.grid_from_numpy(**leaves, latlon=True, periodic_x=True,
-                             dtype=torch.float32)
-    own = xt.from_latlon(lat, lon, dtype=torch.float32)
+                             dtype=torch.float32, device=CPU)
+    own = xt.from_latlon(lat, lon, dtype=torch.float32, device=CPU)
     for name in ("ydef", "xdef", "dA", "dxF", "dyF"):
         assert torch.equal(getattr(t32, name), getattr(own, name)), name
 
@@ -75,16 +122,17 @@ def test_cartesian_and_metrics_builders_match_jax():
     _assert_same_grid(jgrid.from_cartesian(y, x, periodic_x=True,
                                            dtype=jnp.float64),
                       xt.from_cartesian(y, x, periodic_x=True,
-                                        dtype=torch.float64))
+                                        dtype=torch.float64, device=CPU))
     dA = np.random.default_rng(3).uniform(1.0, 2.0, (24, 40))
     dxF = np.linspace(1.0, 2.0, 40)           # 1-D line element, broadcast
     _assert_same_grid(jgrid.from_metrics(y, x, dA, dxF=dxF, dtype=jnp.float64),
-                      xt.from_metrics(y, x, dA, dxF=dxF, dtype=torch.float64))
+                      xt.from_metrics(y, x, dA, dxF=dxF, dtype=torch.float64,
+                                      device=CPU))
 
 
 def test_grid_to_and_helpers():
     tg = xt.from_latlon(np.linspace(-90, 90, 19), np.arange(0, 360, 20.0),
-                        dtype=torch.float64)
+                        dtype=torch.float64, device=CPU)
     moved = tg.to("cpu")
     assert dataclasses.is_dataclass(moved) and moved.periodic_x
     with pytest.raises(dataclasses.FrozenInstanceError):
@@ -104,7 +152,8 @@ def test_grid_to_and_helpers():
 
 def test_descending_latitude_warns():
     with pytest.warns(UserWarning, match="DESCENDING"):
-        xt.from_latlon(np.linspace(90, -90, 7), np.arange(0, 360, 45.0))
+        xt.from_latlon(np.linspace(90, -90, 7), np.arange(0, 360, 45.0),
+                       device=CPU)
 
 
 @pytest.mark.parametrize("nlev,nlat,nlon,seed", [(3, 41, 64, 1), (15, 25, 48, 7)])
@@ -137,7 +186,7 @@ def test_from_xz_matches_jax_bitwise(partial, periodic):
     mask = v["maskC"] if partial else None
     kw = dict(hFacC=hf, mask=mask, periodic_x=periodic)
     jg = jgrid.from_xz(v["Z"], v["XC"], dtype=jnp.float64, **kw)
-    tg = xt.from_xz(v["Z"], v["XC"], dtype=torch.float64, **kw)
+    tg = xt.from_xz(v["Z"], v["XC"], dtype=torch.float64, **kw, device=CPU)
     _assert_same_grid(jg, tg)
     assert tg.dim_names == ("Z", "XC") and not tg.latlon
     assert bool(tg.ydef[0] > tg.ydef[-1])              # z decreases
@@ -146,6 +195,6 @@ def test_from_xz_matches_jax_bitwise(partial, periodic):
         assert frac.any()
         np.testing.assert_allclose(
             tg.dA.numpy(), v["yA"].astype(np.float64), rtol=1e-5)
-    t32 = xt.from_xz(v["Z"], v["XC"], dtype=torch.float32, **kw)
+    t32 = xt.from_xz(v["Z"], v["XC"], dtype=torch.float32, **kw, device=CPU)
     for name in ("ydef", "xdef", "dA", "dxF", "dyF"):
         assert torch.equal(getattr(t32, name), getattr(tg, name).float()), name

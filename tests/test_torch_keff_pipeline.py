@@ -21,6 +21,9 @@ import xcontour_tpu_torch as xt
 
 from test_torch_pipeline import F32_TOL, _compare, _inputs
 
+# the grid constructors run on the card unless told otherwise
+CPU = "cpu"
+
 DTYPES = {"f64": (jnp.float64, torch.float64),
           "f32": (jnp.float32, torch.float32)}
 
@@ -62,7 +65,7 @@ def test_keff_pipeline_matches_jax(hist, lmin, masked, dt, with_pre_y,
     lat, lon, q, mask = _inputs(masked=masked, seed=7)
     pre_y = np.linspace(-70.0, 70.0, 15) if with_pre_y else None
     jg = jgrid.from_latlon(lat, lon, mask=mask, dtype=jdt)
-    tg = xt.from_latlon(lat, lon, mask=mask, dtype=tdt)
+    tg = xt.from_latlon(lat, lon, mask=mask, dtype=tdt, device=CPU)
     kw = dict(N=33, hist=hist, lmin=lmin, increase=increase, lt=lt,
               nkeff_mask=nkm)
     want = jpipe.keff_pipeline(
@@ -112,7 +115,7 @@ def test_broadcast_table_and_integrals_match_jax(increase, lt):
 def test_keff_pipeline_takes_a_table_and_rejects_unknown_lmin():
     lat, lon, q, mask = _inputs(masked=True, seed=9)
     jg = jgrid.from_latlon(lat, lon, mask=mask, dtype=jnp.float64)
-    tg = xt.from_latlon(lat, lon, mask=mask, dtype=torch.float64)
+    tg = xt.from_latlon(lat, lon, mask=mask, dtype=torch.float64, device=CPU)
     jt = jcore.cal_area_eqCoord_table(jg.fluid_mask(jnp.float64), jg.ydef,
                                       jg.dA, increase=True, lt=True)
     want = jpipe.keff_pipeline(jnp.asarray(q), jg, N=33, hist=False, table=jt)

@@ -21,6 +21,9 @@ import xcontour_tpu_torch as xt
 from xcontour_tpu_torch.diagnostics import lwa as tlwa
 from xcontour_tpu_torch.kernels import lwa as kl
 
+# the grid constructors run on the card unless told otherwise
+CPU = "cpu"
+
 F64_RTOL = 1e-11
 
 
@@ -117,7 +120,8 @@ def _era_like(nlat=64, nlon=128):
     lat = v["latitude"].astype(np.float64)
     lon = v["longitude"].astype(np.float64)
     q = v["pv"].astype(np.float64)
-    dA = np.asarray(xt.from_latlon(lat, lon, dtype=torch.float64).dA)
+    dA = np.asarray(xt.from_latlon(lat, lon, dtype=torch.float64,
+                                   device=CPU).dA)
     states = [compat.lwa_snapshot(q[b], lat, dA, np.ones_like(q[b]), N=33,
                                   increase=True, lt=True) for b in range(2)]
     Q = np.stack([s["Q"] for s in states])
@@ -144,7 +148,7 @@ def test_float32_bounds_against_the_float64_oracle():
 def test_local_wave_activity_matches_jax(method, part):
     q, Q, dA, lat, _ = _era_like(nlat=40, nlon=64)
     dyF = np.asarray(xt.from_latlon(lat, np.linspace(0, 354.375, 64),
-                                    dtype=torch.float64).dyF)
+                                    dtype=torch.float64, device=CPU).dyF)
     for weight in (None, dA / dA.max() * dyF):
         want = jlwa.local_wave_activity(
             jnp.asarray(q), jnp.asarray(Q), jnp.asarray(dA), jnp.asarray(lat),

@@ -23,6 +23,9 @@ from xcontour_tpu_torch.kernels import lwa as kl
 
 from test_torch_lwa import F64_RTOL, _case, _close, _era_like, _t
 
+# the grid constructors run on the card unless told otherwise
+CPU = "cpu"
+
 # the module itself: the package re-exports its lwa_pallas function under
 # the same name
 jlp = importlib.import_module("xcontour_tpu.kernels.lwa_pallas")
@@ -188,7 +191,7 @@ def test_local_wave_activity2_matches_jax(method, part, increase):
     if not increase:
         q, Q = -q, -Q[:, ::-1].copy()
     dyF = np.asarray(xt.from_latlon(lat, np.linspace(0, 354.375, 64),
-                                    dtype=torch.float64).dyF)
+                                    dtype=torch.float64, device=CPU).dyF)
     for weight in (None, dA / dA.max() * dyF):
         kw = dict(increase=increase, part=part, method=method)
         want = jlwa.local_wave_activity2(

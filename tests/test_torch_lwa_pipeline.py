@@ -23,6 +23,9 @@ from xcontour_tpu_torch.kernels import lwa
 
 from test_torch_pipeline import _compare, _inputs
 
+# the grid constructors run on the card unless told otherwise
+CPU = "cpu"
+
 DTYPES = {"f64": (jnp.float64, torch.float64),
           "f32": (jnp.float32, torch.float32)}
 
@@ -42,11 +45,11 @@ def _grids(kind, dt, masked=False):
         v, b = _lape_inputs()
         args = (v["Z"], v["XC"], v["hFacC"])
         jg = jgrid.from_xz(*args, mask=v["maskC"], dtype=jdt)
-        tg = xt.from_xz(*args, mask=v["maskC"], dtype=tdt)
+        tg = xt.from_xz(*args, mask=v["maskC"], dtype=tdt, device=CPU)
         return b, jg, tg, v["maskC"]
     lat, lon, q, mask = _inputs(masked=masked)
     return (q, jgrid.from_latlon(lat, lon, mask=mask, dtype=jdt),
-            xt.from_latlon(lat, lon, mask=mask, dtype=tdt), mask)
+            xt.from_latlon(lat, lon, mask=mask, dtype=tdt, device=CPU), mask)
 
 
 CASES = [
@@ -85,7 +88,7 @@ def test_lape_is_positive_definite():
     """ex3's check on the port: -lwa >= -5e-5 of its maximum (the float32
     'lin' floor), at ex3's own grid (100x448, 3 snapshots)."""
     v, b = _lape_inputs(nt=3, nz=100, nx=448)
-    grid = xt.from_xz(v["Z"], v["XC"], v["hFacC"], mask=v["maskC"])
+    grid = xt.from_xz(v["Z"], v["XC"], v["hFacC"], mask=v["maskC"], device=CPU)
     out = xt.lwa_pipeline(torch.as_tensor(b, dtype=torch.float32), grid,
                           torch.as_tensor(v["maskC"]), N=121, increase=False,
                           lt=False)
@@ -97,7 +100,7 @@ def test_lape_is_positive_definite():
 def test_table_reuse_and_carried_table():
     lat, lon, q, mask = _inputs(masked=True, seed=5)
     jg = jgrid.from_latlon(lat, lon, mask=mask, dtype=jnp.float64)
-    tg = xt.from_latlon(lat, lon, mask=mask, dtype=torch.float64)
+    tg = xt.from_latlon(lat, lon, mask=mask, dtype=torch.float64, device=CPU)
     jt = jcore.cal_area_eqCoord_table_hist(jg.fluid_mask(jnp.float64),
                                            jg.ydef, jg.dA, increase=True,
                                            lt=True)
@@ -118,7 +121,7 @@ def test_keff_lwa_pipeline_with_lwa2_matches_jax(method, dt, with_pre_y):
     jdt, tdt = DTYPES[dt]
     lat, lon, q, mask = _inputs(masked=True, seed=6)
     jg = jgrid.from_latlon(lat, lon, mask=mask, dtype=jdt)
-    tg = xt.from_latlon(lat, lon, mask=mask, dtype=tdt)
+    tg = xt.from_latlon(lat, lon, mask=mask, dtype=tdt, device=CPU)
     pre_y = np.linspace(-70.0, 70.0, 15) if with_pre_y else None
     kw = dict(N=33, lmin="dxF", metric="dy", lwa_method=method,
               with_lwa2=True)
@@ -134,7 +137,7 @@ def test_keff_lwa_pipeline_with_lwa2_matches_jax(method, dt, with_pre_y):
 
 def test_lwa_pipeline_rejects_unknown_modes_and_launches_nothing_on_cpu():
     lat, lon, q, _ = _inputs(nlat=16, nlon=32)
-    tg = xt.from_latlon(lat, lon, dtype=torch.float64)
+    tg = xt.from_latlon(lat, lon, dtype=torch.float64, device=CPU)
     with pytest.raises(ValueError, match="metric"):
         xt.lwa_pipeline(torch.as_tensor(q), tg, N=9, metric="dz")
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
@@ -147,7 +150,7 @@ def test_lwa_pipeline_rejects_unknown_modes_and_launches_nothing_on_cpu():
     before = [r.launches for r in records]
     for method in ("auto", "dense"):
         out = xt.lwa_pipeline(torch.as_tensor(q).float(),
-                              xt.from_latlon(lat, lon), N=9,
+                              xt.from_latlon(lat, lon, device=CPU), N=9,
                               lwa_method=method)
         assert out["lwa2"].shape == q.shape
     assert [r.launches for r in records] == before

@@ -27,6 +27,9 @@ import xcontour_tpu_torch as xt
 from xcontour_tpu_torch import kernels
 from xcontour_tpu_torch.kernels import hist, lwa, stencil
 
+# the grid constructors run on the card unless told otherwise
+CPU = "cpu"
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32_TOL = dict(Leq2=1e-4, nkeff=1e-4, lwa=1.5e-4, Leq2_at=1e-4, nkeff_at=1e-4,
                lwa2=5e-5, dgrdSdA=1e-4, dqdA=1e-4, dgrdSdA_at=1e-4,
@@ -83,7 +86,7 @@ def test_pipeline_matches_jax(lmin, metric, method, masked, dt, with_pre_y,
     lat, lon, q, mask = _inputs(masked=masked)
     pre_y = np.linspace(-70.0, 70.0, 15) if with_pre_y else None
     jg = jgrid.from_latlon(lat, lon, mask=mask, dtype=jdt)
-    tg = xt.from_latlon(lat, lon, mask=mask, dtype=tdt)
+    tg = xt.from_latlon(lat, lon, mask=mask, dtype=tdt, device=CPU)
     kw = dict(N=33, lmin=lmin, metric=metric, lwa_method=method,
               increase=increase, lt=lt)
     want = jpipe.keff_lwa_pipeline(
@@ -98,7 +101,7 @@ def test_pipeline_matches_jax(lmin, metric, method, masked, dt, with_pre_y,
 def test_table_reuse_and_carried_table():
     lat, lon, q, mask = _inputs(masked=True, seed=4)
     jg = jgrid.from_latlon(lat, lon, mask=mask, dtype=jnp.float64)
-    tg = xt.from_latlon(lat, lon, mask=mask, dtype=torch.float64)
+    tg = xt.from_latlon(lat, lon, mask=mask, dtype=torch.float64, device=CPU)
     jt = jcore.cal_area_eqCoord_table_hist(jg.fluid_mask(jnp.float64), jg.ydef,
                                            jg.dA, increase=True, lt=True)
     tt = xt.cal_area_eqCoord_table_hist(tg.fluid_mask(torch.float64), tg.ydef,
@@ -126,7 +129,7 @@ def test_mixed_direction_table_raises():
 
 def test_unported_options_raise():
     lat, lon, q, _ = _inputs(nlat=16, nlon=32)
-    tg = xt.from_latlon(lat, lon, dtype=torch.float64)
+    tg = xt.from_latlon(lat, lon, dtype=torch.float64, device=CPU)
     out = xt.keff_lwa_pipeline(torch.as_tensor(q), tg, N=9, with_lwa2=True)
     assert out["lwa2"].shape == q.shape
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
@@ -145,7 +148,7 @@ def test_cpu_tensors_launch_no_kernel():
     for r in records:
         r.launches = 0
     lat, lon, q, _ = _inputs(nlat=24, nlon=48)
-    tg = xt.from_latlon(lat, lon, dtype=torch.float32)
+    tg = xt.from_latlon(lat, lon, dtype=torch.float32, device=CPU)
     for method in ("auto", "dense"):
         out = xt.keff_lwa_pipeline(torch.as_tensor(q).float(), tg, N=17,
                                    lwa_method=method, with_lwa2=True)

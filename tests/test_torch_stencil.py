@@ -20,6 +20,9 @@ import xcontour_tpu_torch as xt
 from xcontour_tpu_torch.kernels import stencil as k1
 from xcontour_tpu_torch.ops import stencil as tst
 
+# the grid constructors run on the card unless told otherwise
+CPU = "cpu"
+
 CASES = [(p, bc) for p in (True, False) for bc in ("extend", "fill", "reflect")]
 DTYPES = {"f64": (jnp.float64, torch.float64, 1e-14, 1e-15),
           "f32": (jnp.float32, torch.float32, 1e-6, 1e-7)}
@@ -84,7 +87,7 @@ def test_ops_squared_gradient_and_gradient_on_a_polar_grid(bc, dt):
     rng = np.random.default_rng(5)
     q = rng.standard_normal((2, 37, 36)).cumsum(-2)
     jg = jgrid.from_latlon(lat, lon, dtype=jdt, bc_y=bc)
-    tg = xt.from_latlon(lat, lon, dtype=tdt, bc_y=bc)
+    tg = xt.from_latlon(lat, lon, dtype=tdt, bc_y=bc, device=CPU)
     want = jst.squared_gradient(jnp.asarray(q, jdt), jg)
     got = tst.squared_gradient(torch.as_tensor(q).to(tdt), tg)
     if dt == "f32":
@@ -105,7 +108,7 @@ def test_cartesian_spacing_and_bad_bc():
     x = np.linspace(0.0, 3e5, 30)
     q = np.random.default_rng(9).standard_normal((20, 30))
     jg = jgrid.from_cartesian(y, x, dtype=jnp.float64)
-    tg = xt.from_cartesian(y, x, dtype=torch.float64)
+    tg = xt.from_cartesian(y, x, dtype=torch.float64, device=CPU)
     _close(tst.squared_gradient(torch.as_tensor(q), tg).numpy(),
            jst.squared_gradient(jnp.asarray(q), jg), 1e-14)
     with pytest.raises(ValueError, match="boundary"):

@@ -46,6 +46,18 @@ def is_periodic_lon(lon: np.ndarray, period: float = 360.0) -> bool:
     return bool(abs((start - lon[0]) / delta) <= 1e-4)
 
 
+def _device(device) -> torch.device:
+    """The constructors' device: ``None`` means the card, and there is no
+    silent fall-back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the grid constructors run on the "
+                           "card by default; pass device='cpu' to build on "
+                           "the CPU")
+    return torch.device("cuda")
+
+
 def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=device).to(dtype)
 
@@ -93,7 +105,10 @@ def from_latlon(lat, lon, Rearth: float = _REARTH,
     """Spherical metrics from 1-D lat/lon center coordinates (degrees):
     exact spherical cell areas with pole clamping, and dxF as the Y-average
     of the edge zonal elements with the cos(+-90) threshold.
-    ``exact_area=False`` selects the legacy rectangle areas dyF * dxF."""
+    ``exact_area=False`` selects the legacy rectangle areas dyF * dxF.
+    ``device=None`` builds on the card (every constructor here does so, and
+    raises where there is none)."""
+    device = _device(device)
     lat = np.asarray(lat, np.float64)
     lon = np.asarray(lon, np.float64)
     if lat.size > 1 and lat[0] > lat[-1]:
@@ -145,6 +160,7 @@ def from_cartesian(y, x, mask: Optional[np.ndarray] = None,
                    periodic_x: bool = False, dtype=torch.float32,
                    device=None) -> Grid:
     """Cartesian plane metrics from 1-D coordinates in meters."""
+    device = _device(device)
     y = np.asarray(y, np.float64)
     x = np.asarray(x, np.float64)
     dy = np.abs(np.diff(_edges_from_centers(y)))
@@ -168,6 +184,7 @@ def from_xz(z, x, hFacC: Optional[np.ndarray] = None,
     yA = drF * hFacC * dxF with partial cells, ``dyF`` = drF * hFacC, and
     drF comes from the center spacing with the first level mirrored.  The
     depth coordinate may decrease (MITgcm's Z runs 0 -> -H)."""
+    device = _device(device)
     z = np.asarray(z, np.float64)
     x = np.asarray(x, np.float64)
     dx = np.abs(np.diff(_edges_from_centers(x)))
@@ -191,6 +208,7 @@ def from_metrics(ydef, xdef, dA, dxF=None, dyF=None, mask=None,
                  device=None) -> Grid:
     """Wrap externally supplied metrics (e.g. read from an MITgcm dataset).
     1-D line elements are broadcast to the plane shape."""
+    device = _device(device)
     dA = _tensor(dA, dtype, device)
     dxF = torch.ones_like(dA) if dxF is None else _tensor(dxF, dtype, device)
     dyF = torch.ones_like(dA) if dyF is None else _tensor(dyF, dtype, device)
@@ -209,6 +227,8 @@ def grid_from_numpy(ydef, xdef, dA, dxF, dyF, mask=None, *,
     """Carry a grid across from numpy: the leaves of an ``xcontour_tpu``
     Grid (as numpy arrays) plus its static fields become the port's Grid.
     ``dtype=None`` keeps each array's own dtype."""
+    device = _device(device)
+
     def t(a):
         out = torch.as_tensor(np.array(a), device=device)
         return out if dtype is None else out.to(dtype)

@@ -2,8 +2,9 @@
 
 K3 (:func:`lwa_lin`) replaces ``_kernel_lin`` of
 ``xcontour_tpu/kernels/lwa_pallas.py``: the linearized part='all' LWA,
--(R_j + E[j]), after centering on the profile midpoint.  Its plain version
-is the JAX package's ``_lwa_lin_xla``.
+-(R_j + E[j]), centered on the mean of the finite profile values (the
+kernels center as they read; E is scanned in 32-row chunks).  Its plain
+version is the JAX package's ``_lwa_lin_xla``.
 
 K5 (:func:`lwa_lin2`) replaces ``_kernel_lin2`` of the same file: the
 linearized part='all' impulse-Casimir LWA2, qe = q(y_j, x) - Q(y).  Its
@@ -38,6 +39,14 @@ KERNEL_DENSE_TALL = Kernel("lwa_dense_tall", "xcontour_tpu_torch/csrc/lwa.cu",
                            "xcontour_tpu/kernels/lwa_pallas.py:262")
 
 _PARTS = {"all": 0, "upper": 1, "lower": 2}
+
+# surfaces each thread of K3 and K4 keeps in registers (8 or 16: 64 or 128
+# surfaces a block); 16 measured faster for K3, K4 and K6 on an H100, and
+# chip_smoke.py phase 6 times both
+SURFACES_PER_THREAD = 16
+
+# rows per chunk of K3's E prep (kCH in csrc/lwa.cu)
+E_CHUNK = 32
 
 # the JAX package's y-blocked regime: a (Ny, 128) float32 panel over its
 # 1.5 MB VMEM budget (lwa_pallas.py:430)
@@ -194,23 +203,24 @@ def _check_shapes(name, q, Q, W):
 def lwa_lin(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
             increase: bool) -> torch.Tensor:
     """Linearized part='all' LWA.  CPU tensors take the plain version; CUDA
-    tensors launch K3 (a prep kernel, then the surface kernel)."""
+    tensors launch K3 (a chunked prep kernel for E, then the surface kernel;
+    both center and sanitize on the fly, so E and its chunk totals are the
+    only scratch)."""
     if q.device.type == "cpu":
         return lwa_lin_plain(q, Q, W, increase=increase)
     check_cuda_inputs(KERNEL_LIN.name, q=q, Q=Q, W=W)
     _check_shapes(KERNEL_LIN.name, q, Q, W)
     from ._build import library
     B, Ny, Nx = q.shape
-    qc, Qc, Qt = _center(q, Q)
-    Wz = torch.where(torch.isfinite(W), W, torch.zeros_like(W))
-    qk = torch.empty_like(q)
-    Wv = torch.empty_like(q)
+    c0 = _shift(Q).contiguous()
     E = torch.empty_like(q)
+    tot = torch.empty((B, -(-Ny // E_CHUNK), 2, Nx), dtype=q.dtype,
+                      device=q.device)
     out = torch.empty_like(q)
     status = library().xc_lwa_lin(
-        qc.data_ptr(), Wz.data_ptr(), Qt.data_ptr(), Qc.data_ptr(),
-        qk.data_ptr(), Wv.data_ptr(), E.data_ptr(), out.data_ptr(),
-        B, Ny, Nx, int(increase), stream_handle())
+        q.data_ptr(), W.data_ptr(), Q.data_ptr(), c0.data_ptr(),
+        E.data_ptr(), tot.data_ptr(), out.data_ptr(), B, Ny, Nx,
+        int(increase), SURFACES_PER_THREAD, stream_handle())
     check_status(KERNEL_LIN.name, status)
     KERNEL_LIN.launches += 1
     return out
@@ -260,7 +270,7 @@ def lwa_dense(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
     status = library().xc_lwa_dense(
         q.data_ptr(), Wz.data_ptr(), Q.data_ptr(), out.data_ptr(),
         B, Ny, Nx, int(increase), _PARTS[part], int(variant2),
-        stream_handle())
+        SURFACES_PER_THREAD, stream_handle())
     check_status(record.name, status)
     record.launches += 1
     return out
