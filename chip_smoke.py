@@ -53,9 +53,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   6. timing with CUDA events: for K1-K8 the kernel's and the plain
      version's ms, the bound (the larger of bytes over HBM rate and FP32
      instructions over instruction rate) and the share of it reached, and the
-     launches per step of the kernel's path; K4 part='upper' at ERA5; K3,
-     K4 and K6 at 8 as well as 16 surfaces a thread; snapshots/s of each
-     streamed step, peak device memory of each path.
+     launches per step of the kernel's path; K4 part='upper' at ERA5; the
+     device time of each CUDA kernel K3 and K5 launch (prep against
+     surface kernel, torch.profiler) and the SM clock and power that
+     nvidia-smi samples under K3 and K4; snapshots/s of each streamed step,
+     peak device memory of each path.
 
 The last three lines are the kernels JSON, the card line from nvidia-smi,
 and {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
@@ -65,6 +67,7 @@ result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -218,6 +221,63 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_split(fn, calls=10):
+    """{kernel: device ms per call} of the CUDA kernels ``fn`` launches, by
+    torch.profiler over ``calls`` calls after a warm-up; the LWA kernels
+    by name, torch's own summed as 'torch'."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", 0) or 0
+        if t > 0 and not evt.key.startswith("aten::"):
+            m = re.search(r"lwa_\w+_kernel", evt.key)
+            name = m.group(0) if m else "torch"
+            split[name] = split.get(name, 0.0) + t / calls / 1e3
+    if not split:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return split
+
+
+def clock_under_load(fn, seconds=2.0):
+    """(median SM MHz, median W, samples, ms per call) that nvidia-smi
+    samples every 100 ms while ``fn`` runs back to back."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        calls, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(10):
+                fn()
+            calls += 10
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / calls
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=30)[0]
+    samples = []
+    for line in out.splitlines():
+        try:
+            samples.append([float(v) for v in line.split(",")[:2]])
+        except ValueError:
+            continue
+    if not samples:
+        raise RuntimeError("nvidia-smi gave no clock samples")
+    mhz, watts = zip(*samples)
+    return (statistics.median(mhz), statistics.median(watts), len(samples),
+            ms)
 
 
 def lwa_work(B, Ny, Nx, pairs=None):
@@ -1087,22 +1147,17 @@ def main() -> int:
         timing[name], work[name] = (cuda_ms(kern, 20), cuda_ms(plain, 1)), w
         log(f"phase 6 time {name}: kernel {timing[name][0]:.4f} ms, plain "
             f"{timing[name][1]:.4f} ms")
-    # K3, K4 and K6 at 8 surfaces a thread against the wrappers' default,
-    # in turns (default, 8, 8, default)
-    default = lwa.SURFACES_PER_THREAD
-    for key in (("era5", "lwa_lin"), ("era5", "lwa_dense"),
-                ("era5", "lwa_dense_v2"), ("era5", "lwa_dense_upper"),
-                "lwa_dense_tall"):
-        label, name = key if isinstance(key, tuple) else ("tall", key)
-        kern = cases[label][name][0]
-        turns = []
-        for jpt in (default, 8, 8, default):
-            lwa.SURFACES_PER_THREAD = jpt
-            turns.append(cuda_ms(kern, 20))
-        lwa.SURFACES_PER_THREAD = default
-        log(f"phase 6 surfaces per thread {name} {label}: {turns[0]:.4f} "
-            f"/ {turns[3]:.4f} ms at {default}, {turns[1]:.4f} / "
-            f"{turns[2]:.4f} ms at 8")
+    # where K3's and K5's time goes (prep against surface kernel), and
+    # whether the FP32-bound kernels run at the SM clock they are bound at
+    for name in ("lwa_lin", "lwa_lin2"):
+        for kname, ms in device_split(cases["era5"][name][0]).items():
+            log(f"phase 6 split {name} era5 {kname}: {ms:.4f} ms device "
+                f"time a call")
+    for name in ("lwa_lin", "lwa_dense"):
+        mhz, watts, n, ms = clock_under_load(cases["era5"][name][0])
+        log(f"phase 6 load {name} era5: {ms:.4f} ms a call back to back; "
+            f"SM clock median {mhz:.0f} MHz, power median {watts:.1f} W "
+            f"({n} nvidia-smi samples)")
     for key, (reuse, own, times) in rates.items():
         extra = "" if own is None else f", own-table step {own:.1f}"
         log(f"phase 6 rate {key}: {reuse:.1f} snapshots/s (median step, "

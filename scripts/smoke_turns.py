@@ -10,7 +10,11 @@ script runs BASE, NEW, NEW, BASE, each ``chip_smoke.py`` as its own process
 from its own root (each builds its own kernels), keeps each run's output in
 DIR (default ``build/smoke_turns``) and prints, for every phase-6 line that
 names a time, a bound or a rate, the first number of each run, in run
-order.  It exits non-zero if a run fails.
+order.  After each run it also times K3 and K5 (``lwa_lin``, ``lwa_lin2``)
+of that checkout at the LAPE step's shape, 64x100x448, which
+``chip_smoke.py`` does not time: CUDA events over back-to-back wrapper
+calls, and the device time of the kernels from torch.profiler.  It exits
+non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -22,6 +26,40 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 NUMBER = re.compile(r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?")
+
+# run from a checkout's root; uses only the wrappers of kernels/lwa.py
+PROBE = r"""
+import numpy as np, torch
+from xcontour_tpu_torch.kernels import lwa
+B, Ny, Nx = 64, 100, 448
+rng = np.random.default_rng(0)
+T = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+q = T(-rng.standard_normal((B, Ny, Nx)).cumsum(1) * 0.3)
+Q = T(-np.sort(rng.standard_normal((B, Ny)) * 2.0, axis=-1))
+W = T(rng.uniform(0.5, 1.5, (Ny, Nx)))
+for name in ("lwa_lin", "lwa_lin2"):
+    fn = lambda: getattr(lwa, name)(q, Q, W, increase=False)
+    fn()
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(200):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    dev = sum(getattr(e, "self_device_time_total", 0) or 0
+              for e in prof.key_averages()
+              if not e.key.startswith("aten::")) / 20 / 1e3
+    print(f"phase 6 lape {name} wrapper: {start.elapsed_time(stop) / 200:.4f}"
+          f" ms a call back to back")
+    print(f"phase 6 lape {name} device: {dev:.4f} ms of device kernels a call")
+"""
 
 
 def phase6(text: str) -> dict:
@@ -59,7 +97,14 @@ def main() -> int:
         if proc.returncode != 0:
             print(proc.stdout[-3000:] + proc.stderr[-3000:], file=sys.stderr)
             return 1
-        runs.append((tag, phase6(proc.stdout)))
+        probe = subprocess.run([sys.executable, "-c", PROBE], cwd=root,
+                               capture_output=True, text=True)
+        (out / f"run{i}_{tag}_lape.log").write_text(probe.stdout +
+                                                    probe.stderr)
+        if probe.returncode != 0:
+            print(probe.stderr[-3000:], file=sys.stderr)
+            return 1
+        runs.append((tag, phase6(proc.stdout + probe.stdout)))
     keys = []
     for _, found in runs:
         keys += [k for k in found if k not in keys]

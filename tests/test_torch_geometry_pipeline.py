@@ -138,7 +138,8 @@ def test_geometry_pipelines_reuse_a_table_and_launch_no_kernel_on_cpu():
     tg = xt.from_latlon(lat, lon, dtype=torch.float64, device=CPU)
     jt = jcore.cal_area_eqCoord_table_hist(jg.fluid_mask(jnp.float64), jg.ydef,
                                            jg.dA, increase=True, lt=True)
-    carried = xt.Table.from_numpy(np.asarray(jt.values), np.asarray(jt.coords))
+    carried = xt.Table.from_numpy(np.asarray(jt.values), np.asarray(jt.coords),
+                                  device=CPU)
     tq = torch.as_tensor(q)
     _compare(xt.clength_pipeline(tq, tg, N=17, table=carried),
              jpipe.clength_pipeline(jnp.asarray(q), jg, N=17, table=jt), "f64")

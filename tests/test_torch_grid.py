@@ -38,8 +38,9 @@ def _assert_same_grid(jg, tg):
 
 
 def _constructor_cases():
-    """constructor name -> (the port's call, the JAX package's grid) on the
-    same small inputs, float64."""
+    """constructor name -> (the port's call, a check of what it built): the
+    grids against the JAX package's on the same small inputs, float64; a
+    table carried across as numpy against its arrays."""
     lat, lon = np.linspace(-80.0, 80.0, 9), np.linspace(0.0, 350.0, 36)
     y, x = np.linspace(0.0, 8e5, 9), np.linspace(0.0, 1.4e6, 15)
     z = -np.linspace(5.0, 395.0, 9)
@@ -48,37 +49,47 @@ def _constructor_cases():
     f64 = dict(dtype=jnp.float64)
     jll = jgrid.from_latlon(lat, lon, **f64)
     leaves = {k: np.asarray(getattr(jll, k)) for k in LEAVES if k != "mask"}
+    same = lambda jg: lambda tg: _assert_same_grid(jg, tg)
+    values = np.sort(np.random.default_rng(4).uniform(0.0, 5.0, (2, 9)), -1)
+
+    def same_table(t):
+        np.testing.assert_array_equal(t.values.numpy(), values)
+        np.testing.assert_array_equal(t.coords.numpy(), lat)
     return {
         "from_latlon": (lambda **kw: xt.from_latlon(lat, lon, **kw),
-                        jll),
+                        same(jll)),
         "from_cartesian": (lambda **kw: xt.from_cartesian(y, x, **kw),
-                           jgrid.from_cartesian(y, x, **f64)),
+                           same(jgrid.from_cartesian(y, x, **f64))),
         "from_xz": (lambda **kw: xt.from_xz(z, x, hf, **kw),
-                    jgrid.from_xz(z, x, hf, **f64)),
+                    same(jgrid.from_xz(z, x, hf, **f64))),
         "from_metrics": (lambda **kw: xt.from_metrics(y, x, dA, **kw),
-                         jgrid.from_metrics(y, x, dA, **f64)),
+                         same(jgrid.from_metrics(y, x, dA, **f64))),
         "grid_from_numpy": (
             lambda **kw: xt.grid_from_numpy(
                 **leaves, dim_names=jll.dim_names, latlon=True,
                 periodic_x=jll.periodic_x, **kw),
-            jll),
+            same(jll)),
+        "Table.from_numpy": (
+            lambda **kw: xt.Table.from_numpy(values, lat, **kw), same_table),
     }
 
 
 @pytest.mark.parametrize("constructor", ["from_latlon", "from_cartesian",
-                                     "from_xz", "from_metrics",
-                                     "grid_from_numpy"])
+                                         "from_xz", "from_metrics",
+                                         "grid_from_numpy",
+                                         "Table.from_numpy"])
 def test_constructors_default_to_the_card(constructor, monkeypatch):
     """No ``device`` means the card: on a host without one the constructor
     raises and names ``device='cpu'`` rather than falling back; with
-    ``device='cpu'`` it builds the grid it built before, bit for bit."""
-    build, jg = _constructor_cases()[constructor]
+    ``device='cpu'`` it builds what it built before, bit for bit."""
+    build, check = _constructor_cases()[constructor]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build(dtype=torch.float64)
-    tg = build(dtype=torch.float64, device=CPU)
-    assert tg.dA.device.type == "cpu"
-    _assert_same_grid(jg, tg)
+    built = build(dtype=torch.float64, device=CPU)
+    leaf = built.values if constructor == "Table.from_numpy" else built.dA
+    assert leaf.device.type == "cpu"
+    check(built)
 
 
 @pytest.mark.parametrize("nlat,nlon,masked", [(41, 64, False), (64, 128, True),

@@ -119,7 +119,8 @@ def test_keff_pipeline_takes_a_table_and_rejects_unknown_lmin():
     jt = jcore.cal_area_eqCoord_table(jg.fluid_mask(jnp.float64), jg.ydef,
                                       jg.dA, increase=True, lt=True)
     want = jpipe.keff_pipeline(jnp.asarray(q), jg, N=33, hist=False, table=jt)
-    carried = xt.Table.from_numpy(np.asarray(jt.values), np.asarray(jt.coords))
+    carried = xt.Table.from_numpy(np.asarray(jt.values), np.asarray(jt.coords),
+                                  device=CPU)
     _compare(_flat(xt.keff_pipeline(torch.as_tensor(q), tg, N=33, hist=False,
                                     table=carried)), _flat(want), "f64")
     with pytest.raises(ValueError, match="lmin"):

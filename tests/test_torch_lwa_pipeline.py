@@ -107,7 +107,8 @@ def test_table_reuse_and_carried_table():
     tt = xt.cal_area_eqCoord_table_hist(tg.fluid_mask(torch.float64),
                                         tg.ydef, tg.dA, increase=True,
                                         lt=True)
-    carried = xt.Table.from_numpy(np.asarray(jt.values), np.asarray(jt.coords))
+    carried = xt.Table.from_numpy(np.asarray(jt.values), np.asarray(jt.coords),
+                                  device=CPU)
     want = jpipe.lwa_pipeline(jnp.asarray(q), jg, N=33, metric="dy",
                               table=jt)
     for table in (tt, carried, None):

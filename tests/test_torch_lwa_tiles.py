@@ -2,7 +2,7 @@
 emulated on the CPU.
 
 The CUDA kernels run only on the card, but the way they cut the work can be
-checked here.  K4: blocks of 32 columns and 8 warps of ``jpt`` surfaces,
+checked here.  K4: blocks of 32 columns and 8 warps of 16 surfaces,
 64-row panels cut per warp into rows on the side ``y < j`` of all its
 surfaces, rows that straddle them (the side chosen per surface) and rows on
 the side ``y >= j``, all in the mask-free form; parts skipping the side
@@ -28,20 +28,21 @@ from test_torch_lwa import _case, _era_like
 
 F64_RTOL = 1e-12
 LIN_BOUND = 1.5e-4
-TX, JG, YP = 32, 8, 64          # columns, warps a block, rows a panel
+# columns, warps a block, surfaces a warp (kJ), rows a panel
+TX, JG, JPT, YP = 32, 8, 16, 64
 
 INSTANCES = [(v2, part, inc) for v2 in (False, True)
              for part in ("all", "upper", "lower") for inc in (True, False)]
 
 
-def _k4_span(a, mode, qb, Qb, Wz, xs, ya, yb, j0, jpt, variant2, mask_inc,
+def _k4_span(a, mode, qb, Qb, Wz, xs, ya, yb, j0, variant2, mask_inc,
              keep_ge, keep_lt):
     """Rows [ya, yb) of one warp's kernel step, added to its sums ``a``
-    (jpt, columns) in y order."""
+    (JPT, columns) in y order."""
     Ny = qb.shape[0]
-    jj = j0 + np.arange(jpt)[:, None]
+    jj = j0 + np.arange(JPT)[:, None]
     sj = np.zeros(a.shape)
-    n = min(jpt, Ny - j0)
+    n = min(JPT, Ny - j0)
     sj[:n] = qb[j0:j0 + n, xs] if variant2 else Qb[j0:j0 + n, None]
     for y in range(ya, yb):
         v = Qb[y] if variant2 else qb[y, xs]
@@ -68,7 +69,7 @@ def _k4_span(a, mode, qb, Qb, Wz, xs, ya, yb, j0, jpt, variant2, mask_inc,
             a += t * w
 
 
-def _k4_emulate(q, Q, W, *, increase, part, variant2, jpt, flag=True):
+def _k4_emulate(q, Q, W, *, increase, part, variant2, flag=True):
     """K4 as the kernel cuts it, float64 numpy; returns the output and the
     count of (block, panel, warp) row spans by mode."""
     Wz = np.where(np.isnan(W), 0.0, W)
@@ -76,7 +77,7 @@ def _k4_emulate(q, Q, W, *, increase, part, variant2, jpt, flag=True):
     mask_inc = increase != variant2
     keep_ge = part == "all" or (part == "upper") == increase
     keep_lt = part == "all" or (part == "upper") != increase
-    tj = JG * jpt
+    tj = JG * JPT
     out = np.zeros_like(q)
     steps = dict(ge=0, lt=0, mixed=0, exact=0, skipped=0)
     for b in range(B):
@@ -95,13 +96,13 @@ def _k4_emulate(q, Q, W, *, increase, part, variant2, jpt, flag=True):
                     exact = block_inf or (flag and bool(
                         np.isinf(staged).any() or np.isinf(Wz[ys, xs]).any()))
                     for g in range(JG):
-                        j0 = jb + g * jpt
+                        j0 = jb + g * JPT
                         if j0 >= Ny:
                             continue
                         # rows [0, r_lt) lie above every surface of the
                         # warp, [r_ge, rows) below, [r_lt, r_ge) straddle
                         r_lt = min(max(j0 - y0, 0), rows)
-                        r_ge = min(max(j0 + jpt - 1 - y0, r_lt), rows)
+                        r_ge = min(max(j0 + JPT - 1 - y0, r_lt), rows)
                         spans = ([("exact", 0, rows)] if exact else
                                  [("lt", 0, r_lt), ("mixed", r_lt, r_ge),
                                   ("ge", r_ge, rows)])
@@ -113,9 +114,9 @@ def _k4_emulate(q, Q, W, *, increase, part, variant2, jpt, flag=True):
                                 steps["skipped"] += 1
                                 continue
                             steps[mode] += 1
-                            _k4_span(acc[g * jpt:(g + 1) * jpt], mode,
+                            _k4_span(acc[g * JPT:(g + 1) * JPT], mode,
                                      q[b], Q[b], Wz, xs, y0 + r0, y0 + r1,
-                                     j0, jpt, variant2, mask_inc, keep_ge,
+                                     j0, variant2, mask_inc, keep_ge,
                                      keep_lt)
                 n = js_blk.stop - jb
                 out[b, js_blk, xs] = -acc[:n]
@@ -142,18 +143,16 @@ QUEUE3 = [(seed, inf, nan_w) for seed in (4, 9)
 @pytest.mark.parametrize("variant2,part,increase", INSTANCES)
 def test_k4_tiles_match_plain_on_queue3_inputs(variant2, part, increase):
     """All 12 instances on the inputs that pin the twin's behaviour (a NaN
-    weight, +-inf cells, a NaN profile row, an exact tie), at 8 and 16
-    surfaces a thread."""
+    weight, +-inf cells, a NaN profile row, an exact tie)."""
     kw = dict(increase=increase, part=part, variant2=variant2)
     for seed, inf, nan_w in QUEUE3:
         q, Q, W = _case(seed, inf=inf, nan_w=nan_w)
         want = _plain(q, Q, W, **kw)
-        for jpt in (8, 16):
-            got, steps = _k4_emulate(q, Q, W, jpt=jpt, **kw)
-            _agree(got, want, F64_RTOL)
-            # flagged panels run exact, the others the mask-free form
-            assert (steps["exact"] > 0) == inf
-            assert steps["mixed"] > 0 and steps["ge"] + steps["lt"] > 0
+        got, steps = _k4_emulate(q, Q, W, **kw)
+        _agree(got, want, F64_RTOL)
+        # flagged panels run exact, the others the mask-free form
+        assert (steps["exact"] > 0) == inf
+        assert steps["mixed"] > 0 and steps["ge"] + steps["lt"] > 0
 
 
 @pytest.mark.parametrize("B,Ny,Nx,seed", [(2, 97, 40, 21), (1, 150, 33, 22),
@@ -170,7 +169,7 @@ def test_k4_tiles_match_plain_on_ragged_shapes(B, Ny, Nx, seed):
     for variant2, part, increase in INSTANCES:
         kw = dict(increase=increase, part=part, variant2=variant2)
         want = _plain(q, Q, W, **kw)
-        got, steps = _k4_emulate(q, Q, W, jpt=16, **kw)
+        got, steps = _k4_emulate(q, Q, W, **kw)
         _agree(got, want, F64_RTOL)
         assert steps["mixed"] > 0 and steps["ge"] + steps["lt"] > 0
         assert steps["exact"] == 0
@@ -197,9 +196,9 @@ def test_k4_inf_flag_keeps_the_twins_nan(where):
             kw["part"] = "upper"
     want = _plain(q, Q, W, **kw)
     assert np.isnan(want).any()
-    unflagged, _ = _k4_emulate(q, Q, W, flag=False, jpt=8, **kw)
+    unflagged, _ = _k4_emulate(q, Q, W, flag=False, **kw)
     assert not np.array_equal(np.isnan(unflagged), np.isnan(want))
-    flagged, _ = _k4_emulate(q, Q, W, jpt=8, **kw)
+    flagged, _ = _k4_emulate(q, Q, W, **kw)
     _agree(flagged, want, F64_RTOL)
 
 

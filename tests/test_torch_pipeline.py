@@ -108,7 +108,8 @@ def test_table_reuse_and_carried_table():
                                         tg.dA, increase=True, lt=True)
     np.testing.assert_allclose(tt.values.numpy(), np.asarray(jt.values),
                                rtol=1e-13)
-    carried = xt.Table.from_numpy(np.asarray(jt.values), np.asarray(jt.coords))
+    carried = xt.Table.from_numpy(np.asarray(jt.values), np.asarray(jt.coords),
+                                  device=CPU)
     want = jpipe.keff_lwa_pipeline(jnp.asarray(q), jg, N=33, table=jt)
     for table in (tt, carried, None):
         _compare(xt.keff_lwa_pipeline(torch.as_tensor(q), tg, N=33,

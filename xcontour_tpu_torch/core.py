@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .grid import _device
 from .ops.gradient import gradient_index
 from .ops.histogram import weighted_cdf
 from .ops.interp import interp1d
@@ -88,7 +89,10 @@ class Table:
 
     @classmethod
     def from_numpy(cls, values, coords, *, dtype=None, device=None) -> "Table":
-        """A precomputed table carried across as numpy arrays."""
+        """A precomputed table carried across as numpy arrays, on the card
+        unless ``device`` says otherwise (as the grid constructors)."""
+        device = _device(device)
+
         def t(a):
             out = torch.as_tensor(np.array(a), device=device)
             return out if dtype is None else out.to(dtype)

@@ -52,12 +52,16 @@
 //
 // Design (all kernels): a block of 32 x 8 threads covers 32 columns; each
 // thread keeps kJ consecutive surfaces' operand (Q_j in variant 1,
-// q(y_j, x) in variant 2) and running sums in registers (kJ = 8 or 16: 64
-// or 128 surfaces a block), and every staged value feeds kJ surfaces per
-// thread.  Every surface reduction is x-separable (the mask depends only on
-// the row index), so blocks need no communication.  Surface tiles are the
-// fastest grid dimension: the blocks that share a column strip run together
-// and read it from L2.
+// q(y_j, x) in variant 2) and running sums in registers, and every staged
+// value feeds kJ surfaces per thread.  K3 and K4 keep kJ = 16 (128 surfaces
+// a block; 64 registers a thread): against 8 it halves the shared loads per
+// FMA, and at 8 they took 9-20% longer on an H100.  K5 keeps 8.  A K4
+// warp whose surfaces all lie past Ny stages its rows but sums none (the
+// same skip made K3 5% slower at ERA5 on an H100, so K3 has none).  Every
+// surface reduction is x-separable (the mask depends only on the row
+// index), so blocks need no communication.  Surface tiles are the fastest
+// grid dimension: the blocks that share a column strip run together and
+// read it from L2.
 //
 // K3 and K4 stage row panels (K3 32 rows, K4 64) with cp.async into two
 // shared buffers: the copy of panel p+1 is in flight while panel p is
@@ -111,6 +115,7 @@ constexpr int kTX = 32;           // columns per block (one warp)
 constexpr int kJG = 8;            // surface groups per block (threadIdx.y)
 constexpr int kJPT = 8;           // K5's surfaces per thread
 constexpr int kTJ = kJG * kJPT;   // K5's surfaces per block
+constexpr int kJ = 16;            // K3's and K4's surfaces per thread
 constexpr int kYP = 32;           // rows per staged panel of K3 and K5
 constexpr int kCH = 32;           // rows per chunk of K3's E prep
 
@@ -192,7 +197,7 @@ __global__ void lwa_lin_prep_kernel(const float* __restrict__ q,
 }
 
 // K3: one staged row (qk, Wv) against a thread's kJ surfaces
-template <bool kInc, int kJ>
+template <bool kInc>
 __device__ __forceinline__ void lin_row(float (&acc)[kJ],
                                         const float (&Qj)[kJ], float qv,
                                         float wv) {
@@ -207,7 +212,7 @@ __device__ __forceinline__ void lin_row(float (&acc)[kJ],
 // K3 surface kernel: kJ surfaces per thread; panels of q and W staged with
 // cp.async, then centered and sanitized in place by the thread that copied
 // them.
-template <bool kInc, int kJ>
+template <bool kInc>
 __global__ void __launch_bounds__(kTX * kJG)
 lwa_lin_kernel(const float* __restrict__ q, const float* __restrict__ W,
                const float* __restrict__ Q, const float* __restrict__ c0,
@@ -261,11 +266,11 @@ lwa_lin_kernel(const float* __restrict__ q, const float* __restrict__ W,
     if (rows == kYP) {
 #pragma unroll
       for (int r = 0; r < kYP; ++r)
-        lin_row<kInc, kJ>(acc, Qj, sq[buf][r][tx], sw[buf][r][tx]);
+        lin_row<kInc>(acc, Qj, sq[buf][r][tx], sw[buf][r][tx]);
     } else {
 #pragma unroll 1
       for (int r = 0; r < rows; ++r)
-        lin_row<kInc, kJ>(acc, Qj, sq[buf][r][tx], sw[buf][r][tx]);
+        lin_row<kInc>(acc, Qj, sq[buf][r][tx], sw[buf][r][tx]);
     }
   }
 
@@ -299,8 +304,7 @@ lwa_lin_kernel(const float* __restrict__ q, const float* __restrict__ W,
 enum { kGE = 0, kLT = 1, kMixed = 2, kExact = 3 };
 
 // one staged row (value v, weight w, row y) against a thread's kJ surfaces
-template <int kMode, bool kMaskInc, bool kKeepGE, bool kKeepLT, bool kV2,
-          int kJ>
+template <int kMode, bool kMaskInc, bool kKeepGE, bool kKeepLT, bool kV2>
 __device__ __forceinline__ void dense_row(float (&acc)[kJ],
                                           const float (&s)[kJ], float v,
                                           float w, int y, int j0) {
@@ -335,8 +339,7 @@ __device__ __forceinline__ void dense_row(float (&acc)[kJ],
 }
 
 // rows [r0, r1) of one staged panel, in order
-template <int kMode, bool kMaskInc, bool kKeepGE, bool kKeepLT, bool kV2,
-          int kJ>
+template <int kMode, bool kMaskInc, bool kKeepGE, bool kKeepLT, bool kV2>
 __device__ __forceinline__ void dense_rows(float (&acc)[kJ],
                                            const float (&s)[kJ],
                                            const float* vp, const float* wp,
@@ -345,12 +348,12 @@ __device__ __forceinline__ void dense_rows(float (&acc)[kJ],
   if constexpr (kMode == kGE || kMode == kLT) {
 #pragma unroll 8
     for (int r = r0; r < r1; ++r)
-      dense_row<kMode, kMaskInc, kKeepGE, kKeepLT, kV2, kJ>(
+      dense_row<kMode, kMaskInc, kKeepGE, kKeepLT, kV2>(
           acc, s, vp[r * vs], wp[r * kTX], y0 + r, j0);
   } else {
 #pragma unroll 1
     for (int r = r0; r < r1; ++r)
-      dense_row<kMode, kMaskInc, kKeepGE, kKeepLT, kV2, kJ>(
+      dense_row<kMode, kMaskInc, kKeepGE, kKeepLT, kV2>(
           acc, s, vp[r * vs], wp[r * kTX], y0 + r, j0);
   }
 }
@@ -362,7 +365,7 @@ constexpr int kDP = 64;
 // kPart: 0 all, 1 upper, 2 lower.  kV2: variant 2 (impulse-Casimir), whose
 // per-thread operands are the surface values q(y_j, x) and whose staged
 // panel is the profile Q(y); v1 holds Q_j and stages q(y, x).
-template <bool kInc, int kPart, bool kV2, int kJ>
+template <bool kInc, int kPart, bool kV2>
 __global__ void __launch_bounds__(kTX * kJG)
 lwa_dense_kernel(const float* __restrict__ q, const float* __restrict__ Wz,
                  const float* __restrict__ Q, float* __restrict__ out, int Ny,
@@ -434,6 +437,7 @@ lwa_dense_kernel(const float* __restrict__ q, const float* __restrict__ Wz,
       for (int r = tx; r < kDP; r += kTX) mine |= isinf(sQ[buf][r]);
     const bool exact = __syncthreads_or(mine) || block_inf;
     if (p + 1 < np) stage(p + 1, buf ^ 1);
+    if (j0 >= Ny) continue;  // warp-uniform: no surface of this warp
     const int y0 = p * kDP;
     const int rows = min(kDP, Ny - y0);
     const float* vp;
@@ -441,7 +445,7 @@ lwa_dense_kernel(const float* __restrict__ q, const float* __restrict__ Wz,
     else vp = &sq[buf][0][tx];
     const float* wp = &sw[buf][0][tx];
     if (exact) {
-      dense_rows<kExact, kMaskInc, kKeepGE, kKeepLT, kV2, kJ>(
+      dense_rows<kExact, kMaskInc, kKeepGE, kKeepLT, kV2>(
           acc, s, vp, wp, y0, 0, rows, j0);
       continue;
     }
@@ -451,12 +455,12 @@ lwa_dense_kernel(const float* __restrict__ q, const float* __restrict__ Wz,
     const int r_lt = min(max(j0 - y0, 0), rows);
     const int r_ge = min(max(j0 + kJ - 1 - y0, r_lt), rows);
     if (kKeepLT)
-      dense_rows<kLT, kMaskInc, kKeepGE, kKeepLT, kV2, kJ>(
+      dense_rows<kLT, kMaskInc, kKeepGE, kKeepLT, kV2>(
           acc, s, vp, wp, y0, 0, r_lt, j0);
-    dense_rows<kMixed, kMaskInc, kKeepGE, kKeepLT, kV2, kJ>(
+    dense_rows<kMixed, kMaskInc, kKeepGE, kKeepLT, kV2>(
         acc, s, vp, wp, y0, r_lt, r_ge, j0);
     if (kKeepGE)
-      dense_rows<kGE, kMaskInc, kKeepGE, kKeepLT, kV2, kJ>(
+      dense_rows<kGE, kMaskInc, kKeepGE, kKeepLT, kV2>(
           acc, s, vp, wp, y0, r_ge, rows, j0);
   }
 
@@ -579,25 +583,21 @@ using LinKernel = void (*)(const float*, const float*, const float*,
                            const float*, const float*, const float*, float*,
                            int, int);
 
-// indexed by (kJ == 16) * 2 + increase
-constexpr LinKernel kLinKernels[4] = {
-    lwa_lin_kernel<false, 8>, lwa_lin_kernel<true, 8>,
-    lwa_lin_kernel<false, 16>, lwa_lin_kernel<true, 16>,
-};
+// indexed by increase
+constexpr LinKernel kLinKernels[2] = {lwa_lin_kernel<false>,
+                                      lwa_lin_kernel<true>};
 
 using DenseKernel = void (*)(const float*, const float*, const float*, float*,
                              int, int);
 
-#define XC_DENSE_PARTS(V2, J)                                              \
-  lwa_dense_kernel<false, 0, V2, J>, lwa_dense_kernel<true, 0, V2, J>,     \
-      lwa_dense_kernel<false, 1, V2, J>, lwa_dense_kernel<true, 1, V2, J>, \
-      lwa_dense_kernel<false, 2, V2, J>, lwa_dense_kernel<true, 2, V2, J>
+#define XC_DENSE_PARTS(V2)                                           \
+  lwa_dense_kernel<false, 0, V2>, lwa_dense_kernel<true, 0, V2>,     \
+      lwa_dense_kernel<false, 1, V2>, lwa_dense_kernel<true, 1, V2>, \
+      lwa_dense_kernel<false, 2, V2>, lwa_dense_kernel<true, 2, V2>
 
-// indexed by (((kJ == 16) * 2 + variant2) * 3 + part) * 2 + increase
-constexpr DenseKernel kDenseKernels[24] = {
-    XC_DENSE_PARTS(false, 8), XC_DENSE_PARTS(true, 8),
-    XC_DENSE_PARTS(false, 16), XC_DENSE_PARTS(true, 16),
-};
+// indexed by (variant2 * 3 + part) * 2 + increase
+constexpr DenseKernel kDenseKernels[12] = {XC_DENSE_PARTS(false),
+                                           XC_DENSE_PARTS(true)};
 
 #undef XC_DENSE_PARTS
 
@@ -607,12 +607,9 @@ dim3 surface_grid(int B, int Ny, int Nx, int per_block) {
 
 }  // namespace
 
-// jpt: surfaces per thread of K3 and K4, 8 or 16
 extern "C" int xc_lwa_lin(const void* q, const void* W, const void* Q,
                           const void* c0, void* E, void* tot, void* out,
-                          int B, int Ny, int Nx, int increase, int jpt,
-                          void* stream) {
-  if (jpt != 8 && jpt != 16) return (int)cudaErrorInvalidValue;
+                          int B, int Ny, int Nx, int increase, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int pt = 128;
   lwa_lin_prep_kernel<<<dim3((Nx + pt - 1) / pt, (Ny + kCH - 1) / kCH, B),
@@ -621,9 +618,8 @@ extern "C" int xc_lwa_lin(const void* q, const void* W, const void* Q,
       (float*)E, (float*)tot, Ny, Nx);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const LinKernel kernel =
-      kLinKernels[(jpt == 16 ? 2 : 0) + (increase ? 1 : 0)];
-  kernel<<<surface_grid(B, Ny, Nx, kJG * jpt), dim3(kTX, kJG), 0, st>>>(
+  const LinKernel kernel = kLinKernels[increase ? 1 : 0];
+  kernel<<<surface_grid(B, Ny, Nx, kJG * kJ), dim3(kTX, kJG), 0, st>>>(
       (const float*)q, (const float*)W, (const float*)Q, (const float*)c0,
       (const float*)E, (const float*)tot, (float*)out, Ny, Nx);
   return (int)cudaGetLastError();
@@ -631,13 +627,11 @@ extern "C" int xc_lwa_lin(const void* q, const void* W, const void* Q,
 
 extern "C" int xc_lwa_dense(const void* q, const void* Wz, const void* Q,
                             void* out, int B, int Ny, int Nx, int increase,
-                            int part, int variant2, int jpt, void* stream) {
-  if (part < 0 || part > 2 || (jpt != 8 && jpt != 16))
-    return (int)cudaErrorInvalidValue;
+                            int part, int variant2, void* stream) {
+  if (part < 0 || part > 2) return (int)cudaErrorInvalidValue;
   const DenseKernel kernel =
-      kDenseKernels[(((jpt == 16 ? 1 : 0) * 2 + (variant2 ? 1 : 0)) * 3 +
-                     part) * 2 + (increase ? 1 : 0)];
-  kernel<<<surface_grid(B, Ny, Nx, kJG * jpt), dim3(kTX, kJG), 0,
+      kDenseKernels[((variant2 ? 1 : 0) * 3 + part) * 2 + (increase ? 1 : 0)];
+  kernel<<<surface_grid(B, Ny, Nx, kJG * kJ), dim3(kTX, kJG), 0,
            (cudaStream_t)stream>>>((const float*)q, (const float*)Wz,
                                    (const float*)Q, (float*)out, Ny, Nx);
   return (int)cudaGetLastError();

@@ -52,9 +52,9 @@ def _device(device) -> torch.device:
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the grid constructors run on the "
-                           "card by default; pass device='cpu' to build on "
-                           "the CPU")
+        raise RuntimeError("no CUDA device: the grid and table constructors "
+                           "run on the card by default; pass device='cpu' "
+                           "to build on the CPU")
     return torch.device("cuda")
 
 

@@ -33,10 +33,10 @@ SIGNATURES = {
     "xc_squared_gradient": [P, P, P, P, I, I, I, I, I, P],
     # values, edges, weights, partial, out, B, G, N, C, nblk, chunk, stream
     "xc_weighted_cdf": [P, P, P, P, P, I, I, I, I, I, I, P],
-    # q, W, Q, c0, E, tot, out, B, Ny, Nx, increase, jpt, stream
-    "xc_lwa_lin": [P, P, P, P, P, P, P, I, I, I, I, I, P],
-    # q, Wz, Q, out, B, Ny, Nx, increase, part, variant2, jpt, stream
-    "xc_lwa_dense": [P, P, P, P, I, I, I, I, I, I, I, P],
+    # q, W, Q, c0, E, tot, out, B, Ny, Nx, increase, stream
+    "xc_lwa_lin": [P, P, P, P, P, P, P, I, I, I, I, P],
+    # q, Wz, Q, out, B, Ny, Nx, increase, part, variant2, stream
+    "xc_lwa_dense": [P, P, P, P, I, I, I, I, I, I, P],
     # q, Q, W, c0, E, out, B, Ny, Nx, increase, stream
     "xc_lwa_lin2": [P, P, P, P, P, P, I, I, I, I, P],
     # data, levels, n0, n1, y, x, partial, out, B, Ny, Nx, N, n_rb, n_cb,

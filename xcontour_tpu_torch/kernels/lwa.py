@@ -40,11 +40,6 @@ KERNEL_DENSE_TALL = Kernel("lwa_dense_tall", "xcontour_tpu_torch/csrc/lwa.cu",
 
 _PARTS = {"all": 0, "upper": 1, "lower": 2}
 
-# surfaces each thread of K3 and K4 keeps in registers (8 or 16: 64 or 128
-# surfaces a block); 16 measured faster for K3, K4 and K6 on an H100, and
-# chip_smoke.py phase 6 times both
-SURFACES_PER_THREAD = 16
-
 # rows per chunk of K3's E prep (kCH in csrc/lwa.cu)
 E_CHUNK = 32
 
@@ -220,7 +215,7 @@ def lwa_lin(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
     status = library().xc_lwa_lin(
         q.data_ptr(), W.data_ptr(), Q.data_ptr(), c0.data_ptr(),
         E.data_ptr(), tot.data_ptr(), out.data_ptr(), B, Ny, Nx,
-        int(increase), SURFACES_PER_THREAD, stream_handle())
+        int(increase), stream_handle())
     check_status(KERNEL_LIN.name, status)
     KERNEL_LIN.launches += 1
     return out
@@ -270,7 +265,7 @@ def lwa_dense(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
     status = library().xc_lwa_dense(
         q.data_ptr(), Wz.data_ptr(), Q.data_ptr(), out.data_ptr(),
         B, Ny, Nx, int(increase), _PARTS[part], int(variant2),
-        SURFACES_PER_THREAD, stream_handle())
+        stream_handle())
     check_status(record.name, status)
     record.launches += 1
     return out
