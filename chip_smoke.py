@@ -92,11 +92,17 @@ LOCAL = dict(window=101, stride=10)
 # the inputs of ROADMAP Queue 3 at test_torch_lwa.py's shape, and taller
 # than 3072 rows for K6
 QUEUE3_SHAPES = ((2, 40, 128), (2, 3104, 128))
+# K2 beyond the ERA5 main step: the A(Y_eq) table build (one launch of
+# 721x1440 row latitudes, N = 721 bins, one channel), clength_pipeline's
+# five channels at its larger contour count, and uniform noise over the
+# main step's edges (no runs of one bin to aggregate)
+K2_SHAPES = ("table", "clength5", "noise")
 
 # kernel vs plain version on the same CUDA tensors, relative to the plain
 # output's largest magnitude
 #   K1: the same float32 operations in the same order (no FMA): exact
-#   K2: float32 sums in another order (shared-memory atomics, partials)
+#   K2: float32 sums in another order (register runs, shared-memory
+#       atomics, per-block partials, a block scan)
 #   K3: the 'lin' float32 floor (R and E cancel), the JAX suite's bound
 #   K4 (both variants): the reference-order float32 bound of the JAX suite
 #   K5: K3's bound: the same R and E cancellation (at ERA5 an H100
@@ -145,8 +151,10 @@ NKEFF_MASK = 2e7
 HBM_BYTES_PER_S = 3.35e12
 FP32_INSTR_PER_S = 33.5e12
 # no single PyTorch call computes any of K1-K8 (torch.histogram has no CUDA
-# form, torch.histc takes no weights; no call computes LWA, a metric-
-# weighted |grad q|^2 or contour lengths), so every library_ms is null
+# form, torch.histc takes no weights, torch.bincount weighs integer bins
+# that a torch.bucketize must find first and leaves the cumsum; no call
+# computes LWA, |grad q|^2 with metric factors or contour lengths), so
+# every library_ms is null
 LIBRARY_MS = None
 
 
@@ -354,6 +362,53 @@ def kernel_cases(q, grid, N):
             lambda: lwa.lwa_dense_plain(q, Q, W, increase=True,
                                         variant2=True), lwa_all),
     }
+
+
+def k2_cases(q, grid, N):
+    """name -> (kernel call, plain call, (bytes, instructions)) for K2 at
+    the shapes of K2_SHAPES, made from the ERA5 step q: the table build
+    (row latitudes under the NaN mask of q's lowest level, N = Ny bins,
+    dA), clength_pipeline's five weights at CLENGTH_N[1] levels, and
+    values drawn uniformly (numpy seed 0) between the edges of the main
+    step's N levels, with its two weights."""
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch.kernels import hist, stencil
+    from xcontour_tpu_torch.ops import histogram, stencil as ops_stencil
+
+    B, Ny, Nx = q.shape
+    G = Ny * Nx
+    dA = grid.dA
+    dy, dx = ops_stencil._spacing(grid, q.dtype)
+    grdS = stencil.squared_gradient_plain(q, (1.0 / dx).contiguous(),
+                                          (1.0 / dy).contiguous(),
+                                          periodic_x=grid.periodic_x)
+    grdm = torch.sqrt(grdS)
+    mask = torch.isfinite(q[0])
+    lat = torch.broadcast_to(grid.ydef[:, None], (Ny, Nx))
+    vt = torch.where(mask, lat, torch.full_like(lat, float("nan")))
+    _, et = histogram._edges(grid.ydef[None])
+    ins = {"table": (vt.reshape(1, G), et, dA.reshape(1, 1, G))}
+    _, e5 = histogram._edges(xt.cal_contours(q, CLENGTH_N[1]))
+    w5 = [dA, grdS * dA, (grdm * grdm) * dA, grdm * dA,
+          ((1.0 / grdm) * grdm) * dA]
+    ins["clength5"] = (q.reshape(B, G), e5, torch.stack(
+        [torch.broadcast_to(w, q.shape).reshape(B, G) for w in w5], 1))
+    _, en = histogram._edges(xt.cal_contours(q, N))
+    u = torch.as_tensor(np.random.default_rng(0).uniform(size=(B, G)),
+                        dtype=q.dtype, device=q.device)
+    vn = en[:, :1] + (en[:, -1:] - en[:, :1]) * u
+    ins["noise"] = (vn, en, torch.stack([torch.broadcast_to(dA, q.shape),
+                                         grdS * dA], 1).reshape(B, 2, G))
+    cases = {}
+    for tag in K2_SHAPES:
+        v, e, w = (t.contiguous() for t in ins[tag])
+        work = (4 * (v.numel() + w.numel() + e.numel()
+                     + w.shape[0] * w.shape[1] * (e.shape[-1] - 1)),
+                w.numel())
+        cases[f"weighted_cdf_{tag}"] = (
+            lambda v=v, e=e, w=w: hist.weighted_cdf(v, e, w),
+            lambda v=v, e=e, w=w: hist.weighted_cdf_plain(v, e, w), work)
+    return cases
 
 
 def tall_cases(q, grid, N):
@@ -851,6 +906,10 @@ def main() -> int:
             err = check_kernel(label, name, kern, plain, tuple(q.shape))
             if label == "era5":
                 errs[name] = err
+    cases["k2"] = k2_cases(era_steps[0], era_grid, ERA5["N"])
+    for name, (kern, plain, _) in cases["k2"].items():
+        errs[name] = check_kernel("era5", "weighted_cdf", kern, plain,
+                                  name[len("weighted_cdf_"):])
     cases["tall"] = tall_cases(tall_q, tall_grid, TALL["N"])
     for name, (kern, plain, _) in cases["tall"].items():
         errs[name] = check_kernel("tall", name, kern, plain,
@@ -878,9 +937,10 @@ def main() -> int:
     totals = {r.name: 0 for r in records}
     peaks, path_counts = {}, {}
 
-    def drive(label, expect, fn):
+    def drive(label, expect, fn, exact=None):
         """Run one path with every launch count at 0; fail unless each
-        kernel in ``expect`` reached its count."""
+        kernel in ``expect`` reached its count, and each in ``exact`` hit
+        its count exactly."""
         for r in records:
             r.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -895,6 +955,9 @@ def main() -> int:
         short = {k: c for k, c in expect.items() if counts[k] < c}
         _expect(not short, f"{label}: kernels launched fewer times than "
                            f"the path runs them: {short} (counts {counts})")
+        off = {k: c for k, c in (exact or {}).items() if counts[k] != c}
+        _expect(not off, f"{label}: launch counts {counts} differ from "
+                         f"{off}")
         return result
 
     def era_table():
@@ -913,9 +976,11 @@ def main() -> int:
             outs, times = timed_steps(lambda q: fn(q, table), era_steps[:S])
             own, own_t = timed_steps(lambda q: fn(q, None), era_steps[S:])
             return outs + own, times, own_t
+        # K2: one launch per step and one per table build
         outs, times, own_t = drive(
             f"keff_lwa era5 {method}",
-            {"squared_gradient": SE, "weighted_cdf": SE, lwa_k: SE}, run)
+            {"squared_gradient": SE, "weighted_cdf": SE, lwa_k: SE}, run,
+            exact={"weighted_cdf": SE + 2})
         for i, out in enumerate(outs):
             check_step(out, ERA5["B"], ERA5["nlat"], ERA5["N"],
                        f"keff_lwa era5 {method} step {i}")
@@ -924,6 +989,13 @@ def main() -> int:
         log(f"phase 4 keff_lwa era5 {method}: {S} steps with table reuse, "
             f"step s {[round(t, 5) for t in times]}, own-table step "
             f"{own_t[0]:.5f} s: checks OK")
+    out = drive("keff_lwa era5 own-table step",
+                {"squared_gradient": 1, "lwa_lin": 1},
+                lambda: xt.keff_lwa_pipeline(era_steps[0], era_grid,
+                                             N=ERA5["N"]),
+                exact={"weighted_cdf": 2})
+    check_step(out, ERA5["B"], ERA5["nlat"], ERA5["N"],
+               "keff_lwa era5 own-table step")
     head_table = xt.cal_area_eqCoord_table_hist(
         head_grid.fluid_mask(), head_grid.ydef, head_grid.dA,
         increase=True, lt=True)
@@ -957,7 +1029,8 @@ def main() -> int:
             own, own_t = timed_steps(lambda q: fn(q, None), era_steps[S:])
             return outs + own, times, own_t
         outs, times, own_t = drive(f"lwa era5 {method}",
-                                   dict(expect, weighted_cdf=SE), run)
+                                   dict(expect, weighted_cdf=SE), run,
+                                   exact={"weighted_cdf": SE + 2})
         for i, out in enumerate(outs):
             check_lwa_step(out, eshape, ERA5["N"], -90.0, 90.0,
                            f"lwa era5 {method} step {i}")
@@ -1042,7 +1115,7 @@ def main() -> int:
             return outs + own, times, own_t
         outs, times, own_t = drive(f"clength era5 N={N}",
                                    {"weighted_cdf": SE, "contour_lengths": SE},
-                                   run)
+                                   run, exact={"weighted_cdf": SE + 2})
         shares = [check_clength(out, era_steps[i], N,
                                 f"clength era5 N={N} step {i}")
                   for i, out in enumerate(outs)]
@@ -1142,6 +1215,11 @@ def main() -> int:
             timing[key], work[key] = (cuda_ms(kern, 20), cuda_ms(plain, 3)), w
             log(f"phase 6 time {name} {label}: kernel {timing[key][0]:.4f} "
                 f"ms, plain {timing[key][1]:.4f} ms")
+    for name, (kern, plain, w) in cases["k2"].items():
+        key = ("era5", name)
+        timing[key], work[key] = (cuda_ms(kern, 20), cuda_ms(plain, 3)), w
+        log(f"phase 6 time {name} era5: kernel {timing[key][0]:.4f} ms, "
+            f"plain {timing[key][1]:.4f} ms")
     # one timed call of each float32 plain version (N = 401 takes seconds)
     for name, (_, kern, plain, _, w) in cases["length"].items():
         timing[name], work[name] = (cuda_ms(kern, 20), cuda_ms(plain, 1)), w
@@ -1189,7 +1267,8 @@ def main() -> int:
             f"{100 * b_ms / k_ms:.2f}% of bound, "
             f"{path_counts[path][r.name] / steps:g} launches per step of "
             f"'{path}', library call none")
-    for key in (("era5", "lwa_dense_v2"), ("era5", "lwa_dense_upper"),
+    for key in (*(("era5", n) for n in cases["k2"]),
+                ("era5", "lwa_dense_v2"), ("era5", "lwa_dense_upper"),
                 "lwa_dense_tall_v2", f"contour_lengths_n{CLENGTH_N[1]}",
                 "contour_lengths_cartesian"):
         bounds[key] = bound_ms(work[key])
@@ -1213,8 +1292,10 @@ def main() -> int:
             if tk in bounds:
                 e[f"bound_ms_{tag}"] = bounds[tk][0]
         return e
+    k2_extra = tuple((tag, f"weighted_cdf_{tag}") for tag in K2_SHAPES)
     kernels_line = {"kernels": [
-        entry(r, key, key[1] if isinstance(key, tuple) else key)
+        entry(r, key, key[1] if isinstance(key, tuple) else key,
+              k2_extra if r is hist.KERNEL else ())
         for r, key, _, _ in table[:3]] + [
         entry(lwa.KERNEL_DENSE, ("era5", "lwa_dense"), "lwa_dense",
               (("v2", "lwa_dense_v2"), ("upper", "lwa_dense_upper"))),

@@ -157,3 +157,36 @@ def test_cpu_tensors_take_the_plain_version():
     v, edges, w = _edges_case(np.random.default_rng(5), B=3, G=300, N=9, C=1)
     k2.weighted_cdf(*(torch.as_tensor(a) for a in (v, edges, w)))
     assert k2.KERNEL.launches == before == 0
+
+
+@pytest.mark.parametrize("lt", [True, False])
+@pytest.mark.parametrize("increase", [True, False])
+@pytest.mark.parametrize("descending", [False, True])
+def test_area_table_takes_one_cdf_launch(lt, increase, descending,
+                                         monkeypatch):
+    """The A(Y_eq) table finishes both of its CDFs from one K2 call, and
+    still matches the JAX package's table (which takes two)."""
+    from xcontour_tpu import core as jcore
+    import xcontour_tpu_torch as xt
+    rng = np.random.default_rng(8)
+    y = np.linspace(-80.0, 80.0, 33)
+    if descending:
+        y = y[::-1].copy()
+    mask = (rng.uniform(size=(33, 48)) > 0.15).astype(np.float64)
+    dA = np.cos(np.deg2rad(y))[:, None] * rng.uniform(0.9, 1.1, (33, 48))
+    calls = []
+    kernel = k2.weighted_cdf
+
+    def counted(*args):
+        calls.append(args[2].shape)
+        return kernel(*args)
+    monkeypatch.setattr(k2, "weighted_cdf", counted)
+    got = xt.cal_area_eqCoord_table_hist(
+        torch.as_tensor(mask), torch.as_tensor(y), torch.as_tensor(dA),
+        increase=increase, lt=lt)
+    assert calls == [(1, 1, 33 * 48)]
+    want = jcore.cal_area_eqCoord_table_hist(
+        jnp.asarray(mask), jnp.asarray(y), jnp.asarray(dA), increase=increase,
+        lt=lt)
+    _close(got.values.numpy(), want.values)
+    np.testing.assert_array_equal(got.coords.numpy(), np.asarray(want.coords))

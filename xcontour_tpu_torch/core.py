@@ -18,7 +18,7 @@ import torch
 
 from .grid import _device
 from .ops.gradient import gradient_index
-from .ops.histogram import weighted_cdf
+from .ops.histogram import weighted_cdf, weighted_cdf_both
 from .ops.interp import interp1d
 
 
@@ -160,16 +160,16 @@ def cal_area_eqCoord_table_hist(mask, ydef, dA, *, increase: bool,
                                 lt: bool) -> Table:
     """Histogram A(y_eq) table: the masked y-coordinate field itself,
     histogrammed with dA weights.  Which comparison applies depends on the
-    coordinate's direction relative to ``increase``; both CDFs are taken and
-    the right one selected, so no device value is read."""
+    coordinate's direction relative to ``increase``; both CDFs are finished
+    from one digitize and the right one selected, so no device value is
+    read."""
     y = ydef
     y_incre = ~(y[-1] < y[0])
     ctr_var = torch.broadcast_to(y[:, None], mask.shape)
     ctr_var = torch.where(mask == 1, ctr_var,
                           torch.full_like(ctr_var, float("nan")))
     w = torch.broadcast_to(dA, mask.shape)
-    cdf_lt = weighted_cdf(ctr_var, y, w, lt)
-    cdf_gt = weighted_cdf(ctr_var, y, w, not lt)
+    cdf_lt, cdf_gt = weighted_cdf_both(ctr_var, y, w, lt)
     values = torch.where(y_incre == increase, cdf_lt, cdf_gt)
     return Table(values=values, coords=ydef)
 

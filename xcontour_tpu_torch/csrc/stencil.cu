@@ -4,19 +4,24 @@
 // squared_gradient_pallas).  The TPU kernel holds one snapshot in VMEM and
 // builds the four neighbours with lane/sublane rolls.
 //
-// Bound on the H100: device-memory traffic.  Each cell reads q once (its
-// neighbours come from the same rows, through L1/L2), reads 1/dx (shared by
-// every batch element, so it stays in L2), and writes the result: about 12
+// Bound on the H100: device-memory traffic.  Each cell reads q once, reads
+// 1/dx (shared by every batch element), and writes the result: about 12
 // bytes per cell, against ~1 FLOP/byte of work.
 //
-// Design: one thread per output (b, y, x), consecutive threads on
-// consecutive x so every load and the store coalesce.  Periodic x wraps by
-// index; y walls follow bc_y ('reflect' follows the JAX package's XLA form,
-// whose walls are NaN where row 1 is; the TPU kernel writes 0 there).
-// Spacings arrive as reciprocals, like the TPU kernel.  The final products
-// and sum use explicit round-to-nearest intrinsics so nvcc does not contract
-// them into an FMA: the kernel then rounds exactly like its plain PyTorch
-// version.
+// Design: blocks of 4 warps over (b, 32 columns, 4 strips of 32 rows), the
+// batch index fastest so the B blocks that read one tile of 1/dx run
+// together and find it in L2.  Each lane marches down its strip for one
+// column, carrying the rows above, at and below in registers, so q is
+// loaded once per cell (plus one halo row at each end of a strip); rows
+// are loaded 4 ahead.  The x neighbours come from the warp's other lanes by
+// shuffle; lane 0 and lane 31 (and the last column) load theirs, with the
+// periodic wrap.  Indices are 32-bit (the wrapper takes fewer than 2^31
+// cells).  y walls follow bc_y ('reflect' follows the JAX package's XLA
+// form, whose walls are NaN where row 1 is; the TPU kernel writes 0
+// there).  Spacings arrive as reciprocals, like the TPU kernel.  The final
+// products and sum use explicit round-to-nearest intrinsics so nvcc does
+// not contract them into an FMA: the kernel then rounds exactly like its
+// plain PyTorch version.
 
 #include <cuda_runtime.h>
 
@@ -24,66 +29,112 @@ namespace {
 
 enum BcY { kExtend = 0, kFill = 1, kReflect = 2 };
 
-__global__ void squared_gradient_kernel(const float* __restrict__ q,
-                                        const float* __restrict__ rdx,
-                                        const float* __restrict__ rdy,
-                                        float* __restrict__ out, int B, int Ny,
-                                        int Nx, int periodic_x, int bc_y) {
-  const long long total = (long long)B * Ny * Nx;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int x = (int)(idx % Nx);
-  const long long r = idx / Nx;
-  const int y = (int)(r % Ny);
-  const float* row = q + r * Nx;  // row y of snapshot b
-  const float c = row[x];
+constexpr int kWarpsY = 4;    // strips a block
+constexpr unsigned kFull = 0xffffffffu;
 
-  float qx;
+// kAhead: rows loaded before they are used; kStrip rows a lane marches
+template <int kAhead>
+__global__ void __launch_bounds__(32 * kWarpsY)
+squared_gradient_kernel(const float* __restrict__ q,
+                        const float* __restrict__ rdx,
+                        const float* __restrict__ rdy, float* __restrict__ out,
+                        int Ny, int Nx, int periodic_x, int bc_y,
+                        int kStrip) {
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int x = blockIdx.y * 32 + lane;
+  const int y0 = (blockIdx.z * kWarpsY + threadIdx.y) * kStrip;
+  if (y0 >= Ny) return;                       // the whole warp
+  const int y1 = min(Ny, y0 + kStrip);
+  const int xc = min(x, Nx - 1);              // lanes past Nx shadow the last
+  int xl, xr;
   if (periodic_x) {
-    const int xl = x == 0 ? Nx - 1 : x - 1;
-    const int xr = x == Nx - 1 ? 0 : x + 1;
-    qx = (row[xr] - row[xl]) * 0.5f;
-  } else if (x == 0) {
-    qx = row[1] - c;
-  } else if (x == Nx - 1) {
-    qx = c - row[Nx - 2];
+    xl = xc == 0 ? Nx - 1 : xc - 1;
+    xr = xc == Nx - 1 ? 0 : xc + 1;
   } else {
-    qx = (row[x + 1] - row[x - 1]) * 0.5f;
+    xl = max(xc - 1, 0);
+    xr = min(xc + 1, Nx - 1);
   }
+  const bool load_l = lane == 0;
+  const bool load_r = lane == 31 || x >= Nx - 1;
+  const size_t plane = (size_t)Ny * Nx;
+  const float* qb = q + b * plane;
+  float* ob = out + b * plane;
 
-  float qy;
-  if ((y == 0 || y == Ny - 1) && bc_y == kReflect) {
-    // zero wall-normal derivative, NaN where row 1 is not finite (the JAX
-    // package's (q[1] - q[1]) * 0 at both walls)
-    const float r1 = row[(long long)(1 - y) * Nx + x];
-    qy = (r1 - r1) * 0.0f;
-  } else if (y == 0) {
-    const float dn = row[Nx + x];
-    qy = bc_y == kExtend ? dn - c : dn * 0.5f;
-  } else if (y == Ny - 1) {
-    const float up = row[x - Nx];
-    qy = bc_y == kExtend ? c - up : -up * 0.5f;
-  } else {
-    qy = (row[x + Nx] - row[x - Nx]) * 0.5f;
+  float up = y0 > 0 ? qb[(y0 - 1) * Nx + xc] : 0.0f;
+  float c = qb[y0 * Nx + xc];
+  for (int ys = y0; ys < y1; ys += kAhead) {
+    float dn[kAhead], rx[kAhead], lv[kAhead], rv[kAhead];
+#pragma unroll
+    for (int r = 0; r < kAhead; ++r) {
+      const int y = ys + r;
+      const bool in = y < y1;
+      dn[r] = in && y + 1 < Ny ? qb[(y + 1) * Nx + xc] : 0.0f;
+      rx[r] = in ? rdx[y * Nx + xc] : 0.0f;
+      lv[r] = in && load_l ? qb[y * Nx + xl] : 0.0f;
+      rv[r] = in && load_r ? qb[y * Nx + xr] : 0.0f;
+    }
+#pragma unroll
+    for (int r = 0; r < kAhead; ++r) {
+      const int y = ys + r;
+      if (y >= y1) break;                     // the whole warp
+      const float sl = __shfl_up_sync(kFull, c, 1);
+      const float sr = __shfl_down_sync(kFull, c, 1);
+      const float left = load_l ? lv[r] : sl;
+      const float right = load_r ? rv[r] : sr;
+
+      float qx;
+      if (periodic_x) {
+        qx = (right - left) * 0.5f;
+      } else if (xc == 0) {
+        qx = right - c;
+      } else if (xc == Nx - 1) {
+        qx = c - left;
+      } else {
+        qx = (right - left) * 0.5f;
+      }
+
+      float qy;
+      if ((y == 0 || y == Ny - 1) && bc_y == kReflect) {
+        // zero wall-normal derivative, NaN where row 1 is not finite (the
+        // JAX package's (q[1] - q[1]) * 0 at both walls)
+        const float r1 = qb[Nx + xc];
+        qy = (r1 - r1) * 0.0f;
+      } else if (y == 0) {
+        qy = bc_y == kExtend ? dn[r] - c : dn[r] * 0.5f;
+      } else if (y == Ny - 1) {
+        qy = bc_y == kExtend ? c - up : -up * 0.5f;
+      } else {
+        qy = (dn[r] - up) * 0.5f;
+      }
+
+      const float gx = __fmul_rn(qx, rx[r]);
+      const float gy = __fmul_rn(qy, rdy[y]);
+      if (x < Nx)
+        ob[y * Nx + x] = __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
+      up = c;
+      c = dn[r];
+    }
   }
-
-  const float gx = __fmul_rn(qx, rdx[(long long)y * Nx + x]);
-  const float gy = __fmul_rn(qy, rdy[y]);
-  out[idx] = __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
 }
 
 }  // namespace
 
 extern "C" int xc_squared_gradient(const void* q, const void* rdx,
                                    const void* rdy, void* out, int B, int Ny,
-                                   int Nx, int periodic_x, int bc_y,
-                                   void* stream) {
-  const long long total = (long long)B * Ny * Nx;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  squared_gradient_kernel<<<(unsigned)blocks, threads, 0,
-                            (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)rdx, (const float*)rdy, (float*)out, B,
-      Ny, Nx, periodic_x, bc_y);
+                                   int Nx, int periodic_x, int bc_y, int strip,
+                                   int ahead, void* stream) {
+  const dim3 grid(B, (Nx + 31) / 32,
+                  (Ny + strip * kWarpsY - 1) / (strip * kWarpsY));
+  const dim3 block(32, kWarpsY);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ahead == 8)
+    squared_gradient_kernel<8><<<grid, block, 0, st>>>(
+        (const float*)q, (const float*)rdx, (const float*)rdy, (float*)out,
+        Ny, Nx, periodic_x, bc_y, strip);
+  else
+    squared_gradient_kernel<4><<<grid, block, 0, st>>>(
+        (const float*)q, (const float*)rdx, (const float*)rdy, (float*)out,
+        Ny, Nx, periodic_x, bc_y, strip);
   return (int)cudaGetLastError();
 }

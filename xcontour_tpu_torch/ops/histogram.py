@@ -44,14 +44,9 @@ def _finish(cdf: torch.Tensor, bincrease: torch.Tensor, lt: bool):
     return torch.where(bincrease[:, None, :], cdf, cdf.flip(-1))
 
 
-def weighted_cdf_multi(values: torch.Tensor, bins: torch.Tensor,
-                       weights_list: Sequence[torch.Tensor],
-                       lt: bool) -> List[torch.Tensor]:
-    """Several weighted CDFs over the SAME values and bins in one pass (the
-    Keff chain's area and |grad q|^2 integrals share one digitize).
-
-    values : (..., Ny, Nx); bins : (N,) or (..., N); each weight
-    broadcastable to ``values``.  Returns a list of (..., N) tensors."""
+def _ascending_cdf(values, bins, weights_list):
+    """One K2 launch: (ascending (B, C, N) CDF, bincrease (B, 1), batch
+    shape) of the weights over the values, digitized once."""
     batch_shape = values.shape[:-2]
     G = values.shape[-2] * values.shape[-1]
     N = bins.shape[-1]
@@ -60,9 +55,30 @@ def weighted_cdf_multi(values: torch.Tensor, bins: torch.Tensor,
                       for w in weights_list], dim=1).contiguous()
     bf = torch.broadcast_to(bins, batch_shape + (N,)).reshape(-1, N)
     bincrease, edges = _edges(bf)
-    cdf = _finish(_k2.weighted_cdf(vf, edges.contiguous(), wf), bincrease, lt)
-    return [cdf[:, c].reshape(batch_shape + (N,))
+    return _k2.weighted_cdf(vf, edges.contiguous(), wf), bincrease, batch_shape
+
+
+def weighted_cdf_multi(values: torch.Tensor, bins: torch.Tensor,
+                       weights_list: Sequence[torch.Tensor],
+                       lt: bool) -> List[torch.Tensor]:
+    """Several weighted CDFs over the SAME values and bins in one pass (the
+    Keff chain's area and |grad q|^2 integrals share one digitize).
+
+    values : (..., Ny, Nx); bins : (N,) or (..., N); each weight
+    broadcastable to ``values``.  Returns a list of (..., N) tensors."""
+    asc, bincrease, batch_shape = _ascending_cdf(values, bins, weights_list)
+    cdf = _finish(asc, bincrease, lt)
+    return [cdf[:, c].reshape(batch_shape + (cdf.shape[-1],))
             for c in range(len(weights_list))]
+
+
+def weighted_cdf_both(values: torch.Tensor, bins: torch.Tensor,
+                      weights: torch.Tensor, lt: bool):
+    """(the ``lt`` CDF, the ``not lt`` CDF) of one weight from one digitize:
+    the two differ only in how the ascending CDF is finished."""
+    asc, bincrease, batch_shape = _ascending_cdf(values, bins, [weights])
+    return tuple(_finish(asc, bincrease, side)[:, 0].reshape(
+        batch_shape + (asc.shape[-1],)) for side in (lt, not lt))
 
 
 def weighted_cdf(values: torch.Tensor, bins: torch.Tensor,
