@@ -1,28 +1,27 @@
 #!/usr/bin/env python3
-"""Check and time the design variants of K2 (``csrc/hist.cu``) and K1 on one
-card, at the ERA5 main step's K2 input and at ``chip_smoke.py``'s three
-other K2 shapes.
+"""Check and time design options of K2 (``csrc/hist.cu``) and K1
+(``csrc/stencil.cu``) on one card, at the ERA5 main step's K2 input and at
+``chip_smoke.py``'s three other K2 shapes.
 
     python3 scripts/k2_variants.py
 
-Variants of K2 (``kernels/hist.py``): how lanes take cells
-(``hist.MODE``), a guessed bin checked before the search (``hist.GUESS``),
-histogram copies by warp or by lane (``hist.LANE_COPIES``),
-the scan in the fold's last block or in a launch of its own
-(``hist.FUSE``), blocks per SM (``hist.BLOCKS_PER_SM``), per-warp histogram
-copies or one (``hist.COPY_BYTES``).  Also prints the shared-memory atomic
-opcodes that ``cuobjdump`` finds in the first pass.  Each variant is
-checked against the plain version
-(1e-5 of the largest output, NaN pattern identical) and timed with CUDA
-events, the variants in turns (forward, then backward), and by the device
-time of their kernels (torch.profiler).  K1 is checked bit
-for bit against its plain version in all six modes at the ERA5 step, and
-timed at strips of 16, 32 and 64 rows loading 4 or 8 rows ahead
-(``stencil.STRIP``, ``stencil.AHEAD``).  Prints the card's name and power limit first.
+K2 options (``kernels/hist.py``): blocks per SM (``hist.BLOCKS_PER_SM``),
+the shared memory of the histogram copies and their number
+(``hist.COPY_BYTES``, ``hist.MAX_COPIES``).  Each
+is checked against the plain version (1e-5 of the largest output, NaN
+pattern identical) and timed with CUDA events, the options in turns
+(forward, then backward), and by the device time of their kernels
+(torch.profiler).  K1 is checked bit for bit against its plain version in
+all six modes at the ERA5 step, then checked and timed with 1, 2 or 4
+columns a lane, 2 or 4 rows loaded ahead and strips of 8 to 64 rows
+(``stencil.VEC``, ``stencil.AHEAD``, ``stencil.STRIP``), beside
+``q.clone()`` of the same field.  Prints the card's name and power limit
+first, and the shared-memory atomic opcodes ``cuobjdump`` finds in K2.
 """
 
 from __future__ import annotations
 
+import subprocess
 import sys
 from pathlib import Path
 
@@ -34,20 +33,30 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 VARIANTS = [
-    ("strided guess", dict(MODE=0, GUESS=True)),
-    ("strided guess lane copies", dict(MODE=0, GUESS=True, LANE_COPIES=True)),
-    ("agg guess", dict(MODE=1, GUESS=True)),
-    ("staged8 guess", dict(MODE=2, GUESS=True)),
-    ("staged8 guess lane copies", dict(MODE=2, GUESS=True, LANE_COPIES=True)),
-    ("segments8 guess", dict(MODE=4, GUESS=True)),
-    ("segments8 guess lane copies", dict(MODE=4, GUESS=True,
-                                         LANE_COPIES=True)),
-    ("segments8 guess lane copies 8/SM", dict(MODE=4, GUESS=True,
-                                              LANE_COPIES=True,
-                                              BLOCKS_PER_SM=8)),
-    ("staged8 guess lane copies scan-launch", dict(
-        MODE=2, GUESS=True, LANE_COPIES=True, FUSE=False)),
+    ("4/SM", dict(BLOCKS_PER_SM=4)),
+    ("8/SM", dict(BLOCKS_PER_SM=8)),
+    ("6/SM", dict(BLOCKS_PER_SM=6)),
+    ("4/SM 4 copies", dict(BLOCKS_PER_SM=4, COPY_BYTES=4 * 2 * 241 * 4)),
+    ("up to 32 copies in 32 KB", dict(MAX_COPIES=32)),
+    ("up to 32 copies in 64 KB", dict(MAX_COPIES=32, COPY_BYTES=64 * 1024)),
+    ("up to 8 copies in 64 KB", dict(COPY_BYTES=64 * 1024)),
 ]
+# K1: (columns a lane, rows ahead, strip rows)
+K1_VARIANTS = [(1, 4, 32), (2, 4, 32), (2, 2, 32), (4, 2, 32), (4, 4, 32),
+               (4, 2, 16), (4, 2, 64), (4, 2, 8), (2, 2, 16)]
+
+
+def sass_atomics(lib):
+    """The distinct shared-memory atomic opcodes in K2's first pass."""
+    out = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib)],
+                         capture_output=True, text=True).stdout
+    ops, inside = set(), False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = "cdf_partial_kernel" in line
+        elif inside and "ATOM" in line and "*/" in line:
+            ops.add(line.split("*/")[1].split()[0])
+    return sorted(ops)
 
 
 def device_ms(fn, calls=20):
@@ -66,18 +75,9 @@ def device_ms(fn, calls=20):
                if not e.key.startswith("aten::")) / calls / 1e3
 
 
-def sass_atomics(lib):
-    """The distinct shared-memory atomic opcodes in K2's first pass."""
-    import subprocess
-    out = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib)],
-                         capture_output=True, text=True).stdout
-    ops, inside = set(), False
-    for line in out.splitlines():
-        if "Function :" in line:
-            inside = "cdf_partial_kernel" in line
-        elif inside and "ATOM" in line:
-            ops.add(line.split("*/")[1].split()[0] if "*/" in line else line)
-    return sorted(ops)
+def same(got, ref):
+    return torch.equal(torch.isnan(got), torch.isnan(ref)) and \
+        torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
 
 
 def main() -> int:
@@ -103,7 +103,7 @@ def main() -> int:
     lat, lon, pv = cs.make_pv(cs.ERA5["B"], cs.ERA5["nlat"], cs.ERA5["nlon"], 0)
     grid = xt.from_latlon(lat, lon, device=dev)
     q = torch.as_tensor(pv).to(dev)
-    B, Ny, Nx = q.shape
+    B = q.shape[0]
     dy, dx = ops_stencil._spacing(grid, q.dtype)
     rdx, rdy = (1.0 / dx).contiguous(), (1.0 / dy).contiguous()
     grdS = stencil.squared_gradient_plain(q, rdx, rdy, periodic_x=True)
@@ -117,9 +117,8 @@ def main() -> int:
         shapes[key[len("weighted_cdf_"):]] = (kern, plain)
     want = {k: plain() for k, (_, plain) in shapes.items()}
 
-    base = {k: getattr(hist, k) for k in
-            ("MODE", "GUESS", "LANE_COPIES", "FUSE", "BLOCKS_PER_SM",
-             "COPY_BYTES")}
+    base = {k: getattr(hist, k) for k in ("BLOCKS_PER_SM", "COPY_BYTES",
+                                          "MAX_COPIES")}
     times = {}
     for order in (VARIANTS, VARIANTS[::-1]):
         for label, cfg in order:
@@ -132,42 +131,44 @@ def main() -> int:
                 times.setdefault((label, shape), []).append(
                     cs.cuda_ms(kern, 50))
                 if order is VARIANTS:
-                    times.setdefault((label, shape, "dev"), []).append(
-                        device_ms(kern))
+                    times[(label, shape, "dev")] = device_ms(kern)
     for k, v in base.items():
         setattr(hist, k, v)
-    print("K2 variant | " + " | ".join(shapes))
+    print("K2 option | " + " | ".join(shapes))
     for label, _ in VARIANTS:
         print(f"K2 {label} | " + " | ".join(
             "/".join(f"{t:.4f}" for t in times[(label, s)]) for s in shapes))
         print(f"K2 {label} device | " + " | ".join(
-            f"{times[(label, s, 'dev')][0]:.4f}" for s in shapes))
+            f"{times[(label, s, 'dev')]:.4f}" for s in shapes))
 
     for periodic in (True, False):
         for bc in ("extend", "fill", "reflect"):
             kw = dict(periodic_x=periodic, bc_y=bc)
-            got = stencil.squared_gradient(q, rdx, rdy, **kw)
-            ref = stencil.squared_gradient_plain(q, rdx, rdy, **kw)
-            same = torch.equal(torch.isnan(got), torch.isnan(ref)) and \
-                torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
-            cs._expect(same, f"K1 {kw} differs from its plain version")
+            cs._expect(same(stencil.squared_gradient(q, rdx, rdy, **kw),
+                            stencil.squared_gradient_plain(q, rdx, rdy, **kw)),
+                       f"K1 {kw} differs from its plain version")
     print("K1 bit-exact in six modes")
-    k1 = [(strip, ahead) for strip in (16, 32, 64) for ahead in (4, 8)]
+    k1base = (stencil.VEC, stencil.AHEAD, stencil.STRIP)
     k1t = {}
-    for order in (k1, k1[::-1]):
-        for strip, ahead in order:
-            stencil.STRIP, stencil.AHEAD = strip, ahead
-            got = stencil.squared_gradient(q, rdx, rdy, periodic_x=True)
-            ref = stencil.squared_gradient_plain(q, rdx, rdy, periodic_x=True)
-            same = torch.equal(torch.isnan(got), torch.isnan(ref)) and \
-                torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
-            cs._expect(same, f"K1 {strip}/{ahead} differs")
-            k1t.setdefault((strip, ahead), []).append(cs.cuda_ms(
+    for order in (K1_VARIANTS, K1_VARIANTS[::-1]):
+        for vec, ahead, strip in order:
+            stencil.VEC, stencil.AHEAD, stencil.STRIP = vec, ahead, strip
+            for periodic in (True, False):
+                kw = dict(periodic_x=periodic)
+                cs._expect(same(stencil.squared_gradient(q, rdx, rdy, **kw),
+                                stencil.squared_gradient_plain(q, rdx, rdy,
+                                                               **kw)),
+                           f"K1 {vec}/{ahead}/{strip} differs")
+            k1t.setdefault((vec, ahead, strip), []).append(cs.cuda_ms(
                 lambda: stencil.squared_gradient(q, rdx, rdy,
                                                  periodic_x=True), 50))
-    for (strip, ahead), t in k1t.items():
-        print(f"K1 strip {strip} ahead {ahead} ERA5 | "
+    stencil.VEC, stencil.AHEAD, stencil.STRIP = k1base
+    for (vec, ahead, strip), t in k1t.items():
+        print(f"K1 {vec} columns, {ahead} rows ahead, strip {strip}, ERA5 | "
               + "/".join(f"{x:.4f}" for x in t))
+    ms = cs.cuda_ms(lambda: q.clone(), 50)
+    print(f"q.clone() ERA5 (reads and writes {q.numel() * 4 / 1e6:.1f} MB "
+          f"each): {ms:.4f} ms")
 
     try:
         torch.histogram(vf[0], bins=edges[0])

@@ -5,10 +5,11 @@ The CUDA kernels run only on the card, but the way they cut the work can be
 checked here.  K2: the grid that ``kernels.hist.plan`` sizes from the SM
 count, warps owning contiguous runs of cells, each lane taking every 32nd
 cell of its warp's run 4 at a time, keeping its current bin and one running
-sum per channel and flushing them to a per-warp histogram copy when a value
-leaves the bin, the copies folded in order into the block's partial, the
-partials summed by 8 warps and folded in warp order, and the block scan of
-the bin totals (per-thread segments, shuffle scans).  K1: lanes marching
+sum per channel and flushing them to histogram copy ``lane % ncopy`` when a
+value leaves the bin, the new bin guessed from even spacing and checked
+against the edges, the copies folded in order into the block's partial,
+the partials summed by 8 warps and folded in warp order, and the block scan
+of the bin totals (per-thread segments, shuffle scans).  K1: lanes marching
 down strips of rows, carrying the rows above, at and below, with the x
 neighbours from the neighbouring lanes.
 
@@ -46,6 +47,30 @@ def _find_bin(e, x):
         else:
             hi = mid
     return lo - 1
+
+
+def _find_bin_guess(e, x, inv):
+    """hist.cu's find_bin_guess in float32: the bin even spacing gives,
+    checked with its neighbours against the edges, else the search."""
+    f = np.float32
+    N = len(e) - 1
+    if x == e[N]:
+        return N - 1
+    gf = min(max(f(f(f(x) - f(e[0])) * f(inv)), f(0.0)), f(N - 1))
+    k = 0 if np.isnan(gf) else int(gf)
+    if e[k] <= x:
+        if k == N - 1 or x < e[k + 1]:
+            return k
+        if k + 1 == N - 1 or x < e[k + 2]:
+            return k + 1
+    elif k > 0 and e[k - 1] <= x:
+        return k - 1
+    return _find_bin(e, x)
+
+
+def _inv_spacing(e):
+    N = len(e) - 1
+    return np.float32(N) / np.float32(e[N] - e[0]) if e[N] > e[0] else 0.0
 
 
 def _block_scan(x):
@@ -87,6 +112,7 @@ def _k2_emulate(v, e, w, sms=H100_SMS):
     stats = dict(cells=0, flushes=0)
     for b in range(B):
         eb = e[b]
+        inv = _inv_spacing(eb)
         for c0 in range(0, C, kh.GROUP):
             cg = min(kh.GROUP, C - c0)
             for blk in range(nblk):
@@ -94,8 +120,8 @@ def _k2_emulate(v, e, w, sms=H100_SMS):
                 for warp in range(kh.WARPS):
                     start = (blk * kh.WARPS + warp) * wchunk
                     end = min(G, start + wchunk)
-                    hw = h[warp % ncopy]
                     for lane in range(32):
+                        hl = h[lane % ncopy]
                         k, lo, hi = -1, np.inf, -np.inf
                         s = np.zeros(cg)
                         for base in range(start, end, kh.STEP):
@@ -109,16 +135,16 @@ def _k2_emulate(v, e, w, sms=H100_SMS):
                                 stats["cells"] += 1
                                 if not (lo <= x < hi):
                                     if k >= 0:
-                                        hw[:, k] += s
+                                        hl[:, k] += s
                                         stats["flushes"] += 1
-                                    k = _find_bin(eb, x)
+                                    k = _find_bin_guess(eb, x, inv)
                                     lo = eb[k]
                                     hi = np.inf if k == N - 1 else eb[k + 1]
                                     s = np.zeros(cg)
                                 wt = w[b, c0:c0 + cg, g]
                                 s = s + np.where(np.isnan(wt), 0.0, wt)
                         if k >= 0:
-                            hw[:, k] += s
+                            hl[:, k] += s
                             stats["flushes"] += 1
                 acc = h[0].copy()
                 for j in range(1, ncopy):
@@ -268,6 +294,29 @@ def test_k2_emulation_table_build(descending):
     got, stats = _k2_emulate(v, e, w)
     _agree(got, _plain(v, e, w))
     assert stats["flushes"] * 4 < stats["cells"]
+
+
+@pytest.mark.parametrize("spacing", ["even", "uneven", "constant"])
+def test_k2_guessed_bin_is_the_searched_bin(spacing):
+    """The guess from even spacing never changes the bin: float32 edges
+    evenly spaced (the contour levels), unevenly (an x-z section's depth
+    levels) or all equal, values on, between and around every edge."""
+    rng = np.random.default_rng(5)
+    N = 241
+    if spacing == "even":
+        e = np.float32(-3.0) + np.float32(0.025) * np.arange(N + 1,
+                                                             dtype=np.float32)
+    elif spacing == "uneven":
+        e = np.sort(rng.uniform(-5.0, 0.0, N + 1) ** 3).astype(np.float32)
+    else:
+        e = np.full(N + 1, 1.5, np.float32)
+    xs = np.concatenate([e, np.nextafter(e, np.float32(np.inf)),
+                         np.nextafter(e, np.float32(-np.inf)),
+                         rng.uniform(e[0], e[-1], 4000).astype(np.float32)])
+    xs = xs[(xs >= e[0]) & (xs <= e[-1])]
+    inv = _inv_spacing(e)
+    for x in xs:
+        assert _find_bin_guess(e, x, inv) == _find_bin(e, x)
 
 
 @pytest.mark.parametrize("B,sms", [(1, 132), (15, 132), (64, 132), (1, 8)])

@@ -10,35 +10,43 @@
 // with the top edge inclusive (k = N-1) and NaN values or weights adding
 // nothing.
 //
-// Bound on the H100: the bytes read, B*G*(1+C)*4.  What stood between the
-// first port and that bound: every valid cell issued C shared-memory
-// atomics, and on zonally banded tracers (and in the A(Y_eq) table build,
-// whose values are each row's coordinate) the 32 lanes of a warp hit one
-// address, which the hardware serialises; a dependent binary search per
-// cell; a grid of fixed 8192-cell chunks (under one block per SM for a
-// single snapshot); and a serial scan.
+// Bound on the H100: the bytes read, B*G*(1+C)*4.  What held the first
+// port far from it: every valid cell issued C shared-memory float atomics,
+// which Hopper runs as compare-and-swap loops (ATOMS.CAST.SPIN), and the
+// 32 lanes of a warp took 32 neighbouring cells, which on zonally banded
+// tracers (and in the A(Y_eq) table build, whose values are each row's
+// coordinate) fall in one bin: the loops retried up to 32 times; a
+// dependent binary search per cell; a grid of fixed 8192-cell chunks; a
+// serial scan.
 //
-// Design, two launches:
+// Design, three launches:
 //  1. grid (nblk, B), 8 warps a block; nblk is sized by the wrapper from
-//     the SM count.  Each warp owns a contiguous run of cells, lane l takes
-//     cells l, l+32, ... of it, 4 of them loaded (value and every channel)
-//     before any is added.  A lane keeps its current bin, that bin's two
-//     edges and one running sum per channel in registers: a value inside
-//     the two edges only adds; any other value flushes the sums to shared
-//     memory (one atomic per channel) and finds its bin by binary search
-//     (upper bound minus one, v == e_top -> N-1, valid means e0 <= v <=
-//     e_top, never NaN).  Digitizing by comparison, never by
-//     floor((v - e0) / step), keeps the law for a constant field (all
-//     edges equal): 0 below the top level, the total at the top.  The
-//     flushes go to per-warp copies of the (C, N) histogram where they fit
-//     (``ncopy``), folded in copy order into the block's partial (B, nblk,
-//     C, N).  Up to 8 channels ride in registers; more take one launch per
-//     group of 8.
-//  2. grid (B*C, ceil(N/32)): lane = bin, the 8 warps sum the blocks'
-//     partials (warp w takes blocks w, w+8, ...), folded in warp order into
-//     the bin total; the last block of each (b, c) to finish (a counter
-//     after __threadfence, zeroed by launch 1) scans the N totals in place:
-//     per-thread segments, warp shuffles, then the warps' totals.
+//     the SM count (about 4 blocks an SM).  Each warp owns a contiguous
+//     run of cells; lane l takes cells l, l+32, ... of it, 4 of them
+//     loaded (value and every channel) before any is added.  A lane keeps
+//     its current bin, that bin's two edges and one running sum per
+//     channel in registers: a value inside the two edges only adds; any
+//     other value flushes the sums (one atomic per channel) and finds its
+//     bin from a guess, the bin evenly spaced edges would give, checked
+//     with its neighbours against the edges, or else by binary search
+//     (upper bound minus one, v == e_top -> N-1; valid means e0 <= v <=
+//     e_top, never NaN).  The bin is always the comparisons' one, never
+//     floor((v - e0) / step), which keeps the law for a constant field
+//     (all edges equal): 0 below the top level, the total at the top.
+//     The flushes go to ``ncopy`` copies of the (C, N) histogram, lane l
+//     to copy l % ncopy, so the lanes of a warp that flush into one bin at
+//     once mostly hit different copies; the copies are folded in order
+//     into the block's partial (B, nblk, C, N).  Up to 8 channels ride in
+//     registers; more take one launch per group of 8.
+//  2. grid (B*C, ceil(N/32)): lane = bin; the 8 warps sum the blocks'
+//     partials (warp w takes blocks w, w+8, ...), folded in warp order.
+//  3. grid B*C: one block scans each row of N totals in place: per-thread
+//     segments, warp shuffles, then the warps' totals.
+//
+// Measured and dropped (PERF.md): warp-aggregated adds (__match_any_sync
+// and a shuffle tree), runs of 8 or 16 contiguous cells a lane staged
+// through shared memory, one copy per warp, and the scan in the fold's
+// last block to finish.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,7 +57,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;   // cells a lane loads before it adds them
 constexpr int kGroup = 8;    // channels one first-pass launch carries
-constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kFull = 0xffffffffu;   // block_scan's shuffles
 
 // bin of a value with e[0] <= x <= e[N]
 __device__ __forceinline__ int find_bin(const float* e, int N, float x) {
@@ -65,7 +73,7 @@ __device__ __forceinline__ int find_bin(const float* e, int N, float x) {
 // the same bin, starting from the bin that evenly spaced edges would give
 // (inv = N / (e[N] - e[0]), or 0): the guess and its neighbours are checked
 // against the edges, so the bin is always the comparisons' one; a guess
-// more than one bin off falls back to the search
+// more than one bin off (uneven edges) falls back to the search
 __device__ __forceinline__ int find_bin_guess(const float* e, int N, float x,
                                               float inv) {
   if (x == e[N]) return N - 1;
@@ -80,23 +88,12 @@ __device__ __forceinline__ int find_bin_guess(const float* e, int N, float x,
   return find_bin(e, N, x);
 }
 
-// MODE 0: a lane takes cells l, l+32, ... of its warp's run; 1: the same
-// cells, warp-aggregated adds; 2, 3: a lane takes R = 8 or 16 contiguous
-// cells of each warp tile of 32 R cells, staged through shared memory; 4:
-// lane l takes the l-th 32nd of its warp's run, R = 8 cells a tile
-template <int MODE>
-struct Mode {
-  static constexpr int R = MODE == 2 || MODE == 4 ? 8 : MODE == 3 ? 16 : 0;
-};
-
-template <int CG, int MODE>
+template <int CG>
 __global__ void __launch_bounds__(kThreads)
 cdf_partial_kernel(const float* __restrict__ v, const float* __restrict__ edges,
                    const float* __restrict__ w, float* __restrict__ partial,
-                   unsigned* __restrict__ done, int G, int N, int C, int c0,
-                   int nblk, int wchunk, int ncopy, int guess,
-                   int lane_copies) {
-  constexpr int R = Mode<MODE>::R;
+                   int G, int N, int C, int c0, int nblk, int wchunk,
+                   int ncopy) {
   extern __shared__ float smem[];
   float* e = smem;             // N + 1 edges
   float* h = smem + N + 1;     // ncopy copies of a (CG, N) histogram
@@ -108,13 +105,12 @@ cdf_partial_kernel(const float* __restrict__ v, const float* __restrict__ edges,
   for (int i = threadIdx.x; i <= N; i += kThreads)
     e[i] = edges[(size_t)b * (N + 1) + i];
   for (int i = threadIdx.x; i < ncopy * CG * N; i += kThreads) h[i] = 0.0f;
-  if (blk == 0 && threadIdx.x < CG) done[b * C + c0 + threadIdx.x] = 0u;
   __syncthreads();
 
-  float* hw = h + ((lane_copies ? lane : warp) % ncopy) * CG * N;
+  float* hl = h + (lane % ncopy) * CG * N;
   const float e0 = e[0];
   const float etop = e[N];
-  const float inv = guess && etop > e0 ? (float)N / (etop - e0) : 0.0f;
+  const float inv = etop > e0 ? (float)N / (etop - e0) : 0.0f;
   const float* vb = v + (size_t)b * G;
   const float* wb = w + ((size_t)b * C + c0) * G;
   const int start = (blk * kWarps + warp) * wchunk;
@@ -126,112 +122,40 @@ cdf_partial_kernel(const float* __restrict__ v, const float* __restrict__ edges,
 #pragma unroll
   for (int c = 0; c < CG; ++c) s[c] = 0.0f;
 
-  auto add = [&](float x, const float* wt) {
-    if (!(x >= e0 && x <= etop)) return;   // out of range, or NaN
-    if (!(x >= lo && x < hi)) {
-      if (k >= 0) {
+  for (int base = start; base < end; base += 32 * kUnroll) {
+    float x[kUnroll];
+    float wt[kUnroll][CG];
 #pragma unroll
-        for (int c = 0; c < CG; ++c) atomicAdd(&hw[c * N + k], s[c]);
-      }
-      k = guess ? find_bin_guess(e, N, x, inv) : find_bin(e, N, x);
-      lo = e[k];
-      hi = k == N - 1 ? INFINITY : e[k + 1];
+    for (int u = 0; u < kUnroll; ++u) {
+      const int g = base + u * 32 + lane;
+      const bool in = g < end;
+      x[u] = in ? __ldcs(vb + g) : __int_as_float(0x7fc00000);
 #pragma unroll
-      for (int c = 0; c < CG; ++c) s[c] = 0.0f;
+      for (int c = 0; c < CG; ++c)
+        wt[u][c] = in ? __ldcs(wb + (size_t)c * G + g) : 0.0f;
     }
 #pragma unroll
-    for (int c = 0; c < CG; ++c)
-      if (!isnan(wt[c])) s[c] += wt[c];
-  };
-
-  if constexpr (R > 0) {
-    // the warp's staging: (1 + CG) arrays of 32 lanes x R cells, padded
-    // to R + 1 so that neither the stores nor the lanes' reads conflict
-    constexpr int P = R + 1;
-    float* stage = smem + N + 1 + ncopy * CG * N +
-                   warp * (1 + CG) * 32 * P;
-    // MODE 4: each lane's segment of the run, a multiple of R cells
-    const int seg = MODE == 4 ? (wchunk + 32 * R - 1) / (32 * R) * R : R;
-    const int ntile = MODE == 4 ? seg / R : (end - start + 32 * R - 1) / (32 * R);
-    for (int tile = 0; tile < ntile; ++tile) {
-      const int base = MODE == 4 ? start + tile * R : start + tile * 32 * R;
+    for (int u = 0; u < kUnroll; ++u) {
+      if (!(x[u] >= e0 && x[u] <= etop)) continue;   // out of range, or NaN
+      if (!(x[u] >= lo && x[u] < hi)) {
+        if (k >= 0) {
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int t = i * 32 + lane;
-        const int g = MODE == 4 ? base + (t / R) * seg + t % R : base + t;
-        const bool in = g < end;
-        const int slot = (t / R) * P + t % R;
-        stage[slot] = in ? __ldcs(vb + g) : __int_as_float(0x7fc00000);
-#pragma unroll
-        for (int c = 0; c < CG; ++c)
-          stage[(1 + c) * 32 * P + slot] =
-              in ? __ldcs(wb + (size_t)c * G + g) : 0.0f;
-      }
-      __syncwarp();
-#pragma unroll 4
-      for (int j = 0; j < R; ++j) {
-        float wt[CG];
-#pragma unroll
-        for (int c = 0; c < CG; ++c) wt[c] = stage[(1 + c) * 32 * P + lane * P + j];
-        add(stage[lane * P + j], wt);
-      }
-      __syncwarp();
-    }
-  } else {
-    for (int base = start; base < end; base += 32 * kUnroll) {
-      float x[kUnroll];
-      float wt[kUnroll][CG];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int g = base + u * 32 + lane;
-        const bool in = g < end;
-        x[u] = in ? __ldcs(vb + g) : __int_as_float(0x7fc00000);
-#pragma unroll
-        for (int c = 0; c < CG; ++c)
-          wt[u][c] = in ? __ldcs(wb + (size_t)c * G + g) : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (MODE == 1) {
-          // warp-aggregated adds: the lanes that share a bin sum their
-          // weights by a shuffle tree over their ranks, the lowest adds
-          const bool valid = x[u] >= e0 && x[u] <= etop;
-          if (valid && !(x[u] >= lo && x[u] < hi)) {
-            k = guess ? find_bin_guess(e, N, x[u], inv) : find_bin(e, N, x[u]);
-            lo = e[k];
-            hi = k == N - 1 ? INFINITY : e[k + 1];
-          }
-          const int key = valid ? k : -1;
-          const unsigned peers = __match_any_sync(kFull, key);
-          const int rank = __popc(peers & ((1u << lane) - 1u));
-          const int gmax = (int)__reduce_max_sync(kFull, (unsigned)__popc(peers));
-          float t[CG];
-#pragma unroll
-          for (int c = 0; c < CG; ++c)
-            t[c] = valid && !isnan(wt[u][c]) ? wt[u][c] : 0.0f;
-          for (int d = 1; d < gmax; d <<= 1) {
-            const unsigned src = __fns(peers, lane, d + 1);
-            const bool has = src != 0xffffffffu;
-            const bool take = has && (rank & (2 * d - 1)) == 0;
-#pragma unroll
-            for (int c = 0; c < CG; ++c) {
-              const float o = __shfl_sync(kFull, t[c], has ? (int)src : lane);
-              if (take) t[c] += o;
-            }
-          }
-          if (key >= 0 && rank == 0) {
-#pragma unroll
-            for (int c = 0; c < CG; ++c) atomicAdd(&hw[c * N + key], t[c]);
-          }
-        } else {
-          add(x[u], wt[u]);
+          for (int c = 0; c < CG; ++c) atomicAdd(&hl[c * N + k], s[c]);
         }
+        k = find_bin_guess(e, N, x[u], inv);
+        lo = e[k];
+        hi = k == N - 1 ? INFINITY : e[k + 1];
+#pragma unroll
+        for (int c = 0; c < CG; ++c) s[c] = 0.0f;
       }
+#pragma unroll
+      for (int c = 0; c < CG; ++c)
+        if (!isnan(wt[u][c])) s[c] += wt[u][c];
     }
   }
-  if (MODE != 1 && k >= 0) {
+  if (k >= 0) {
 #pragma unroll
-    for (int c = 0; c < CG; ++c) atomicAdd(&hw[c * N + k], s[c]);
+    for (int c = 0; c < CG; ++c) atomicAdd(&hl[c * N + k], s[c]);
   }
   __syncthreads();
 
@@ -282,10 +206,8 @@ __device__ void block_scan(float* x, int N) {
 
 __global__ void __launch_bounds__(kThreads)
 cdf_fold_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                unsigned* __restrict__ done, int N, int C, int nblk,
-                int fuse) {
+                int N, int C, int nblk) {
   __shared__ float sw[kWarps][32];
-  __shared__ bool last;
   const int bc = blockIdx.x;
   const int b = bc / C;
   const int c = bc % C;
@@ -303,16 +225,7 @@ cdf_fold_kernel(const float* __restrict__ partial, float* __restrict__ out,
 #pragma unroll
     for (int j = 1; j < kWarps; ++j) t += sw[j][lane];
     out[(size_t)bc * N + k] = t;
-    __threadfence();
   }
-  if (!fuse) return;
-  __syncthreads();
-  if (threadIdx.x == 0)
-    last = atomicAdd(&done[bc], 1u) == gridDim.y - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  block_scan(out + (size_t)bc * N, N);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -320,71 +233,54 @@ cdf_scan_kernel(float* __restrict__ out, int N) {
   block_scan(out + (size_t)blockIdx.x * N, N);
 }
 
-template <int CG, int MODE>
+template <int CG>
 cudaError_t launch_partial(const float* v, const float* edges, const float* w,
-                           float* partial, unsigned* done, int B, int G,
-                           int N, int C, int c0, int nblk, int wchunk,
-                           int ncopy, int guess, int lane_copies,
-                           cudaStream_t st) {
-  constexpr int R = Mode<MODE>::R;
-  const size_t smem =
-      (size_t)(N + 1 + ncopy * CG * N +
-               (R > 0 ? kWarps * (1 + CG) * 32 * (R + 1) : 0)) *
-      sizeof(float);
+                           float* partial, int B, int G, int N, int C, int c0,
+                           int nblk, int wchunk, int ncopy, cudaStream_t st) {
+  const size_t smem = (size_t)(N + 1 + ncopy * CG * N) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        cdf_partial_kernel<CG, MODE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cdf_partial_kernel<CG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return err;
   }
-  cdf_partial_kernel<CG, MODE><<<dim3(nblk, B), kThreads, smem, st>>>(
-      v, edges, w, partial, done, G, N, C, c0, nblk, wchunk, ncopy, guess,
-      lane_copies);
+  cdf_partial_kernel<CG><<<dim3(nblk, B), kThreads, smem, st>>>(
+      v, edges, w, partial, G, N, C, c0, nblk, wchunk, ncopy);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int xc_weighted_cdf(const void* values, const void* edges,
-                               const void* weights, void* scratch, void* out,
+                               const void* weights, void* partial, void* out,
                                int B, int G, int N, int C, int nblk,
-                               int wchunk, int ncopy, int mode, int guess,
-                               int lane_copies, int fuse, void* stream) {
+                               int wchunk, int ncopy, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float* v = (const float*)values;
   const float* e = (const float*)edges;
   const float* w = (const float*)weights;
-  float* partial = (float*)scratch;
-  unsigned* done = (unsigned*)(partial + (size_t)B * nblk * C * N);
+  float* p = (float*)partial;
   for (int c0 = 0; c0 < C; c0 += kGroup) {
     const int cg = C - c0 < kGroup ? C - c0 : kGroup;
     cudaError_t err;
-#define XC_ARGS v, e, w, partial, done, B, G, N, C, c0, nblk, wchunk, ncopy, \
-                guess, lane_copies, st
+    switch (cg) {
 #define XC_CASE(n)                                                          \
       case n:                                                               \
-        err = mode == 0   ? launch_partial<n, 0>(XC_ARGS)                   \
-              : mode == 1 ? launch_partial<n, 1>(XC_ARGS)                   \
-              : mode == 2 ? launch_partial<n, 2>(XC_ARGS)                   \
-              : mode == 3 ? launch_partial<n, 3>(XC_ARGS)                   \
-                          : launch_partial<n, 4>(XC_ARGS);                  \
+        err = launch_partial<n>(v, e, w, p, B, G, N, C, c0, nblk, wchunk,   \
+                                ncopy, st);                                 \
         break;
-    switch (cg) {
       XC_CASE(1) XC_CASE(2) XC_CASE(3) XC_CASE(4)
       XC_CASE(5) XC_CASE(6) XC_CASE(7) XC_CASE(8)
+#undef XC_CASE
       default:
         return (int)cudaErrorInvalidValue;
     }
-#undef XC_CASE
-#undef XC_ARGS
     if (err != cudaSuccess) return (int)err;
   }
   cdf_fold_kernel<<<dim3(B * C, (N + 31) / 32), kThreads, 0, st>>>(
-      partial, (float*)out, done, N, C, nblk, fuse);
-  if (!fuse) {
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    cdf_scan_kernel<<<B * C, kThreads, 0, st>>>((float*)out, N);
-  }
+      p, (float*)out, N, C, nblk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cdf_scan_kernel<<<B * C, kThreads, 0, st>>>((float*)out, N);
   return (int)cudaGetLastError();
 }

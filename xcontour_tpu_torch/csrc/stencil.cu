@@ -24,6 +24,7 @@
 // plain PyTorch version.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -32,109 +33,175 @@ enum BcY { kExtend = 0, kFill = 1, kReflect = 2 };
 constexpr int kWarpsY = 4;    // strips a block
 constexpr unsigned kFull = 0xffffffffu;
 
-// kAhead: rows loaded before they are used; kStrip rows a lane marches
-template <int kAhead>
+// V consecutive floats (16-byte aligned for V = 4, 8-byte for V = 2)
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&a)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    a[0] = t.x; a[1] = t.y; a[2] = t.z; a[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    a[0] = t.x; a[1] = t.y;
+  } else {
+    a[0] = __ldg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&a)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
+  } else {
+    *p = a[0];
+  }
+}
+
+// V columns a lane, rows loaded AHEAD at a time, strips of ``strip`` rows
+template <int V, int AHEAD>
 __global__ void __launch_bounds__(32 * kWarpsY)
 squared_gradient_kernel(const float* __restrict__ q,
                         const float* __restrict__ rdx,
                         const float* __restrict__ rdy, float* __restrict__ out,
-                        int Ny, int Nx, int periodic_x, int bc_y,
-                        int kStrip) {
+                        int Ny, int Nx, int periodic_x, int bc_y, int strip) {
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
-  const int x = blockIdx.y * 32 + lane;
-  const int y0 = (blockIdx.z * kWarpsY + threadIdx.y) * kStrip;
+  const int x0 = (blockIdx.y * 32 + lane) * V;
+  const int y0 = (blockIdx.z * kWarpsY + threadIdx.y) * strip;
   if (y0 >= Ny) return;                       // the whole warp
-  const int y1 = min(Ny, y0 + kStrip);
-  const int xc = min(x, Nx - 1);              // lanes past Nx shadow the last
-  int xl, xr;
+  const int y1 = min(Ny, y0 + strip);
+  const int xc = min(x0, Nx - V);             // lanes past Nx shadow the last
+  int xl, xr;                                 // left of xc, right of xc+V-1
   if (periodic_x) {
     xl = xc == 0 ? Nx - 1 : xc - 1;
-    xr = xc == Nx - 1 ? 0 : xc + 1;
+    xr = xc + V == Nx ? 0 : xc + V;
   } else {
     xl = max(xc - 1, 0);
-    xr = min(xc + 1, Nx - 1);
+    xr = min(xc + V, Nx - 1);
   }
   const bool load_l = lane == 0;
-  const bool load_r = lane == 31 || x >= Nx - 1;
+  const bool load_r = lane == 31 || x0 + V >= Nx;
   const size_t plane = (size_t)Ny * Nx;
   const float* qb = q + b * plane;
   float* ob = out + b * plane;
 
-  float up = y0 > 0 ? qb[(y0 - 1) * Nx + xc] : 0.0f;
-  float c = qb[y0 * Nx + xc];
-  for (int ys = y0; ys < y1; ys += kAhead) {
-    float dn[kAhead], rx[kAhead], lv[kAhead], rv[kAhead];
+  float up[V], c[V];
+  if (y0 > 0) {
+    load_vec<V>(qb + (y0 - 1) * Nx + xc, up);
+  } else {
 #pragma unroll
-    for (int r = 0; r < kAhead; ++r) {
+    for (int v = 0; v < V; ++v) up[v] = 0.0f;
+  }
+  load_vec<V>(qb + y0 * Nx + xc, c);
+  for (int ys = y0; ys < y1; ys += AHEAD) {
+    float dn[AHEAD][V], rx[AHEAD][V], lv[AHEAD], rv[AHEAD];
+#pragma unroll
+    for (int r = 0; r < AHEAD; ++r) {
       const int y = ys + r;
       const bool in = y < y1;
-      dn[r] = in && y + 1 < Ny ? qb[(y + 1) * Nx + xc] : 0.0f;
-      rx[r] = in ? rdx[y * Nx + xc] : 0.0f;
+      if (in && y + 1 < Ny) {
+        load_vec<V>(qb + (y + 1) * Nx + xc, dn[r]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) dn[r][v] = 0.0f;
+      }
+      if (in) {
+        load_vec<V>(rdx + y * Nx + xc, rx[r]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) rx[r][v] = 0.0f;
+      }
       lv[r] = in && load_l ? qb[y * Nx + xl] : 0.0f;
       rv[r] = in && load_r ? qb[y * Nx + xr] : 0.0f;
     }
 #pragma unroll
-    for (int r = 0; r < kAhead; ++r) {
+    for (int r = 0; r < AHEAD; ++r) {
       const int y = ys + r;
       if (y >= y1) break;                     // the whole warp
-      const float sl = __shfl_up_sync(kFull, c, 1);
-      const float sr = __shfl_down_sync(kFull, c, 1);
-      const float left = load_l ? lv[r] : sl;
-      const float right = load_r ? rv[r] : sr;
+      const float sl = __shfl_up_sync(kFull, c[V - 1], 1);
+      const float sr = __shfl_down_sync(kFull, c[0], 1);
+      const float ry = rdy[y];
+      float o[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int x = xc + v;
+        const float left = v > 0 ? c[v - 1] : load_l ? lv[r] : sl;
+        const float right = v < V - 1 ? c[v + 1] : load_r ? rv[r] : sr;
+        float qx;
+        if (periodic_x) {
+          qx = (right - left) * 0.5f;
+        } else if (x == 0) {
+          qx = right - c[v];
+        } else if (x == Nx - 1) {
+          qx = c[v] - left;
+        } else {
+          qx = (right - left) * 0.5f;
+        }
 
-      float qx;
-      if (periodic_x) {
-        qx = (right - left) * 0.5f;
-      } else if (xc == 0) {
-        qx = right - c;
-      } else if (xc == Nx - 1) {
-        qx = c - left;
-      } else {
-        qx = (right - left) * 0.5f;
+        float qy;
+        if ((y == 0 || y == Ny - 1) && bc_y == kReflect) {
+          // zero wall-normal derivative, NaN where row 1 is not finite
+          // (the JAX package's (q[1] - q[1]) * 0 at both walls)
+          const float r1 = qb[Nx + x];
+          qy = (r1 - r1) * 0.0f;
+        } else if (y == 0) {
+          qy = bc_y == kExtend ? dn[r][v] - c[v] : dn[r][v] * 0.5f;
+        } else if (y == Ny - 1) {
+          qy = bc_y == kExtend ? c[v] - up[v] : -up[v] * 0.5f;
+        } else {
+          qy = (dn[r][v] - up[v]) * 0.5f;
+        }
+
+        const float gx = __fmul_rn(qx, rx[r][v]);
+        const float gy = __fmul_rn(qy, ry);
+        o[v] = __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
       }
-
-      float qy;
-      if ((y == 0 || y == Ny - 1) && bc_y == kReflect) {
-        // zero wall-normal derivative, NaN where row 1 is not finite (the
-        // JAX package's (q[1] - q[1]) * 0 at both walls)
-        const float r1 = qb[Nx + xc];
-        qy = (r1 - r1) * 0.0f;
-      } else if (y == 0) {
-        qy = bc_y == kExtend ? dn[r] - c : dn[r] * 0.5f;
-      } else if (y == Ny - 1) {
-        qy = bc_y == kExtend ? c - up : -up * 0.5f;
-      } else {
-        qy = (dn[r] - up) * 0.5f;
+      if (x0 < Nx) store_vec<V>(ob + y * Nx + xc, o);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        up[v] = c[v];
+        c[v] = dn[r][v];
       }
-
-      const float gx = __fmul_rn(qx, rx[r]);
-      const float gy = __fmul_rn(qy, rdy[y]);
-      if (x < Nx)
-        ob[y * Nx + x] = __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
-      up = c;
-      c = dn[r];
     }
   }
 }
 
+template <int V, int AHEAD>
+void launch(const float* q, const float* rdx, const float* rdy, float* out,
+            int B, int Ny, int Nx, int periodic_x, int bc_y, int strip,
+            cudaStream_t st) {
+  const dim3 grid(B, (Nx + 32 * V - 1) / (32 * V),
+                  (Ny + strip * kWarpsY - 1) / (strip * kWarpsY));
+  squared_gradient_kernel<V, AHEAD><<<grid, dim3(32, kWarpsY), 0, st>>>(
+      q, rdx, rdy, out, Ny, Nx, periodic_x, bc_y, strip);
+}
+
 }  // namespace
 
+// vec: columns a lane (0: the widest of 4, 2, 1 that divides Nx and the
+// pointers' alignment); ahead: 2 or 4
 extern "C" int xc_squared_gradient(const void* q, const void* rdx,
                                    const void* rdy, void* out, int B, int Ny,
                                    int Nx, int periodic_x, int bc_y, int strip,
-                                   int ahead, void* stream) {
-  const dim3 grid(B, (Nx + 31) / 32,
-                  (Ny + strip * kWarpsY - 1) / (strip * kWarpsY));
-  const dim3 block(32, kWarpsY);
+                                   int ahead, int vec, void* stream) {
+  const uintptr_t addr = (uintptr_t)q | (uintptr_t)rdx | (uintptr_t)out;
+  int V = 1;
+  if (Nx % 4 == 0 && addr % 16 == 0) V = 4;
+  else if (Nx % 2 == 0 && addr % 8 == 0) V = 2;
+  if (vec > 0 && vec < V) V = vec;
+  const float* qf = (const float*)q;
+  const float* rx = (const float*)rdx;
+  const float* ry = (const float*)rdy;
+  float* o = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  if (ahead == 8)
-    squared_gradient_kernel<8><<<grid, block, 0, st>>>(
-        (const float*)q, (const float*)rdx, (const float*)rdy, (float*)out,
-        Ny, Nx, periodic_x, bc_y, strip);
-  else
-    squared_gradient_kernel<4><<<grid, block, 0, st>>>(
-        (const float*)q, (const float*)rdx, (const float*)rdy, (float*)out,
-        Ny, Nx, periodic_x, bc_y, strip);
+#define XC_LAUNCH(v, a) \
+  launch<v, a>(qf, rx, ry, o, B, Ny, Nx, periodic_x, bc_y, strip, st)
+  if (ahead == 2) {
+    if (V == 4) XC_LAUNCH(4, 2); else if (V == 2) XC_LAUNCH(2, 2); else XC_LAUNCH(1, 2);
+  } else {
+    if (V == 4) XC_LAUNCH(4, 4); else if (V == 2) XC_LAUNCH(2, 4); else XC_LAUNCH(1, 4);
+  }
+#undef XC_LAUNCH
   return (int)cudaGetLastError();
 }

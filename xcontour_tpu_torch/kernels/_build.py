@@ -29,11 +29,12 @@ P, I = ctypes.c_void_p, ctypes.c_int
 
 # C entry points: name -> argtypes (restype is int, a cudaError_t)
 SIGNATURES = {
-    # q, rdx, rdy, out, B, Ny, Nx, periodic_x, bc_y, strip, ahead, stream
-    "xc_squared_gradient": [P, P, P, P, I, I, I, I, I, I, I, P],
-    # values, edges, weights, scratch, out, B, G, N, C, nblk, wchunk, ncopy,
-    # mode, guess, lane_copies, fuse, stream
-    "xc_weighted_cdf": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P],
+    # q, rdx, rdy, out, B, Ny, Nx, periodic_x, bc_y, strip, ahead, vec,
+    # stream
+    "xc_squared_gradient": [P, P, P, P, I, I, I, I, I, I, I, I, P],
+    # values, edges, weights, partial, out, B, G, N, C, nblk, wchunk, ncopy,
+    # stream
+    "xc_weighted_cdf": [P, P, P, P, P, I, I, I, I, I, I, I, P],
     # q, W, Q, c0, E, tot, out, B, Ny, Nx, increase, stream
     "xc_lwa_lin": [P, P, P, P, P, P, P, I, I, I, I, P],
     # q, Wz, Q, out, B, Ny, Nx, increase, part, variant2, stream

@@ -8,13 +8,15 @@ Replaces ``xcontour_tpu/kernels/hist_pallas.py`` (``_kernel``, launched by
 
 with the top edge inclusive at k = N-1.  NaN values and NaN weights add
 nothing.  The kernel keeps each lane's current bin and running sums in
-registers and searches the edges only when a value leaves that bin; the
+registers and looks for a new bin only when a value leaves that one; the
 plain version is the digitize + segment-sum + cumsum form of
 ``_edges_cdf_xla``.  :func:`plan` sizes the kernel's grid from the SM count
 (``tests/test_torch_hist_tiles.py`` emulates the kernel with it).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -27,32 +29,29 @@ KERNEL = Kernel("weighted_cdf", "xcontour_tpu_torch/csrc/hist.cu",
 # channels a launch; about 4 blocks an SM, and at least 2048 cells a block
 WARPS, STEP, GROUP = 8, 32 * 4, 8
 BLOCKS_PER_SM, MIN_CELLS = 4, 2048
-# per-warp histogram copies take at most this much shared memory
+# the histogram copies (lane l adds into copy l % ncopy) take at most this
+# much shared memory, and at least one copy
 COPY_BYTES = 32 * 1024
+MAX_COPIES = 8
 # the first pass holds the edges and a (C, N) histogram in shared memory
 _SMEM_LIMIT = 227 * 1024
-# variants under measurement: how lanes take cells (0 every 32nd cell of
-# the warp's run, 1 the same with warp-aggregated adds, 2 and 3 runs of 8
-# or 16 contiguous cells staged through shared memory); a guessed bin
-# checked against the edges before the search; the scan in the fold's last
-# block or in a launch of its own
-MODE = 0
-GUESS = False
-LANE_COPIES = False
-FUSE = True
-_SMS = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def plan(B: int, G: int, N: int, C: int, sms: int):
     """(nblk, wchunk, ncopy) of the first pass: blocks per batch element,
-    cells per warp (a multiple of a warp step) and per-warp histogram
-    copies."""
+    cells per warp (a multiple of a warp step) and histogram copies."""
     nblk = max(1, min(-(-BLOCKS_PER_SM * sms // B), -(-G // MIN_CELLS)))
     wchunk = -(-G // (nblk * WARPS))
     wchunk = -(-wchunk // STEP) * STEP
     nblk = -(-G // (wchunk * WARPS))
     cg = min(C, GROUP)
-    ncopy = next((n for n in (8, 4, 2) if n * cg * N * 4 <= COPY_BYTES), 1)
+    ncopy = next((n for n in (32, 16, 8, 4, 2) if n <= MAX_COPIES
+                  and n * cg * N * 4 <= COPY_BYTES), 1)
     return nblk, wchunk, ncopy
 
 
@@ -102,19 +101,14 @@ def weighted_cdf(values: torch.Tensor, edges: torch.Tensor,
     if B * C * G >= 2 ** 31:
         raise ValueError(f"{KERNEL.name}: more than 2^31 weights")
     from ._build import library
-    dev = values.device.index
-    if dev not in _SMS:
-        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    sms = _SMS[dev]
-    nblk, wchunk, ncopy = plan(B, G, N, C, sms)
-    # the blocks' partials, then one completion counter per (b, c)
-    scratch = torch.empty(B * nblk * C * N + B * C, dtype=values.dtype,
+    nblk, wchunk, ncopy = plan(B, G, N, C, _sm_count(values.device.index))
+    partial = torch.empty((B, nblk, C, N), dtype=values.dtype,
                           device=values.device)
     out = torch.empty((B, C, N), dtype=values.dtype, device=values.device)
     status = library().xc_weighted_cdf(
         values.data_ptr(), edges.data_ptr(), weights.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), B, G, N, C, nblk, wchunk, ncopy,
-        MODE, int(GUESS), int(LANE_COPIES), int(FUSE), stream_handle())
+        partial.data_ptr(), out.data_ptr(), B, G, N, C, nblk, wchunk, ncopy,
+        stream_handle())
     check_status(KERNEL.name, status)
     KERNEL.launches += 1
     return out
