@@ -18,7 +18,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build the kernels with nvcc (one process per source, in parallel);
   3. kernel checks: K1-K5 (K4 in both variants) against their plain PyTorch
-     versions on the same CUDA tensors at ERA5 and headline shapes, the
+     versions on the same CUDA tensors at ERA5 and headline shapes; K2 also
+     at the A(Y_eq) table build (1x(721*1440) row latitudes under a NaN
+     mask, N = 721, one channel), clength_pipeline's five channels at
+     N = 401, and uniform noise over the ERA5 step's edges; the
      kernels' other modes at the headline shape, and K6 (the dense kernel,
      both variants) at 2x4096x512, each within its stated bound; K3 and
      the 12 instances of K4 (3 parts x 2 directions x 2 variants) on the
@@ -32,8 +35,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      card (seed-7 tie fields, windows at their own minimum);
   4. the paths: for each, every launch count set to 0 just before it and
      read just after; a path fails if a kernel it runs was not launched.
+     K2's counts must be exact: one launch per step and one per table
+     build (an own-table keff_lwa step launches it twice).
      keff_lwa_pipeline at ERA5 ('auto' and 'dense', 4 steps reusing one
-     table plus one step that builds its own) and at the headline shape;
+     table plus one step that builds its own, and one own-table step
+     alone) and at the headline shape;
      lwa_pipeline at ERA5 (metric='dy', 'auto' and 'dense', the same
      streaming), part='upper' at the headline shape, the LAPE
      configuration and the tall grid ('dense', K6); keff_pipeline at ERA5
@@ -53,7 +59,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   6. timing with CUDA events: for K1-K8 the kernel's and the plain
      version's ms, the bound (the larger of bytes over HBM rate and FP32
      instructions over instruction rate) and the share of it reached, and the
-     launches per step of the kernel's path; K4 part='upper' at ERA5; the
+     launches per step of the kernel's path; K2 at its three other shapes;
+     K4 part='upper' at ERA5; the
      device time of each CUDA kernel K3 and K5 launch (prep against
      surface kernel, torch.profiler) and the SM clock and power that
      nvidia-smi samples under K3 and K4; snapshots/s of each streamed step,
@@ -906,8 +913,10 @@ def main() -> int:
             err = check_kernel(label, name, kern, plain, tuple(q.shape))
             if label == "era5":
                 errs[name] = err
-    cases["k2"] = k2_cases(era_steps[0], era_grid, ERA5["N"])
-    for name, (kern, plain, _) in cases["k2"].items():
+    # made again for phase 6: held until then they would count in phase 4's
+    # peak memory
+    for name, (kern, plain, _) in k2_cases(era_steps[0], era_grid,
+                                           ERA5["N"]).items():
         errs[name] = check_kernel("era5", "weighted_cdf", kern, plain,
                                   name[len("weighted_cdf_"):])
     cases["tall"] = tall_cases(tall_q, tall_grid, TALL["N"])
@@ -1215,7 +1224,8 @@ def main() -> int:
             timing[key], work[key] = (cuda_ms(kern, 20), cuda_ms(plain, 3)), w
             log(f"phase 6 time {name} {label}: kernel {timing[key][0]:.4f} "
                 f"ms, plain {timing[key][1]:.4f} ms")
-    for name, (kern, plain, w) in cases["k2"].items():
+    for name, (kern, plain, w) in k2_cases(era_steps[0], era_grid,
+                                           ERA5["N"]).items():
         key = ("era5", name)
         timing[key], work[key] = (cuda_ms(kern, 20), cuda_ms(plain, 3)), w
         log(f"phase 6 time {name} era5: kernel {timing[key][0]:.4f} ms, "
@@ -1267,7 +1277,7 @@ def main() -> int:
             f"{100 * b_ms / k_ms:.2f}% of bound, "
             f"{path_counts[path][r.name] / steps:g} launches per step of "
             f"'{path}', library call none")
-    for key in (*(("era5", n) for n in cases["k2"]),
+    for key in (*(("era5", f"weighted_cdf_{t}") for t in K2_SHAPES),
                 ("era5", "lwa_dense_v2"), ("era5", "lwa_dense_upper"),
                 "lwa_dense_tall_v2", f"contour_lengths_n{CLENGTH_N[1]}",
                 "contour_lengths_cartesian"):

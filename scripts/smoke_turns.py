@@ -10,11 +10,13 @@ script runs BASE, NEW, NEW, BASE, each ``chip_smoke.py`` as its own process
 from its own root (each builds its own kernels), keeps each run's output in
 DIR (default ``build/smoke_turns``) and prints, for every phase-6 line that
 names a time, a bound or a rate, the first number of each run, in run
-order.  After each run it also times K3 and K5 (``lwa_lin``, ``lwa_lin2``)
-of that checkout at the LAPE step's shape, 64x100x448, which
-``chip_smoke.py`` does not time: CUDA events over back-to-back wrapper
-calls, and the device time of the kernels from torch.profiler.  It exits
-non-zero if a run fails.
+order.  After each run it also times, in that checkout, K3 and K5
+(``lwa_lin``, ``lwa_lin2``) at the LAPE step's shape, 64x100x448, and K2
+(``weighted_cdf``) at the ERA5 step's input and at this checkout's
+``chip_smoke.py`` K2 shapes (the table build, clength's five channels,
+uniform noise), which an older ``chip_smoke.py`` may not time: CUDA events
+over back-to-back wrapper calls, and the device time of the kernels from
+torch.profiler.  It exits non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -62,6 +64,39 @@ for name in ("lwa_lin", "lwa_lin2"):
 """
 
 
+# run from a checkout's root with this checkout's chip_smoke.py as argv[1]:
+# its input builders, that checkout's wrappers
+PROBE_K2 = r"""
+import importlib.util, sys, torch
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+import xcontour_tpu_torch as xt
+from xcontour_tpu_torch.kernels import hist, stencil
+from xcontour_tpu_torch.ops import histogram, stencil as ops_stencil
+lat, lon, pv = cs.make_pv(cs.ERA5["B"], cs.ERA5["nlat"], cs.ERA5["nlon"], 0)
+grid = xt.from_latlon(lat, lon, device="cuda")
+q = torch.as_tensor(pv).to("cuda")
+B = q.shape[0]
+dy, dx = ops_stencil._spacing(grid, q.dtype)
+grdS = stencil.squared_gradient_plain(q, (1.0 / dx).contiguous(),
+                                      (1.0 / dy).contiguous(), periodic_x=True)
+_, e = histogram._edges(xt.cal_contours(q, cs.ERA5["N"]))
+v = q.reshape(B, -1).contiguous()
+w = torch.stack([torch.broadcast_to(grid.dA, q.shape).reshape(B, -1),
+                 (grdS * grid.dA).reshape(B, -1)], 1).contiguous()
+cases = {"weighted_cdf_main": lambda: hist.weighted_cdf(v, e.contiguous(), w)}
+cases.update({k: kern for k, (kern, _, _) in
+              cs.k2_cases(q, grid, cs.ERA5["N"]).items()})
+for name, kern in cases.items():
+    print(f"phase 6 probe {name} wrapper: {cs.cuda_ms(kern, 50):.4f} ms a "
+          f"call back to back")
+    dev = sum(cs.device_split(kern, 20).values())
+    print(f"phase 6 probe {name} device: {dev:.4f} ms of device kernels a "
+          f"call")
+"""
+
+
 def phase6(text: str) -> dict:
     """'phase 6 <key>: <numbers>' -> {key: first number}."""
     found = {}
@@ -97,14 +132,18 @@ def main() -> int:
         if proc.returncode != 0:
             print(proc.stdout[-3000:] + proc.stderr[-3000:], file=sys.stderr)
             return 1
-        probe = subprocess.run([sys.executable, "-c", PROBE], cwd=root,
-                               capture_output=True, text=True)
-        (out / f"run{i}_{tag}_lape.log").write_text(probe.stdout +
-                                                    probe.stderr)
-        if probe.returncode != 0:
-            print(probe.stderr[-3000:], file=sys.stderr)
-            return 1
-        runs.append((tag, phase6(proc.stdout + probe.stdout)))
+        probes = ""
+        for kind, code, args in (("lape", PROBE, []),
+                                 ("k2", PROBE_K2, [str(ROOT / "chip_smoke.py")])):
+            probe = subprocess.run([sys.executable, "-c", code, *args],
+                                   cwd=root, capture_output=True, text=True)
+            (out / f"run{i}_{tag}_{kind}.log").write_text(probe.stdout +
+                                                          probe.stderr)
+            if probe.returncode != 0:
+                print(probe.stderr[-3000:], file=sys.stderr)
+                return 1
+            probes += probe.stdout
+        runs.append((tag, phase6(proc.stdout + probes)))
     keys = []
     for _, found in runs:
         keys += [k for k in found if k not in keys]

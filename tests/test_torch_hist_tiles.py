@@ -10,8 +10,8 @@ value leaves the bin, the new bin guessed from even spacing and checked
 against the edges, the copies folded in order into the block's partial,
 the partials summed by 8 warps and folded in warp order, and the block scan
 of the bin totals (per-thread segments, shuffle scans).  K1: lanes marching
-down strips of rows, carrying the rows above, at and below, with the x
-neighbours from the neighbouring lanes.
+down strips of 16 rows over 4, 2 or 1 columns, carrying the rows above, at
+and below, with the x neighbours from the neighbouring lanes.
 
 Tolerances: K2's emulation runs in float64 and differs from the plain
 version only in summation order, so it must agree to 1e-12 of the plain
@@ -329,60 +329,70 @@ def test_k2_plan_fills_the_card(B, sms):
     assert 0.5 * kh.BLOCKS_PER_SM * sms <= B * nblk or nblk * kh.MIN_CELLS >= G
     assert B * nblk <= 2 * kh.BLOCKS_PER_SM * sms or nblk == 1
     assert (nblk - 1) * kh.WARPS * wchunk < G <= nblk * kh.WARPS * wchunk
-    assert ncopy == 8
+    assert ncopy == 16
 
 
 def test_k2_plan_copies_shrink_to_fit():
-    """Per-warp copies while they fit in 32 KB, down to one copy of any
+    """Up to 32 copies while they fit in 32 KB, down to one copy of any
     histogram the shared memory holds."""
     G = 10 ** 6
+    assert kh.plan(1, G, 241, 2, 132)[2] == 16    # the ERA5 step
     assert kh.plan(1, G, 401, 5, 132)[2] == 4     # clength: 5 x 401 bins
     assert kh.plan(1, G, 721, 1, 132)[2] == 8     # the table build
+    assert kh.plan(1, G, 33, 1, 132)[2] == 32
     assert kh.plan(1, G, 4000, 8, 132)[2] == 1
 
 
-STRIP = 32
+STRIP = 16
 
 
 def _k1_emulate(q, rdx, rdy, *, periodic_x, bc_y):
-    """K1 as the kernel cuts it, float32 numpy: tiles of 32 columns, strips
-    of 32 rows, each lane carrying the rows above, at and below, the x
-    neighbours from the neighbouring lanes (lanes past Nx shadow the last
-    column) or, at the tile's edges and the last column, loaded."""
+    """K1 as the kernel cuts it, float32 numpy: V = 4, 2 or 1 columns a lane
+    (the widest that divides Nx), tiles of 32 lanes, strips of 16 rows,
+    each lane carrying the rows above, at and below; the x neighbours of a
+    lane's first and last columns from the neighbouring lanes (lanes past
+    Nx shadow the last group) or, at the tile's edges and the last group,
+    loaded."""
     f = np.float32
     B, Ny, Nx = q.shape
+    V = 4 if Nx % 4 == 0 else 2 if Nx % 2 == 0 else 1
     out = np.full(q.shape, np.nan, np.float32)
     half, zero = f(0.5), f(0.0)
-    for x0 in range(0, Nx, 32):
-        x = x0 + np.arange(32)
-        xc = np.minimum(x, Nx - 1)
+    lanes = np.arange(32)
+    for t0 in range(0, Nx, 32 * V):
+        x0 = t0 + lanes * V
+        xc = np.minimum(x0, Nx - V)
         if periodic_x:
             xl = np.where(xc == 0, Nx - 1, xc - 1)
-            xr = np.where(xc == Nx - 1, 0, xc + 1)
+            xr = np.where(xc + V == Nx, 0, xc + V)
         else:
-            xl, xr = np.maximum(xc - 1, 0), np.minimum(xc + 1, Nx - 1)
-        load_l = np.arange(32) == 0
-        load_r = (np.arange(32) == 31) | (x >= Nx - 1)
-        keep = x < Nx
+            xl, xr = np.maximum(xc - 1, 0), np.minimum(xc + V, Nx - 1)
+        load_l = lanes == 0
+        load_r = (lanes == 31) | (x0 + V >= Nx)
+        keep = x0 < Nx
+        cols = xc[:, None] + np.arange(V)[None]            # (lane, v)
         for y0 in range(0, Ny, STRIP):
             y1 = min(Ny, y0 + STRIP)
-            up = q[:, y0 - 1, xc] if y0 > 0 else np.zeros((B, 32), f)
-            c = q[:, y0, xc]
+            up = q[:, y0 - 1][:, cols] if y0 > 0 else np.zeros((B, 32, V), f)
+            c = q[:, y0][:, cols]
             for y in range(y0, y1):
-                dn = q[:, y + 1, xc] if y + 1 < Ny else np.zeros((B, 32), f)
-                sl = np.concatenate([c[:, :1], c[:, :-1]], 1)   # shfl_up
-                sr = np.concatenate([c[:, 1:], c[:, -1:]], 1)   # shfl_down
-                left = np.where(load_l, q[:, y, xl], sl)
-                right = np.where(load_r, q[:, y, xr], sr)
+                dn = q[:, y + 1][:, cols] if y + 1 < Ny else np.zeros((B, 32, V), f)
+                last, first = c[:, :, V - 1], c[:, :, 0]
+                sl = np.concatenate([last[:, :1], last[:, :-1]], 1)   # shfl_up
+                sr = np.concatenate([first[:, 1:], first[:, -1:]], 1)  # shfl_down
+                edge_l = np.where(load_l, q[:, y, xl], sl)
+                edge_r = np.where(load_r, q[:, y, xr], sr)
+                left = np.concatenate([edge_l[..., None], c[:, :, :-1]], 2)
+                right = np.concatenate([c[:, :, 1:], edge_r[..., None]], 2)
                 with np.errstate(invalid="ignore"):
                     if periodic_x:
                         qx = (right - left) * half
                     else:
-                        qx = np.where(xc == 0, right - c,
-                                      np.where(xc == Nx - 1, c - left,
+                        qx = np.where(cols == 0, right - c,
+                                      np.where(cols == Nx - 1, c - left,
                                                (right - left) * half))
                     if (y == 0 or y == Ny - 1) and bc_y == "reflect":
-                        r1 = q[:, 1, xc]
+                        r1 = q[:, 1][:, cols]
                         qy = (r1 - r1) * zero
                     elif y == 0:
                         qy = dn - c if bc_y == "extend" else dn * half
@@ -390,20 +400,21 @@ def _k1_emulate(q, rdx, rdy, *, periodic_x, bc_y):
                         qy = c - up if bc_y == "extend" else -up * half
                     else:
                         qy = (dn - up) * half
-                    gx = qx * rdx[y, xc]
+                    gx = qx * rdx[y][cols]
                     gy = qy * rdy[y]
                     val = gx * gx + gy * gy
-                out[:, y, x[keep]] = val[:, keep]
+                out[:, y, cols[keep].ravel()] = val[:, keep].reshape(B, -1)
                 up, c = c, dn
     return out
 
 
 @pytest.mark.parametrize("periodic", [True, False])
 @pytest.mark.parametrize("bc", ["extend", "fill", "reflect"])
-@pytest.mark.parametrize("Ny,Nx", [(77, 70), (33, 64), (2, 5)])
+@pytest.mark.parametrize("Ny,Nx", [(77, 140), (33, 70), (2, 5), (40, 260)])
 def test_k1_strip_march_matches_plain_bit_for_bit(periodic, bc, Ny, Nx):
-    """All six modes; Ny not a multiple of the strip (77, 33) or a single
-    two-row strip, Nx not a multiple of 32; NaN cells, a NaN in row 1 (the
+    """All six modes; 4, 2 and 1 columns a lane; Ny not a multiple of the
+    strip (77, 33, 40) or a single two-row strip, Nx not a multiple of a
+    tile (140 = 128 + 12, 260 = 256 + 4); NaN cells, a NaN in row 1 (the
     'reflect' walls read it)."""
     rng = np.random.default_rng(Ny * Nx)
     q = rng.standard_normal((2, Ny, Nx)).cumsum(-1).cumsum(-2).astype(np.float32)

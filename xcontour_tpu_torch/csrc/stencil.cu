@@ -8,15 +8,18 @@
 // 1/dx (shared by every batch element), and writes the result: about 12
 // bytes per cell, against ~1 FLOP/byte of work.
 //
-// Design: blocks of 4 warps over (b, 32 columns, 4 strips of 32 rows), the
-// batch index fastest so the B blocks that read one tile of 1/dx run
-// together and find it in L2.  Each lane marches down its strip for one
-// column, carrying the rows above, at and below in registers, so q is
-// loaded once per cell (plus one halo row at each end of a strip); rows
-// are loaded 4 ahead.  The x neighbours come from the warp's other lanes by
-// shuffle; lane 0 and lane 31 (and the last column) load theirs, with the
+// Design: blocks of 4 warps over (b, 32 V columns, 4 strips of 16 rows),
+// the batch index fastest so the B blocks that read one tile of 1/dx run
+// together and find it in L2.  Each lane marches down its strip for V = 4
+// adjacent columns (float4 loads and stores; 2 or 1 where the row length
+// or alignment forbids), carrying the rows above, at and below in
+// registers, so q is loaded once per cell (plus one halo row at each end
+// of a strip); rows are loaded 2 ahead.  The x neighbours of a lane's
+// first and last columns come from the neighbouring lanes by shuffle; lane
+// 0 and lane 31 (and the lane of the last column) load theirs, with the
 // periodic wrap.  Indices are 32-bit (the wrapper takes fewer than 2^31
-// cells).  y walls follow bc_y ('reflect' follows the JAX package's XLA
+// cells).  Strips of 8 to 64 rows, 1 or 2 columns a lane and 4 rows ahead
+// were measured and lost (PERF.md).  y walls follow bc_y ('reflect' follows the JAX package's XLA
 // form, whose walls are NaN where row 1 is; the TPU kernel writes 0
 // there).  Spacings arrive as reciprocals, like the TPU kernel.  The final
 // products and sum use explicit round-to-nearest intrinsics so nvcc does
@@ -31,6 +34,8 @@ namespace {
 enum BcY { kExtend = 0, kFill = 1, kReflect = 2 };
 
 constexpr int kWarpsY = 4;    // strips a block
+constexpr int kStrip = 16;    // rows a lane marches
+constexpr int kAhead = 2;     // rows loaded before they are used
 constexpr unsigned kFull = 0xffffffffu;
 
 // V consecutive floats (16-byte aligned for V = 4, 8-byte for V = 2)
@@ -58,19 +63,19 @@ __device__ __forceinline__ void store_vec(float* p, const float (&a)[V]) {
   }
 }
 
-// V columns a lane, rows loaded AHEAD at a time, strips of ``strip`` rows
-template <int V, int AHEAD>
+// V columns a lane
+template <int V>
 __global__ void __launch_bounds__(32 * kWarpsY)
 squared_gradient_kernel(const float* __restrict__ q,
                         const float* __restrict__ rdx,
                         const float* __restrict__ rdy, float* __restrict__ out,
-                        int Ny, int Nx, int periodic_x, int bc_y, int strip) {
+                        int Ny, int Nx, int periodic_x, int bc_y) {
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
   const int x0 = (blockIdx.y * 32 + lane) * V;
-  const int y0 = (blockIdx.z * kWarpsY + threadIdx.y) * strip;
+  const int y0 = (blockIdx.z * kWarpsY + threadIdx.y) * kStrip;
   if (y0 >= Ny) return;                       // the whole warp
-  const int y1 = min(Ny, y0 + strip);
+  const int y1 = min(Ny, y0 + kStrip);
   const int xc = min(x0, Nx - V);             // lanes past Nx shadow the last
   int xl, xr;                                 // left of xc, right of xc+V-1
   if (periodic_x) {
@@ -94,10 +99,10 @@ squared_gradient_kernel(const float* __restrict__ q,
     for (int v = 0; v < V; ++v) up[v] = 0.0f;
   }
   load_vec<V>(qb + y0 * Nx + xc, c);
-  for (int ys = y0; ys < y1; ys += AHEAD) {
-    float dn[AHEAD][V], rx[AHEAD][V], lv[AHEAD], rv[AHEAD];
+  for (int ys = y0; ys < y1; ys += kAhead) {
+    float dn[kAhead][V], rx[kAhead][V], lv[kAhead], rv[kAhead];
 #pragma unroll
-    for (int r = 0; r < AHEAD; ++r) {
+    for (int r = 0; r < kAhead; ++r) {
       const int y = ys + r;
       const bool in = y < y1;
       if (in && y + 1 < Ny) {
@@ -116,7 +121,7 @@ squared_gradient_kernel(const float* __restrict__ q,
       rv[r] = in && load_r ? qb[y * Nx + xr] : 0.0f;
     }
 #pragma unroll
-    for (int r = 0; r < AHEAD; ++r) {
+    for (int r = 0; r < kAhead; ++r) {
       const int y = ys + r;
       if (y >= y1) break;                     // the whole warp
       const float sl = __shfl_up_sync(kFull, c[V - 1], 1);
@@ -167,41 +172,34 @@ squared_gradient_kernel(const float* __restrict__ q,
   }
 }
 
-template <int V, int AHEAD>
+template <int V>
 void launch(const float* q, const float* rdx, const float* rdy, float* out,
-            int B, int Ny, int Nx, int periodic_x, int bc_y, int strip,
-            cudaStream_t st) {
+            int B, int Ny, int Nx, int periodic_x, int bc_y, cudaStream_t st) {
   const dim3 grid(B, (Nx + 32 * V - 1) / (32 * V),
-                  (Ny + strip * kWarpsY - 1) / (strip * kWarpsY));
-  squared_gradient_kernel<V, AHEAD><<<grid, dim3(32, kWarpsY), 0, st>>>(
-      q, rdx, rdy, out, Ny, Nx, periodic_x, bc_y, strip);
+                  (Ny + kStrip * kWarpsY - 1) / (kStrip * kWarpsY));
+  squared_gradient_kernel<V><<<grid, dim3(32, kWarpsY), 0, st>>>(
+      q, rdx, rdy, out, Ny, Nx, periodic_x, bc_y);
 }
 
 }  // namespace
 
-// vec: columns a lane (0: the widest of 4, 2, 1 that divides Nx and the
-// pointers' alignment); ahead: 2 or 4
+// 4 columns a lane where the row length and the pointers' alignment allow
+// float4 accesses, else 2, else 1
 extern "C" int xc_squared_gradient(const void* q, const void* rdx,
                                    const void* rdy, void* out, int B, int Ny,
-                                   int Nx, int periodic_x, int bc_y, int strip,
-                                   int ahead, int vec, void* stream) {
+                                   int Nx, int periodic_x, int bc_y,
+                                   void* stream) {
   const uintptr_t addr = (uintptr_t)q | (uintptr_t)rdx | (uintptr_t)out;
-  int V = 1;
-  if (Nx % 4 == 0 && addr % 16 == 0) V = 4;
-  else if (Nx % 2 == 0 && addr % 8 == 0) V = 2;
-  if (vec > 0 && vec < V) V = vec;
   const float* qf = (const float*)q;
   const float* rx = (const float*)rdx;
   const float* ry = (const float*)rdy;
   float* o = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
-#define XC_LAUNCH(v, a) \
-  launch<v, a>(qf, rx, ry, o, B, Ny, Nx, periodic_x, bc_y, strip, st)
-  if (ahead == 2) {
-    if (V == 4) XC_LAUNCH(4, 2); else if (V == 2) XC_LAUNCH(2, 2); else XC_LAUNCH(1, 2);
-  } else {
-    if (V == 4) XC_LAUNCH(4, 4); else if (V == 2) XC_LAUNCH(2, 4); else XC_LAUNCH(1, 4);
-  }
-#undef XC_LAUNCH
+  if (Nx % 4 == 0 && addr % 16 == 0)
+    launch<4>(qf, rx, ry, o, B, Ny, Nx, periodic_x, bc_y, st);
+  else if (Nx % 2 == 0 && addr % 8 == 0)
+    launch<2>(qf, rx, ry, o, B, Ny, Nx, periodic_x, bc_y, st);
+  else
+    launch<1>(qf, rx, ry, o, B, Ny, Nx, periodic_x, bc_y, st);
   return (int)cudaGetLastError();
 }

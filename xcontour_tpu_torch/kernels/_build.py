@@ -29,9 +29,8 @@ P, I = ctypes.c_void_p, ctypes.c_int
 
 # C entry points: name -> argtypes (restype is int, a cudaError_t)
 SIGNATURES = {
-    # q, rdx, rdy, out, B, Ny, Nx, periodic_x, bc_y, strip, ahead, vec,
-    # stream
-    "xc_squared_gradient": [P, P, P, P, I, I, I, I, I, I, I, I, P],
+    # q, rdx, rdy, out, B, Ny, Nx, periodic_x, bc_y, stream
+    "xc_squared_gradient": [P, P, P, P, I, I, I, I, I, P],
     # values, edges, weights, partial, out, B, G, N, C, nblk, wchunk, ncopy,
     # stream
     "xc_weighted_cdf": [P, P, P, P, P, I, I, I, I, I, I, I, P],

@@ -29,10 +29,9 @@ KERNEL = Kernel("weighted_cdf", "xcontour_tpu_torch/csrc/hist.cu",
 # channels a launch; about 4 blocks an SM, and at least 2048 cells a block
 WARPS, STEP, GROUP = 8, 32 * 4, 8
 BLOCKS_PER_SM, MIN_CELLS = 4, 2048
-# the histogram copies (lane l adds into copy l % ncopy) take at most this
-# much shared memory, and at least one copy
+# up to 32 histogram copies (lane l adds into copy l % ncopy) in at most
+# this much shared memory, and at least one copy
 COPY_BYTES = 32 * 1024
-MAX_COPIES = 8
 # the first pass holds the edges and a (C, N) histogram in shared memory
 _SMEM_LIMIT = 227 * 1024
 
@@ -50,8 +49,8 @@ def plan(B: int, G: int, N: int, C: int, sms: int):
     wchunk = -(-wchunk // STEP) * STEP
     nblk = -(-G // (wchunk * WARPS))
     cg = min(C, GROUP)
-    ncopy = next((n for n in (32, 16, 8, 4, 2) if n <= MAX_COPIES
-                  and n * cg * N * 4 <= COPY_BYTES), 1)
+    ncopy = next((n for n in (32, 16, 8, 4, 2) if n * cg * N * 4 <= COPY_BYTES),
+                 1)
     return nblk, wchunk, ncopy
 
 

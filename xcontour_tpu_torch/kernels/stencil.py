@@ -18,9 +18,6 @@ KERNEL = Kernel("squared_gradient", "xcontour_tpu_torch/csrc/stencil.cu",
                 "xcontour_tpu/kernels/stencil_pallas.py:23")
 
 _BC_Y = {"extend": 0, "fill": 1, "reflect": 2}
-# rows a lane marches, rows it loads ahead (2 or 4; divides STRIP), columns
-# a lane (0: the widest of 4, 2, 1 that the row length and alignment allow)
-STRIP, AHEAD, VEC = 32, 4, 0
 
 
 def _centered_x(q, periodic: bool):
@@ -86,8 +83,7 @@ def squared_gradient(q: torch.Tensor, rdx: torch.Tensor, rdy: torch.Tensor,
     out = torch.empty_like(q)
     status = library().xc_squared_gradient(
         q.data_ptr(), rdx.data_ptr(), rdy.data_ptr(), out.data_ptr(),
-        B, Ny, Nx, int(periodic_x), _BC_Y[bc_y], STRIP, AHEAD, VEC,
-        stream_handle())
+        B, Ny, Nx, int(periodic_x), _BC_Y[bc_y], stream_handle())
     check_status(KERNEL.name, status)
     KERNEL.launches += 1
     return out
