@@ -28,7 +28,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      inputs that pin the XLA twin's behaviour (NaN and infinite weights,
      +-inf cells, a NaN profile row, a tie) at 2x40x128 and, as K6, at
      2x3104x128,
-     with the plain version's NaN pattern; K7
+     with the plain version's NaN pattern; K1 at one column a lane (row
+     lengths 182 and 361, and a view off 16-byte alignment), six modes bit
+     for bit, and K2 with nine channels (two channel groups); K7
      (ERA5 lat-lon N=121 and N=401, headline Cartesian N=121) and K8 (an
      ERA5 snapshot) against their plain versions run in float64, beside
      the float32 plain versions' own errors; the exact-empty rule on the
@@ -581,6 +583,55 @@ def queue3_checks(dev):
             f"included (NaN cells per K4 instance {nans})")
 
 
+def odd_shape_checks(dev):
+    """The kernel builds no path above reaches: K1 at one column a lane (a
+    row length of 182, 2 mod 4; 361, odd; and 360 read through a view one
+    float off 16-byte alignment), all six modes, bit for bit; K2 with nine
+    channels (a group of 8 and one of 1) on uneven edges, with values below
+    e[0], on interior edges and on the top edge, NaN values and NaN
+    weights, within its bound and the NaN pattern."""
+    from xcontour_tpu_torch.kernels import hist, stencil
+    rng = np.random.default_rng(9)
+    T = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    for Nx, offset in ((182, 0), (361, 0), (360, 1)):
+        Ny = 45
+        q = rng.standard_normal((3, Ny, Nx)).cumsum(-1).cumsum(-2)
+        q[0, 1, Nx // 2] = np.nan      # the 'reflect' walls read row 1
+        q[2, Ny // 2, Nx // 3] = np.nan
+        flat = torch.empty(q.size + offset, dtype=torch.float32, device=dev)
+        qv = flat[offset:].view(q.shape)
+        qv.copy_(T(q))
+        rdx = T(1.0 / rng.uniform(0.5, 2.0, (Ny, Nx)))
+        rdy = T(1.0 / rng.uniform(0.5, 2.0, Ny))
+        for periodic in (True, False):
+            for bc in ("extend", "fill", "reflect"):
+                kw = dict(periodic_x=periodic, bc_y=bc)
+                err, _ = rel_err(stencil.squared_gradient(qv, rdx, rdy, **kw),
+                                 stencil.squared_gradient_plain(qv, rdx, rdy,
+                                                                **kw))
+                _expect(err == 0.0, f"squared_gradient Nx={Nx} offset "
+                        f"{offset} {kw}: max_abs_err {err:.3e}, not exact")
+        log(f"phase 3 odd shapes squared_gradient 3x{Ny}x{Nx} offset "
+            f"{offset}: six modes bit for bit OK")
+    B, G, N, C = 3, 50 * 97, 17, 9
+    v = rng.standard_normal((B, G))
+    e = np.sort(rng.standard_normal((B, N + 1)), -1)
+    v[:, :40] = e[:, 5:6]                # an interior edge
+    v[:, 40:60] = e[:, -1:]              # the top edge
+    v[:, 60:80] = e[:, :1] - 1.0         # below e[0]
+    v[1, 100:130] = np.nan
+    w = rng.uniform(0.5, 1.5, (B, C, G))
+    w[0, 8, 200:230] = np.nan
+    w[2, 3, 300] = np.nan
+    v, e, w = T(v), T(e), T(w)
+    got, want = hist.weighted_cdf(v, e, w), hist.weighted_cdf_plain(v, e, w)
+    err, rel = rel_err(got, want)
+    bound = KERNEL_BOUNDS["weighted_cdf"]
+    _expect(rel <= bound, f"weighted_cdf C={C}: rel {rel:.3e}")
+    log(f"phase 3 odd shapes weighted_cdf B={B} G={G} N={N} C={C}: "
+        f"max_abs_err {err:.6g} rel {rel:.3e} bound {bound:g} OK")
+
+
 def check_length_kernel(name, bound_key, kern, plain, plain64):
     """K7 or K8 against its plain version run in float64 on the same card
     inputs, beside the float32 plain version's own error; the empty
@@ -935,6 +986,7 @@ def main() -> int:
             f"{'OK' if ok else 'FAIL'}")
         _expect(ok, f"{name} disagrees with its plain version")
     queue3_checks(dev)
+    odd_shape_checks(dev)
 
     # K7 and K8 against their plain versions in float64, and the tie rule
     cases["length"] = length_cases(era_steps[0], era_grid, head_q)

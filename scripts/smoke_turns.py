@@ -72,20 +72,11 @@ spec = importlib.util.spec_from_file_location("smoke", sys.argv[1])
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
 import xcontour_tpu_torch as xt
-from xcontour_tpu_torch.kernels import hist, stencil
-from xcontour_tpu_torch.ops import histogram, stencil as ops_stencil
 lat, lon, pv = cs.make_pv(cs.ERA5["B"], cs.ERA5["nlat"], cs.ERA5["nlon"], 0)
 grid = xt.from_latlon(lat, lon, device="cuda")
 q = torch.as_tensor(pv).to("cuda")
-B = q.shape[0]
-dy, dx = ops_stencil._spacing(grid, q.dtype)
-grdS = stencil.squared_gradient_plain(q, (1.0 / dx).contiguous(),
-                                      (1.0 / dy).contiguous(), periodic_x=True)
-_, e = histogram._edges(xt.cal_contours(q, cs.ERA5["N"]))
-v = q.reshape(B, -1).contiguous()
-w = torch.stack([torch.broadcast_to(grid.dA, q.shape).reshape(B, -1),
-                 (grdS * grid.dA).reshape(B, -1)], 1).contiguous()
-cases = {"weighted_cdf_main": lambda: hist.weighted_cdf(v, e.contiguous(), w)}
+cases = {"weighted_cdf_main":
+         cs.kernel_cases(q, grid, cs.ERA5["N"])["weighted_cdf"][0]}
 cases.update({k: kern for k, (kern, _, _) in
               cs.k2_cases(q, grid, cs.ERA5["N"]).items()})
 for name, kern in cases.items():

@@ -10,7 +10,7 @@ value leaves the bin, the new bin guessed from even spacing and checked
 against the edges, the copies folded in order into the block's partial,
 the partials summed by 8 warps and folded in warp order, and the block scan
 of the bin totals (per-thread segments, shuffle scans).  K1: lanes marching
-down strips of 16 rows over 4, 2 or 1 columns, carrying the rows above, at
+down strips of 16 rows over 4 or 1 columns, carrying the rows above, at
 and below, with the x neighbours from the neighbouring lanes.
 
 Tolerances: K2's emulation runs in float64 and differs from the plain
@@ -346,16 +346,16 @@ def test_k2_plan_copies_shrink_to_fit():
 STRIP = 16
 
 
-def _k1_emulate(q, rdx, rdy, *, periodic_x, bc_y):
-    """K1 as the kernel cuts it, float32 numpy: V = 4, 2 or 1 columns a lane
-    (the widest that divides Nx), tiles of 32 lanes, strips of 16 rows,
+def _k1_emulate(q, rdx, rdy, *, periodic_x, bc_y, aligned=True):
+    """K1 as the kernel cuts it, float32 numpy: V = 4 columns a lane where 4
+    divides Nx and the pointers are 16-byte ``aligned``, else 1; tiles of 32 lanes, strips of 16 rows,
     each lane carrying the rows above, at and below; the x neighbours of a
     lane's first and last columns from the neighbouring lanes (lanes past
     Nx shadow the last group) or, at the tile's edges and the last group,
     loaded."""
     f = np.float32
     B, Ny, Nx = q.shape
-    V = 4 if Nx % 4 == 0 else 2 if Nx % 2 == 0 else 1
+    V = 4 if Nx % 4 == 0 and aligned else 1
     out = np.full(q.shape, np.nan, np.float32)
     half, zero = f(0.5), f(0.0)
     lanes = np.arange(32)
@@ -412,7 +412,7 @@ def _k1_emulate(q, rdx, rdy, *, periodic_x, bc_y):
 @pytest.mark.parametrize("bc", ["extend", "fill", "reflect"])
 @pytest.mark.parametrize("Ny,Nx", [(77, 140), (33, 70), (2, 5), (40, 260)])
 def test_k1_strip_march_matches_plain_bit_for_bit(periodic, bc, Ny, Nx):
-    """All six modes; 4, 2 and 1 columns a lane; Ny not a multiple of the
+    """All six modes; 4 and 1 columns a lane (Nx = 70 and 5 take one); Ny not a multiple of the
     strip (77, 33, 40) or a single two-row strip, Nx not a multiple of a
     tile (140 = 128 + 12, 260 = 256 + 4); NaN cells, a NaN in row 1 (the
     'reflect' walls read it)."""
@@ -426,4 +426,22 @@ def test_k1_strip_march_matches_plain_bit_for_bit(periodic, bc, Ny, Nx):
     want = ks.squared_gradient_plain(*(torch.as_tensor(a) for a in (q, rdx, rdy)),
                                      periodic_x=periodic, bc_y=bc).numpy()
     assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("bc", ["extend", "fill", "reflect"])
+def test_k1_unaligned_one_column_a_lane_matches_plain(periodic, bc):
+    """A pointer off 16 bytes sends a row length that 4 divides to one
+    column a lane: 140 columns are 4 full tiles of 32 lanes and 12 lanes of
+    a fifth, the lanes past Nx shadowing the last column."""
+    Ny, Nx = 37, 140
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((2, Ny, Nx)).cumsum(-1).astype(np.float32)
+    q[0, 1, 7] = np.nan
+    rdx = (1.0 / rng.uniform(0.5, 2.0, (Ny, Nx))).astype(np.float32)
+    rdy = (1.0 / rng.uniform(0.5, 2.0, Ny)).astype(np.float32)
+    got = _k1_emulate(q, rdx, rdy, periodic_x=periodic, bc_y=bc, aligned=False)
+    want = ks.squared_gradient_plain(*(torch.as_tensor(a) for a in (q, rdx, rdy)),
+                                     periodic_x=periodic, bc_y=bc).numpy()
     np.testing.assert_array_equal(got, want)

@@ -10,14 +10,7 @@
 // with the top edge inclusive (k = N-1) and NaN values or weights adding
 // nothing.
 //
-// Bound on the H100: the bytes read, B*G*(1+C)*4.  What held the first
-// port far from it: every valid cell issued C shared-memory float atomics,
-// which Hopper runs as compare-and-swap loops (ATOMS.CAST.SPIN), and the
-// 32 lanes of a warp took 32 neighbouring cells, which on zonally banded
-// tracers (and in the A(Y_eq) table build, whose values are each row's
-// coordinate) fall in one bin: the loops retried up to 32 times; a
-// dependent binary search per cell; a grid of fixed 8192-cell chunks; a
-// serial scan.
+// Bound on the H100: the bytes read, B*G*(1+C)*4.
 //
 // Design, three launches:
 //  1. grid (nblk, B), 8 warps a block; nblk is sized by the wrapper from
@@ -35,18 +28,17 @@
 //     (all edges equal): 0 below the top level, the total at the top.
 //     The flushes go to ``ncopy`` copies of the (C, N) histogram, lane l
 //     to copy l % ncopy, so the lanes of a warp that flush into one bin at
-//     once mostly hit different copies; the copies are folded in order
+//     once mostly hit different copies: Hopper runs a shared-memory float
+//     atomic as a compare-and-swap loop, which retries once for every lane
+//     that hits the same address, and on zonally banded tracers (and in
+//     the A(Y_eq) table build, whose values are each row's coordinate) the
+//     lanes of a warp fall in one bin.  The copies are folded in order
 //     into the block's partial (B, nblk, C, N).  Up to 8 channels ride in
 //     registers; more take one launch per group of 8.
 //  2. grid (B*C, ceil(N/32)): lane = bin; the 8 warps sum the blocks'
 //     partials (warp w takes blocks w, w+8, ...), folded in warp order.
 //  3. grid B*C: one block scans each row of N totals in place: per-thread
 //     segments, warp shuffles, then the warps' totals.
-//
-// Measured and dropped (PERF.md): warp-aggregated adds (__match_any_sync
-// and a shuffle tree), runs of 8 or 16 contiguous cells a lane staged
-// through shared memory, one copy per warp, and the scan in the fold's
-// last block to finish.
 
 #include <cuda_runtime.h>
 #include <math.h>

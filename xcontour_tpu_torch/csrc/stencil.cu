@@ -11,15 +11,14 @@
 // Design: blocks of 4 warps over (b, 32 V columns, 4 strips of 16 rows),
 // the batch index fastest so the B blocks that read one tile of 1/dx run
 // together and find it in L2.  Each lane marches down its strip for V = 4
-// adjacent columns (float4 loads and stores; 2 or 1 where the row length
-// or alignment forbids), carrying the rows above, at and below in
+// adjacent columns (float4 loads and stores; 1 where the row length or
+// alignment forbids), carrying the rows above, at and below in
 // registers, so q is loaded once per cell (plus one halo row at each end
 // of a strip); rows are loaded 2 ahead.  The x neighbours of a lane's
 // first and last columns come from the neighbouring lanes by shuffle; lane
 // 0 and lane 31 (and the lane of the last column) load theirs, with the
 // periodic wrap.  Indices are 32-bit (the wrapper takes fewer than 2^31
-// cells).  Strips of 8 to 64 rows, 1 or 2 columns a lane and 4 rows ahead
-// were measured and lost (PERF.md).  y walls follow bc_y ('reflect' follows the JAX package's XLA
+// cells).  y walls follow bc_y ('reflect' follows the JAX package's XLA
 // form, whose walls are NaN where row 1 is; the TPU kernel writes 0
 // there).  Spacings arrive as reciprocals, like the TPU kernel.  The final
 // products and sum use explicit round-to-nearest intrinsics so nvcc does
@@ -38,15 +37,12 @@ constexpr int kStrip = 16;    // rows a lane marches
 constexpr int kAhead = 2;     // rows loaded before they are used
 constexpr unsigned kFull = 0xffffffffu;
 
-// V consecutive floats (16-byte aligned for V = 4, 8-byte for V = 2)
+// V consecutive floats (16-byte aligned for V = 4)
 template <int V>
 __device__ __forceinline__ void load_vec(const float* p, float (&a)[V]) {
   if constexpr (V == 4) {
     const float4 t = __ldg(reinterpret_cast<const float4*>(p));
     a[0] = t.x; a[1] = t.y; a[2] = t.z; a[3] = t.w;
-  } else if constexpr (V == 2) {
-    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
-    a[0] = t.x; a[1] = t.y;
   } else {
     a[0] = __ldg(p);
   }
@@ -56,8 +52,6 @@ template <int V>
 __device__ __forceinline__ void store_vec(float* p, const float (&a)[V]) {
   if constexpr (V == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
-  } else if constexpr (V == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
   } else {
     *p = a[0];
   }
@@ -184,7 +178,7 @@ void launch(const float* q, const float* rdx, const float* rdy, float* out,
 }  // namespace
 
 // 4 columns a lane where the row length and the pointers' alignment allow
-// float4 accesses, else 2, else 1
+// float4 accesses, else 1
 extern "C" int xc_squared_gradient(const void* q, const void* rdx,
                                    const void* rdy, void* out, int B, int Ny,
                                    int Nx, int periodic_x, int bc_y,
@@ -197,8 +191,6 @@ extern "C" int xc_squared_gradient(const void* q, const void* rdx,
   cudaStream_t st = (cudaStream_t)stream;
   if (Nx % 4 == 0 && addr % 16 == 0)
     launch<4>(qf, rx, ry, o, B, Ny, Nx, periodic_x, bc_y, st);
-  else if (Nx % 2 == 0 && addr % 8 == 0)
-    launch<2>(qf, rx, ry, o, B, Ny, Nx, periodic_x, bc_y, st);
   else
     launch<1>(qf, rx, ry, o, B, Ny, Nx, periodic_x, bc_y, st);
   return (int)cudaGetLastError();
