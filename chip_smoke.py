@@ -33,8 +33,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      for bit, and K2 with nine channels (two channel groups); K7
      (ERA5 lat-lon N=121 and N=401, headline Cartesian N=121) and K8 (an
      ERA5 snapshot) against their plain versions run in float64, beside
-     the float32 plain versions' own errors; the exact-empty rule on the
-     card (seed-7 tie fields, windows at their own minimum);
+     the float32 plain versions' own errors, and two runs of each bit for
+     bit; the exact-empty rule on the card (seed-7 tie fields, windows at
+     their own minimum); the limits: K2, K3, K4 (both variants), K5 and
+     K7 at a batch of 65,537 snapshots of 4x8, K8 with 65,599 window rows
+     (the rows past 65,535 against the plain version on that part of the
+     field), K2 at 16 channels x 4,000 bins and at 2 x 20,000 (bin
+     ranges), K8 on an ERA5 level at windows 101 / stride 7 and 64 / 10
+     (window - 1 not a multiple of the stride), 101 / 40 and 161 / 80
+     (strides past 32 and 64) and 31 / 45 (a stride past the window), K7
+     at 5,000 levels;
   4. the paths: for each, every launch count set to 0 just before it and
      read just after; a path fails if a kernel it runs was not launched.
      K2's counts must be exact: one launch per step and one per table
@@ -61,7 +69,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   6. timing with CUDA events: for K1-K8 the kernel's and the plain
      version's ms, the bound (the larger of bytes over HBM rate and FP32
      instructions over instruction rate) and the share of it reached, and the
-     launches per step of the kernel's path; K2 at its three other shapes;
+     launches per step of the kernel's path (K7's and K8's crossed pairs,
+     counted from the inputs, in their bounds); K2 at its three other shapes;
      K4 part='upper' at ERA5; the
      device time of each CUDA kernel K3 and K5 launch (prep against
      surface kernel, torch.profiler) and the SM clock and power that
@@ -159,6 +168,31 @@ NKEFF_MASK = 2e7
 # instructions/s), the H100 SXM's published peaks at 700 W
 HBM_BYTES_PER_S = 3.35e12
 FP32_INSTR_PER_S = 33.5e12
+# K7's and K8's FP32 instructions: 6 to classify a cell (its corners' min
+# and max), and for each crossed (cell, level) pair its segment as
+# csrc/length.cu's crossing_length writes it: two edge points of 5 each (a
+# difference, the zero test, a difference, the division, the scaling) and
+# the segment, 22 on the sphere (two differences, two halvings, two sinf,
+# two sums and two cosf, four products and a sum, the clamp's two, sqrtf,
+# asinf, the doubling) or 3 in the plane (two differences, hypotf).  A
+# math-library call or an IEEE division counts as one instruction and a
+# saddle's second segment not at all, so the counts stay lower bounds.
+# K8 classifies each field cell that a window covers once, and tests each
+# (window, lattice block it covers) pair with two compares (its level
+# against the block's [min, max)): the least work of a pretested design.
+CLASSIFY_INSTR = 6
+SEGMENT_INSTR = {True: 32, False: 13}
+PRETEST_INSTR = 2
+# K8's windows beyond the path's 101 / 10 (phase 3 against the float64
+# plain version, phase 6 timed): window - 1 not a multiple of the stride
+# (101 / 7, 64 / 10), strides past a warp's 32 lanes a row (101 / 40:
+# several column steps a block) and past the 64 staged coordinates
+# (161 / 80), and a stride past the window (31 / 45)
+K8_WINDOWS = ((101, 7), (64, 10), (101, 40), (161, 80), (31, 45))
+# the limits of phase 3: a batch past CUDA's 65,535 grid y and z, and K8's
+# window rows past it (window 2, stride 1 on LIMIT_ROWS x 8)
+LIMIT_B = 65537
+LIMIT_ROWS = 65600
 # no single PyTorch call computes any of K1-K8 (torch.histogram has no CUDA
 # form, torch.histc takes no weights, torch.bincount weighs integer bins
 # that a torch.bucketize must find first and leaves the cumsum; no call
@@ -242,8 +276,8 @@ def cuda_ms(fn, reps):
 
 def device_split(fn, calls=10):
     """{kernel: device ms per call} of the CUDA kernels ``fn`` launches, by
-    torch.profiler over ``calls`` calls after a warm-up; the LWA kernels
-    by name, torch's own summed as 'torch'."""
+    torch.profiler over ``calls`` calls after a warm-up; the port's LWA,
+    CDF and length kernels by name, torch's own summed as 'torch'."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -256,7 +290,8 @@ def device_split(fn, calls=10):
     for evt in prof.key_averages():
         t = getattr(evt, "self_device_time_total", 0) or 0
         if t > 0 and not evt.key.startswith("aten::"):
-            m = re.search(r"lwa_\w+_kernel", evt.key)
+            m = re.search(r"(?:lwa_\w+|cdf_\w+|local_lengths|lengths"
+                          r"|spacing_scale|fixed_to_float)_kernel", evt.key)
             name = m.group(0) if m else "torch"
             split[name] = split.get(name, 0.0) + t / calls / 1e3
     if not split:
@@ -482,19 +517,73 @@ def variant_cases(q, grid):
     return cases
 
 
+def corner_ranges(q):
+    """[lo, hi) of each cell's corners, (..., Ny - 1, Nx - 1): a level
+    crosses a cell exactly when lo <= level < hi; (inf, -inf) for a cell
+    with a NaN corner."""
+    c = torch.stack([q[..., :-1, :-1], q[..., :-1, 1:], q[..., 1:, :-1],
+                     q[..., 1:, 1:]])
+    bad = torch.isnan(c).any(0)
+    inf = torch.full_like(c[0], float("inf"))
+    return (torch.where(bad, inf, c.amin(0)),
+            torch.where(bad, -inf, c.amax(0)))
+
+
+def k7_crossed_pairs(q, levels):
+    """Crossed (cell, level) pairs of data (B, Ny, Nx) at levels (B, N):
+    each cell's count of sorted levels in its [lo, hi) by searchsorted."""
+    lo, hi = corner_ranges(q)
+    B = q.shape[0]
+    srt = torch.sort(levels, dim=-1).values.contiguous()      # NaN last
+    a = torch.searchsorted(srt, lo.reshape(B, -1).contiguous())
+    e = torch.searchsorted(srt, hi.reshape(B, -1).contiguous())
+    return int((e - a).clamp(min=0).sum())
+
+
+def k8_crossed_cells(q0, lv, window, stride):
+    """Crossed cells of all windows of q0 (Ny, Nx) at their levels
+    lv (Wy, Wx), a row of windows at a time."""
+    lo, hi = corner_ranges(q0)
+    cells, n = window - 1, 0
+    for iy in range(lv.shape[0]):
+        rows = slice(iy * stride, iy * stride + cells)
+        lw = lo[rows].unfold(1, cells, stride)       # (cells, Wx, cells)
+        hw = hi[rows].unfold(1, cells, stride)
+        lev = lv[iy][None, :, None]
+        n += int(((lw <= lev) & (lev < hw)).sum())
+    return n
+
+
+def k8_instructions(Ny, Nx, Wy, Wx, window, stride, pairs):
+    """K8's least FP32 work: CLASSIFY_INSTR for each field cell a window
+    covers, PRETEST_INSTR for each (window, lattice block it covers) and
+    SEGMENT_INSTR (sphere) for each crossed (window, cell) pair; a window
+    of window - 1 cells a side covers ceil((window - 1) / stride) blocks a
+    side."""
+    cells = window - 1
+    covered = ((Wy - 1) * min(stride, cells) + cells) \
+        * ((Wx - 1) * min(stride, cells) + cells)
+    nbw = -(-cells // stride)
+    assert covered <= (Ny - 1) * (Nx - 1)
+    return (CLASSIFY_INSTR * covered + PRETEST_INSTR * Wy * Wx * nbw ** 2
+            + SEGMENT_INSTR[True] * pairs)
+
+
 def length_cases(era_q, era_grid, head_q):
     """name -> (bound key, kernel call, float32 plain call, float64 plain
-    call, (bytes, instructions)) for K7 at ERA5 (lat-lon, N = 121 and 401)
-    and at the headline shape (Cartesian, 10 km spacing, N = 121), and K8
-    on one ERA5 snapshot at its rolling-mean levels: the inputs the
-    geometry paths give them.  The instructions count 6 per cell a kernel
-    must classify (its corners' min and max) and leave out the segments
-    of the crossed cells, which depend on the data: a lower bound."""
+    call, (bytes, instructions), crossed pairs) for K7 at ERA5 (lat-lon,
+    N = 121 and 401) and at the headline shape (Cartesian, 10 km spacing,
+    N = 121), and K8 on one ERA5 snapshot at its rolling-mean levels
+    (window 101 / stride 10, and K8_WINDOWS): the inputs the geometry
+    paths give them.  K7's instructions count CLASSIFY_INSTR per cell and
+    SEGMENT_INSTR per crossed pair, counted from the inputs; K8's,
+    k8_instructions."""
     import xcontour_tpu_torch as xt
     from xcontour_tpu_torch.kernels import length
 
     def k7(q, ctr, yc, xc, latlon):
         d = lambda a: a.double()
+        pairs = k7_crossed_pairs(q, ctr)
         return ("contour_lengths",
                 lambda: length.contour_lengths(q, ctr, yc, xc, latlon=latlon),
                 lambda: length.contour_lengths_plain(q, ctr, yc, xc,
@@ -503,7 +592,8 @@ def length_cases(era_q, era_grid, head_q):
                                                      d(xc), latlon=latlon,
                                                      chunk=2),
                 (4 * (q.numel() + 2 * ctr.numel() + yc.numel() + xc.numel()),
-                 6 * q.numel()))
+                 CLASSIFY_INSTR * q.numel() + SEGMENT_INSTR[latlon] * pairs),
+                pairs)
     yc = torch.deg2rad(era_grid.ydef).contiguous()
     xc = torch.deg2rad(era_grid.xdef).contiguous()
     cases = {f"contour_lengths_n{N}": k7(era_q, xt.cal_contours(era_q, N),
@@ -515,16 +605,21 @@ def length_cases(era_q, era_grid, head_q):
     cases["contour_lengths_cartesian"] = k7(
         head_q, xt.cal_contours(head_q, HEADLINE["N"]), hy, hx, False)
     q0 = era_q[0].contiguous()
-    lv = xt.rolling_mean(q0, LOCAL["window"], LOCAL["stride"])[0].contiguous()
-    kw = dict(LOCAL, latlon=True)
-    cases["local_lengths"] = (
-        "local_lengths",
-        lambda: length.local_lengths(q0, lv, yc, xc, **kw),
-        lambda: length.local_lengths_plain(q0, lv, yc, xc, **kw),
-        lambda: length.local_lengths_plain(q0.double(), lv.double(),
-                                           yc.double(), xc.double(), **kw),
-        (4 * (q0.numel() + 2 * lv.numel() + yc.numel() + xc.numel()),
-         6 * lv.numel() * (LOCAL["window"] - 1) ** 2))
+    for tag, window, stride in (("", LOCAL["window"], LOCAL["stride"]),
+                                *((f"_w{w}s{s}", w, s) for w, s in K8_WINDOWS)):
+        lv = xt.rolling_mean(q0, window, stride)[0].contiguous()
+        kw = dict(window=window, stride=stride, latlon=True)
+        pairs = k8_crossed_cells(q0, lv, window, stride)
+        cases["local_lengths" + tag] = (
+            "local_lengths",
+            lambda lv=lv, kw=kw: length.local_lengths(q0, lv, yc, xc, **kw),
+            lambda lv=lv, kw=kw: length.local_lengths_plain(q0, lv, yc, xc,
+                                                            **kw),
+            lambda lv=lv, kw=kw: length.local_lengths_plain(
+                q0.double(), lv.double(), yc.double(), xc.double(), **kw),
+            (4 * (q0.numel() + 2 * lv.numel() + yc.numel() + xc.numel()),
+             k8_instructions(*q0.shape, *lv.shape, window, stride, pairs)),
+            pairs)
     return cases
 
 
@@ -635,10 +730,11 @@ def odd_shape_checks(dev):
 def check_length_kernel(name, bound_key, kern, plain, plain64):
     """K7 or K8 against its plain version run in float64 on the same card
     inputs, beside the float32 plain version's own error; the empty
-    contours (exact zeros) must agree.  Returns the kernel's max abs
-    error."""
+    contours (exact zeros) must agree, and a second run must give the same
+    bits.  Returns the kernel's max abs error."""
     got, p32, want = kern(), plain(), plain64()
     torch.cuda.synchronize()
+    _expect(torch.equal(kern(), got), f"{name}: two runs differ")
     for label, x in (("kernel", got), ("float32 plain version", p32)):
         _expect(torch.equal(x == 0, want == 0),
                 f"{name}: the {label}'s empty contours differ from the "
@@ -690,6 +786,114 @@ def tie_checks(dev):
     zeros = int((out == 0).sum())
     log(f"phase 3 tie K8: exact zeros at the window minima {zeros} of 64")
     _expect(zeros == 64, "K8 breaks the exact-empty rule")
+
+
+def limit_checks(dev, era_q, era_grid):
+    """The port's launch limits, each against its plain version: K2-K5
+    and K7 at a batch of LIMIT_B snapshots of 4x8 (past CUDA's 65,535 grid
+    y and z), K8 with 65,599 window rows (window 2, stride 1 on 65,600x8;
+    the plain version loops over window rows, so it runs on the first 65
+    and the last 100 rows of the field), K2 at 16 channels x 4,000 bins
+    (two channel groups) and 2 x 20,000 (two bin ranges), K7 at 5,000
+    levels (five level chunks) with NaN levels, in any order.  The
+    K8 windows of K8_WINDOWS are length_cases'."""
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch.kernels import hist, length, lwa
+    rng = np.random.default_rng(12)
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                                  device=dev)
+    B, Ny, Nx = LIMIT_B, 4, 8
+    q = rng.standard_normal((B, Ny, Nx)).cumsum(1).cumsum(2)
+    q[7, 1, 2] = np.nan
+    q, W = T(q), T(rng.uniform(0.5, 1.5, (Ny, Nx)))
+    Q = torch.sort(q.reshape(B, -1)[:, ::8].nan_to_num(0.0), -1).values
+    Q = Q.contiguous()
+    for name, kern, plain, bound in (
+            ("lwa_lin", lambda: lwa.lwa_lin(q, Q, W, increase=True),
+             lambda: lwa.lwa_lin_plain(q, Q, W, increase=True), "lwa_lin"),
+            ("lwa_lin2", lambda: lwa.lwa_lin2(q, Q, W, increase=True),
+             lambda: lwa.lwa_lin2_plain(q, Q, W, increase=True), "lwa_lin2"),
+            ("lwa_dense", lambda: lwa.lwa_dense(q, Q, W, increase=True),
+             lambda: lwa.lwa_dense_plain(q, Q, W, increase=True),
+             "lwa_dense"),
+            ("lwa_dense_v2",
+             lambda: lwa.lwa_dense(q, Q, W, increase=False, variant2=True),
+             lambda: lwa.lwa_dense_plain(q, Q, W, increase=False,
+                                         variant2=True), "lwa_dense_v2")):
+        check_kernel("limit", bound, kern, plain, (B, Ny, Nx))
+    v = q.reshape(B, -1).contiguous()
+    e = torch.sort(T(rng.standard_normal((B, 6))), -1).values.contiguous()
+    w = T(rng.uniform(0.5, 1.5, (B, 2, Ny * Nx)))
+    check_kernel("limit", "weighted_cdf", lambda: hist.weighted_cdf(v, e, w),
+                 lambda: hist.weighted_cdf_plain(v, e, w), (B, Ny * Nx))
+    lev = T(rng.standard_normal((B, 5)) * 3.0)
+    lev[3, 2] = float("nan")
+    yc = T(np.linspace(0.0, 0.3, Ny))
+    xc = T(np.linspace(0.0, 0.7, Nx))
+    d = lambda a: a.double()
+    check_length_kernel(
+        f"contour_lengths batch {B}", "contour_lengths",
+        lambda: length.contour_lengths(q, lev, yc, xc, latlon=True),
+        lambda: length.contour_lengths_plain(q, lev, yc, xc, latlon=True),
+        lambda: length.contour_lengths_plain(d(q), d(lev), d(yc), d(xc),
+                                             latlon=True))
+    # K8 past 65,535 window rows: noise on cells of comparable extent (a
+    # random walk down the rows, its columns drifting apart, would make
+    # every contour nearly parallel to y, where float32 edge fractions
+    # leave 5e-6 of the longest window's length: the plain version's
+    # float32 arithmetic, not the kernel's sums)
+    f = T(rng.standard_normal((LIMIT_ROWS, 8)))
+    fy = T(np.linspace(-1.2, 1.2, LIMIT_ROWS))
+    fx = T(np.linspace(0.0, 5e-4, 8))
+    kw = dict(window=2, stride=1, latlon=True)
+    lv = xt.rolling_mean(f, 2, 1)[0].contiguous()
+    got = length.local_lengths(f, lv, fy, fx, **kw)
+    torch.cuda.synchronize()
+    wy = LIMIT_ROWS - 1
+    for rows in (slice(0, 64), slice(wy - 99, wy)):
+        part = slice(rows.start, rows.stop + 1)
+        want = length.local_lengths_plain(d(f[part]), d(lv[rows]), d(fy[part]),
+                                          d(fx), **kw)
+        _expect(torch.equal(got[rows] == 0, want == 0),
+                "local_lengths 65,599 window rows: empty windows differ")
+        err, rel = rel_err(got[rows], want)
+        _expect(rel <= KERNEL_BOUNDS["local_lengths"],
+                f"local_lengths window rows {rows}: rel {rel:.3e}")
+        log(f"phase 3 limit local_lengths {tuple(got.shape)} window rows "
+            f"[{rows.start}, {rows.stop}): max_abs_err {err:.6g} rel "
+            f"{rel:.3e} bound {KERNEL_BOUNDS['local_lengths']:g} OK")
+    # K2 in two channel groups and in two bin ranges
+    for C, N in ((16, 4000), (2, 20000)):
+        G = 200_000
+        vv = rng.standard_normal((2, G))
+        vv[0, :500] = np.nan
+        ee = np.sort(rng.standard_normal((2, N + 1)) * 1.2, -1)
+        ww = rng.uniform(0.5, 1.5, (2, C, G))
+        ww[1, C - 1, 1000:1100] = np.nan
+        vv, ee, ww = T(vv), T(ee), T(ww)
+        _expect(hist.bin_range(N, C) == (N if C == 16 else 19370),
+                f"weighted_cdf C={C} N={N}: bin range "
+                f"{hist.bin_range(N, C)}")
+        check_kernel("limit", "weighted_cdf",
+                     lambda: hist.weighted_cdf(vv, ee, ww),
+                     lambda: hist.weighted_cdf_plain(vv, ee, ww),
+                     f"C={C} N={N} G={G}")
+    # K7 over five chunks of levels, NaN levels, any order
+    lat, lon, pv = make_pv(3, 64, 96, 5)
+    kq = T(pv)
+    lo = torch.nan_to_num(kq, nan=float("inf")).amin((-2, -1))
+    hi = torch.nan_to_num(kq, nan=float("-inf")).amax((-2, -1))
+    u = T(rng.permutation(np.linspace(0.0, 1.0, 5000)))
+    kl = (lo[:, None] + (hi - lo)[:, None] * u[None]).contiguous()
+    kl[1, 17] = float("nan")
+    ky, kx = T(np.deg2rad(lat)), T(np.deg2rad(lon))
+    check_length_kernel(
+        "contour_lengths N=5000", "contour_lengths",
+        lambda: length.contour_lengths(kq, kl, ky, kx, latlon=True),
+        lambda: length.contour_lengths_plain(kq, kl, ky, kx, latlon=True,
+                                             chunk=64),
+        lambda: length.contour_lengths_plain(d(kq), d(kl), d(ky), d(kx),
+                                             latlon=True, chunk=64))
 
 
 def _unique_min(q):
@@ -990,9 +1194,11 @@ def main() -> int:
 
     # K7 and K8 against their plain versions in float64, and the tie rule
     cases["length"] = length_cases(era_steps[0], era_grid, head_q)
-    for name, (bound_key, kern, plain, plain64, _) in cases["length"].items():
+    for name, (bound_key, kern, plain, plain64, _, _) in \
+            cases["length"].items():
         errs[name] = check_length_kernel(name, bound_key, kern, plain, plain64)
     tie_checks(dev)
+    limit_checks(dev, era_steps[0], era_grid)
 
     # 4. the paths, through the entry points a user calls
     totals = {r.name: 0 for r in records}
@@ -1283,10 +1489,12 @@ def main() -> int:
         log(f"phase 6 time {name} era5: kernel {timing[key][0]:.4f} ms, "
             f"plain {timing[key][1]:.4f} ms")
     # one timed call of each float32 plain version (N = 401 takes seconds)
-    for name, (_, kern, plain, _, w) in cases["length"].items():
+    for name, (_, kern, plain, _, w, pairs) in cases["length"].items():
         timing[name], work[name] = (cuda_ms(kern, 20), cuda_ms(plain, 1)), w
         log(f"phase 6 time {name}: kernel {timing[name][0]:.4f} ms, plain "
             f"{timing[name][1]:.4f} ms")
+        log(f"phase 6 crossed {name}: {pairs} crossed pairs; bound counts "
+            f"{w[1]} FP32 instructions, {w[0]} bytes")
     # where K3's and K5's time goes (prep against surface kernel), and
     # whether the FP32-bound kernels run at the SM clock they are bound at
     for name in ("lwa_lin", "lwa_lin2"):
@@ -1332,7 +1540,8 @@ def main() -> int:
     for key in (*(("era5", f"weighted_cdf_{t}") for t in K2_SHAPES),
                 ("era5", "lwa_dense_v2"), ("era5", "lwa_dense_upper"),
                 "lwa_dense_tall_v2", f"contour_lengths_n{CLENGTH_N[1]}",
-                "contour_lengths_cartesian"):
+                "contour_lengths_cartesian",
+                *(f"local_lengths_w{w}s{s}" for w, s in K8_WINDOWS)):
         bounds[key] = bound_ms(work[key])
         k_ms, b_ms = timing[key][0], bounds[key][0]
         log(f"phase 6 kernel {key}: {k_ms:.4f} ms, plain "

@@ -11,12 +11,18 @@ from its own root (each builds its own kernels), keeps each run's output in
 DIR (default ``build/smoke_turns``) and prints, for every phase-6 line that
 names a time, a bound or a rate, the first number of each run, in run
 order.  After each run it also times, in that checkout, K3 and K5
-(``lwa_lin``, ``lwa_lin2``) at the LAPE step's shape, 64x100x448, and K2
+(``lwa_lin``, ``lwa_lin2``) at the LAPE step's shape, 64x100x448, K2
 (``weighted_cdf``) at the ERA5 step's input and at this checkout's
 ``chip_smoke.py`` K2 shapes (the table build, clength's five channels,
-uniform noise), which an older ``chip_smoke.py`` may not time: CUDA events
-over back-to-back wrapper calls, and the device time of the kernels from
-torch.profiler.  It exits non-zero if a run fails.
+uniform noise), and K7 and K8 at this checkout's ``chip_smoke.py``
+length cases (ERA5 at N = 121 and 401, the headline Cartesian field, one
+ERA5 level in windows of 101 / 10 and ``K8_WINDOWS``), which an older
+``chip_smoke.py`` may not time: CUDA events over back-to-back wrapper
+calls, and the device time of the kernels from torch.profiler (in all,
+and per CUDA kernel); and the geometry steps (ERA5 ``local`` and
+``clength`` at N = 121 and 401, the headline ``fractal``): median wall
+time and the profiler's device time, with the largest kernels.  It exits
+non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -88,6 +94,95 @@ for name, kern in cases.items():
 """
 
 
+# run from a checkout's root with this checkout's chip_smoke.py as argv[1]:
+# its K7 and K8 inputs, that checkout's wrappers
+PROBE_LENGTH = r"""
+import importlib.util, sys, torch
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+import xcontour_tpu_torch as xt
+lat, lon, pv = cs.make_pv(cs.ERA5["B"], cs.ERA5["nlat"], cs.ERA5["nlon"], 0)
+grid = xt.from_latlon(lat, lon, device="cuda")
+q = torch.as_tensor(pv).to("cuda")
+_, _, hpv = cs.make_pv(cs.HEADLINE["B"], cs.HEADLINE["nlat"],
+                       cs.HEADLINE["nlon"], 100)
+hq = torch.as_tensor(hpv).to("cuda")
+for name, case in cs.length_cases(q, grid, hq).items():
+    kern = case[1]
+    print(f"phase 6 probe {name} wrapper: {cs.cuda_ms(kern, 50):.4f} ms a "
+          f"call back to back")
+    split = cs.device_split(kern, 20)
+    print(f"phase 6 probe {name} device: {sum(split.values()):.4f} ms of "
+          f"device kernels a call")
+    for k, ms in split.items():
+        print(f"phase 6 probe {name} device {k}: {ms:.4f} ms a call")
+"""
+
+
+# run from a checkout's root with this checkout's chip_smoke.py as argv[1]:
+# the geometry steps of its phase 4 (ERA5 local_contour_lengths on each of
+# 15 levels, clength_pipeline at N = 121 and 401, the headline
+# fractal_pipeline), each after a warm-up: the median wall time of 7 steps
+# that end in a synchronize, and torch.profiler's device time over 3
+# steps, in all and for the 4 largest CUDA kernels
+PROBE_STEPS = r"""
+import importlib.util, re, statistics, sys, time, torch
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+import xcontour_tpu_torch as xt
+lat, lon, pv = cs.make_pv(cs.ERA5["B"], cs.ERA5["nlat"], cs.ERA5["nlon"], 0)
+grid = xt.from_latlon(lat, lon, device="cuda")
+q = torch.as_tensor(pv).to("cuda")
+hlat, hlon, hpv = cs.make_pv(cs.HEADLINE["B"], cs.HEADLINE["nlat"],
+                             cs.HEADLINE["nlon"], 100)
+hgrid = xt.from_latlon(hlat, hlon, device="cuda")
+hq = torch.as_tensor(hpv).to("cuda")
+tab = lambda g: xt.cal_area_eqCoord_table_hist(g.fluid_mask(), g.ydef, g.dA,
+                                               increase=True, lt=True)
+table, htable = tab(grid), tab(hgrid)
+steps = {
+    "local": lambda: [xt.local_contour_lengths(q[k], grid.ydef, grid.xdef,
+                                               **cs.LOCAL)
+                      for k in range(q.shape[0])],
+    "clength_n121": lambda: xt.clength_pipeline(q, grid, N=121, table=table),
+    "clength_n401": lambda: xt.clength_pipeline(q, grid, N=401, table=table),
+    "fractal": lambda: xt.fractal_pipeline(hq, hgrid, N=cs.HEADLINE["N"],
+                                           strides=cs.FRACTAL_STRIDES,
+                                           table=htable),
+}
+acts = [torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]
+for name, fn in steps.items():
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    items = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", 0) or 0
+        if t > 0 and not evt.key.startswith("aten::"):
+            m = re.search(r"(\w+)[<(]", evt.key)   # the kernel's own name
+            key = (m.group(1) if m else evt.key)[-40:]
+            items[key] = items.get(key, 0.0) + t / 3 / 1e3
+    wall = statistics.median(walls) * 1e3
+    dev = sum(items.values())
+    print(f"phase 6 step {name} wall: {wall:.4f} ms (median of 7)")
+    print(f"phase 6 step {name} device: {dev:.4f} ms of device kernels")
+    for k, ms in sorted(items.items(), key=lambda kv: -kv[1])[:4]:
+        print(f"phase 6 step {name} device {k}: {ms:.4f} ms")
+"""
+
+
 def phase6(text: str) -> dict:
     """'phase 6 <key>: <numbers>' -> {key: first number}."""
     found = {}
@@ -124,8 +219,11 @@ def main() -> int:
             print(proc.stdout[-3000:] + proc.stderr[-3000:], file=sys.stderr)
             return 1
         probes = ""
+        smoke = [str(ROOT / "chip_smoke.py")]
         for kind, code, args in (("lape", PROBE, []),
-                                 ("k2", PROBE_K2, [str(ROOT / "chip_smoke.py")])):
+                                 ("k2", PROBE_K2, smoke),
+                                 ("length", PROBE_LENGTH, smoke),
+                                 ("steps", PROBE_STEPS, smoke)):
             probe = subprocess.run([sys.executable, "-c", code, *args],
                                    cwd=root, capture_output=True, text=True)
             (out / f"run{i}_{tag}_{kind}.log").write_text(probe.stdout +

@@ -7,7 +7,10 @@ count, warps owning contiguous runs of cells, each lane taking every 32nd
 cell of its warp's run 4 at a time, keeping its current bin and one running
 sum per channel and flushing them to histogram copy ``lane % ncopy`` when a
 value leaves the bin, the new bin guessed from even spacing and checked
-against the edges, the copies folded in order into the block's partial,
+against the edges, each launch taking the bins ``kernels.hist.bin_range``
+allows (values inside the range's edges only, where the edges and one
+channel group's histogram outgrow shared memory), the copies folded in
+order into the block's partial,
 the partials summed by 8 warps and folded in warp order, and the block scan
 of the bin totals (per-thread segments, shuffle scans).  K1: lanes marching
 down strips of 16 rows over 4 or 1 columns, carrying the rows above, at
@@ -106,50 +109,57 @@ def _k2_emulate(v, e, w, sms=H100_SMS):
     and the counts of valid cells and of flushes of a lane's sums."""
     B, C, G = w.shape
     N = e.shape[1] - 1
-    nblk, wchunk, ncopy = kh.plan(B, G, N, C, sms)
+    nrange = kh.bin_range(N, C)
+    nblk, wchunk, ncopy = kh.plan(B, G, nrange, C, sms)
     assert wchunk % kh.STEP == 0 and nblk * kh.WARPS * wchunk >= G
     partial = np.zeros((B, nblk, C, N))
-    stats = dict(cells=0, flushes=0)
+    stats = dict(cells=0, flushes=0, ranges=-(-N // nrange))
     for b in range(B):
-        eb = e[b]
-        inv = _inv_spacing(eb)
-        for c0 in range(0, C, kh.GROUP):
-            cg = min(kh.GROUP, C - c0)
-            for blk in range(nblk):
-                h = np.zeros((ncopy, cg, N))
-                for warp in range(kh.WARPS):
-                    start = (blk * kh.WARPS + warp) * wchunk
-                    end = min(G, start + wchunk)
-                    for lane in range(32):
-                        hl = h[lane % ncopy]
-                        k, lo, hi = -1, np.inf, -np.inf
-                        s = np.zeros(cg)
-                        for base in range(start, end, kh.STEP):
-                            for u in range(UNROLL):
-                                g = base + u * 32 + lane
-                                if g >= end:
-                                    continue
-                                x = v[b, g]
-                                if not (eb[0] <= x <= eb[N]):
-                                    continue
-                                stats["cells"] += 1
-                                if not (lo <= x < hi):
-                                    if k >= 0:
-                                        hl[:, k] += s
-                                        stats["flushes"] += 1
-                                    k = _find_bin_guess(eb, x, inv)
-                                    lo = eb[k]
-                                    hi = np.inf if k == N - 1 else eb[k + 1]
-                                    s = np.zeros(cg)
-                                wt = w[b, c0:c0 + cg, g]
-                                s = s + np.where(np.isnan(wt), 0.0, wt)
-                        if k >= 0:
-                            hl[:, k] += s
-                            stats["flushes"] += 1
-                acc = h[0].copy()
-                for j in range(1, ncopy):
-                    acc = acc + h[j]
-                partial[b, blk, c0:c0 + cg] = acc
+        for k0 in range(0, N, nrange):
+            # the launch's edges e[k0 .. k0 + nb]; below the last range the
+            # top edge is exclusive
+            nb = min(nrange, N - k0)
+            eb = e[b, k0:k0 + nb + 1]
+            last = k0 + nb == N
+            inv = _inv_spacing(eb)
+            for c0 in range(0, C, kh.GROUP):
+                cg = min(kh.GROUP, C - c0)
+                for blk in range(nblk):
+                    h = np.zeros((ncopy, cg, nb))
+                    for warp in range(kh.WARPS):
+                        start = (blk * kh.WARPS + warp) * wchunk
+                        end = min(G, start + wchunk)
+                        for lane in range(32):
+                            hl = h[lane % ncopy]
+                            k, lo, hi = -1, np.inf, -np.inf
+                            s = np.zeros(cg)
+                            for base in range(start, end, kh.STEP):
+                                for u in range(UNROLL):
+                                    g = base + u * 32 + lane
+                                    if g >= end:
+                                        continue
+                                    x = v[b, g]
+                                    if not (eb[0] <= x and (x < eb[nb] or
+                                                            (last and x == eb[nb]))):
+                                        continue
+                                    stats["cells"] += 1
+                                    if not (lo <= x < hi):
+                                        if k >= 0:
+                                            hl[:, k] += s
+                                            stats["flushes"] += 1
+                                        k = _find_bin_guess(eb, x, inv)
+                                        lo = eb[k]
+                                        hi = np.inf if k == nb - 1 else eb[k + 1]
+                                        s = np.zeros(cg)
+                                    wt = w[b, c0:c0 + cg, g]
+                                    s = s + np.where(np.isnan(wt), 0.0, wt)
+                            if k >= 0:
+                                hl[:, k] += s
+                                stats["flushes"] += 1
+                    acc = h[0].copy()
+                    for j in range(1, ncopy):
+                        acc = acc + h[j]
+                    partial[b, blk, c0:c0 + cg, k0:k0 + nb] = acc
     out = np.empty((B, C, N))
     for b in range(B):
         for c in range(C):
@@ -341,6 +351,71 @@ def test_k2_plan_copies_shrink_to_fit():
     assert kh.plan(1, G, 721, 1, 132)[2] == 8     # the table build
     assert kh.plan(1, G, 33, 1, 132)[2] == 32
     assert kh.plan(1, G, 4000, 8, 132)[2] == 1
+
+
+def _ranges_of(n, cg):
+    """A shared-memory limit that leaves one launch n bins of cg channels."""
+    return 4 * (1 + (cg + 1) * n)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_k2_bin_ranges_match_plain(kind, monkeypatch):
+    """Each input family with the histogram cut into ranges of 6 bins:
+    values on a range's first edge land in it, values on its last edge in
+    the next one, the top edge in the last; weights below a range reach
+    its bins through the scan."""
+    monkeypatch.setattr(kh, "SMEM_LIMIT", _ranges_of(6, 2))
+    v, e, w = _case(kind)
+    assert kh.bin_range(e.shape[1] - 1, 2) == 6
+    got, stats = _k2_emulate(v, e, w)
+    assert stats["ranges"] > 1
+    _agree(got, _plain(v, e, w))
+
+
+@pytest.mark.parametrize("C", [1, 3, 9])
+def test_k2_bin_ranges_with_channel_groups(C, monkeypatch):
+    """Ranges of 5 bins times one or two channel groups."""
+    monkeypatch.setattr(kh, "SMEM_LIMIT", _ranges_of(5, min(C, kh.GROUP)))
+    v, e, w = _case("nan", seed=C, C=C)
+    got, stats = _k2_emulate(v, e, w)
+    assert stats["ranges"] == -(-17 // 5)
+    _agree(got, _plain(v, e, w))
+
+
+def test_k2_bin_ranges_at_the_shared_memory_limit():
+    """N = 20,000 bins of 2 channels: (N + 1 + 2N) floats pass 227 KB, so
+    the launches take two ranges of at most 19,370 bins."""
+    rng = np.random.default_rng(13)
+    N, G = 20000, 3000
+    e = np.sort(rng.standard_normal((1, N + 1)), -1)
+    v = rng.standard_normal((1, G)) * 1.1
+    v[0, :30] = e[0, rng.integers(0, N + 1, 30)]     # on edges
+    v[0, 30:40] = e[0, 19370]                        # the second range's first
+    v[0, 40] = np.nan
+    w = rng.uniform(0.5, 1.5, (1, 2, G))
+    got, stats = _k2_emulate(v, e, w)
+    assert stats["ranges"] == 2
+    _agree(got, _plain(v, e, w))
+
+
+@pytest.mark.parametrize("N,C,want", [(4000, 16, 4000), (4000, 8, 4000),
+                                      (20000, 2, 19370), (19370, 2, 19370),
+                                      (19371, 2, 19370), (29055, 1, 29055),
+                                      (29056, 1, 29055), (6000, 9, 6000),
+                                      (6500, 9, 6456), (241, 2, 241)])
+def test_k2_bin_range_counts_one_channel_group(N, C, want):
+    """One launch holds N + 1 edges and one group of at most 8 channels:
+    16 channels at 4,000 bins need no ranges (two launches of 8); a range
+    is the most bins that fit, and one more would not."""
+    R = kh.bin_range(N, C)
+    assert R == want
+    cg = min(C, kh.GROUP)
+    floats = kh.SMEM_LIMIT // 4
+    assert R + 1 + cg * R <= floats
+    if R < N:
+        assert R + 2 + cg * (R + 1) > floats
+    # the copies follow the range: one copy of the largest histograms
+    assert kh.plan(1, 10 ** 6, R, C, 132)[2] >= 1
 
 
 STRIP = 16

@@ -13,8 +13,9 @@
 // Bound on the H100: the bytes read, B*G*(1+C)*4.
 //
 // Design, three launches:
-//  1. grid (nblk, B), 8 warps a block; nblk is sized by the wrapper from
-//     the SM count (about 4 blocks an SM).  Each warp owns a contiguous
+//  1. grid nblk * B (x only, so any batch launches), 8 warps a block; nblk
+//     is sized by the wrapper from the SM count (about 4 blocks an SM).
+//     Each warp owns a contiguous
 //     run of cells; lane l takes cells l, l+32, ... of it, 4 of them
 //     loaded (value and every channel) before any is added.  A lane keeps
 //     its current bin, that bin's two edges and one running sum per
@@ -34,8 +35,14 @@
 //     the A(Y_eq) table build, whose values are each row's coordinate) the
 //     lanes of a warp fall in one bin.  The copies are folded in order
 //     into the block's partial (B, nblk, C, N).  Up to 8 channels ride in
-//     registers; more take one launch per group of 8.
-//  2. grid (B*C, ceil(N/32)): lane = bin; the 8 warps sum the blocks'
+//     registers; more take one launch per group of 8.  Where the edges and
+//     one group's histogram do not fit in shared memory, each launch takes
+//     a range of bins [k0, k0 + nb) and only the values inside its edges
+//     (e[k0] <= v < e[k0 + nb], the top edge inclusive in the last range);
+//     a value's bin is the same whichever range holds it, so the ranges
+//     fill disjoint bins of the partial, and the scan below carries every
+//     weight to the bins above it.
+//  2. grid B*C*ceil(N/32): lane = bin; the 8 warps sum the blocks'
 //     partials (warp w takes blocks w, w+8, ...), folded in warp order.
 //  3. grid B*C: one block scans each row of N totals in place: per-thread
 //     segments, warp shuffles, then the warps' totals.
@@ -84,25 +91,27 @@ template <int CG>
 __global__ void __launch_bounds__(kThreads)
 cdf_partial_kernel(const float* __restrict__ v, const float* __restrict__ edges,
                    const float* __restrict__ w, float* __restrict__ partial,
-                   int G, int N, int C, int c0, int nblk, int wchunk,
-                   int ncopy) {
+                   int G, int N, int C, int c0, int k0, int nb, int nblk,
+                   int wchunk, int ncopy) {
   extern __shared__ float smem[];
-  float* e = smem;             // N + 1 edges
-  float* h = smem + N + 1;     // ncopy copies of a (CG, N) histogram
-  const int b = blockIdx.y;
-  const int blk = blockIdx.x;
+  float* e = smem;              // the range's nb + 1 edges e[k0 .. k0 + nb]
+  float* h = smem + nb + 1;     // ncopy copies of a (CG, nb) histogram
+  const int b = blockIdx.x / nblk;
+  const int blk = blockIdx.x - b * nblk;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  for (int i = threadIdx.x; i <= N; i += kThreads)
-    e[i] = edges[(size_t)b * (N + 1) + i];
-  for (int i = threadIdx.x; i < ncopy * CG * N; i += kThreads) h[i] = 0.0f;
+  for (int i = threadIdx.x; i <= nb; i += kThreads)
+    e[i] = edges[(size_t)b * (N + 1) + k0 + i];
+  for (int i = threadIdx.x; i < ncopy * CG * nb; i += kThreads) h[i] = 0.0f;
   __syncthreads();
 
-  float* hl = h + (lane % ncopy) * CG * N;
+  float* hl = h + (lane % ncopy) * CG * nb;
+  // the range's edges; below the last range its top edge is exclusive
   const float e0 = e[0];
-  const float etop = e[N];
-  const float inv = etop > e0 ? (float)N / (etop - e0) : 0.0f;
+  const float etop = e[nb];
+  const bool last = k0 + nb == N;
+  const float inv = etop > e0 ? (float)nb / (etop - e0) : 0.0f;
   const float* vb = v + (size_t)b * G;
   const float* wb = w + ((size_t)b * C + c0) * G;
   const int start = (blk * kWarps + warp) * wchunk;
@@ -128,15 +137,16 @@ cdf_partial_kernel(const float* __restrict__ v, const float* __restrict__ edges,
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (!(x[u] >= e0 && x[u] <= etop)) continue;   // out of range, or NaN
+      // out of range, or NaN
+      if (!(x[u] >= e0 && (x[u] < etop || (last && x[u] == etop)))) continue;
       if (!(x[u] >= lo && x[u] < hi)) {
         if (k >= 0) {
 #pragma unroll
-          for (int c = 0; c < CG; ++c) atomicAdd(&hl[c * N + k], s[c]);
+          for (int c = 0; c < CG; ++c) atomicAdd(&hl[c * nb + k], s[c]);
         }
-        k = find_bin_guess(e, N, x[u], inv);
+        k = find_bin_guess(e, nb, x[u], inv);
         lo = e[k];
-        hi = k == N - 1 ? INFINITY : e[k + 1];
+        hi = k == nb - 1 ? INFINITY : e[k + 1];
 #pragma unroll
         for (int c = 0; c < CG; ++c) s[c] = 0.0f;
       }
@@ -147,15 +157,16 @@ cdf_partial_kernel(const float* __restrict__ v, const float* __restrict__ edges,
   }
   if (k >= 0) {
 #pragma unroll
-    for (int c = 0; c < CG; ++c) atomicAdd(&hl[c * N + k], s[c]);
+    for (int c = 0; c < CG; ++c) atomicAdd(&hl[c * nb + k], s[c]);
   }
   __syncthreads();
 
-  float* pb = partial + (((size_t)b * nblk + blk) * C + c0) * N;
-  for (int i = threadIdx.x; i < CG * N; i += kThreads) {
+  float* pb = partial + (((size_t)b * nblk + blk) * C + c0) * N + k0;
+  for (int i = threadIdx.x; i < CG * nb; i += kThreads) {
     float acc = h[i];
-    for (int j = 1; j < ncopy; ++j) acc += h[j * CG * N + i];
-    pb[i] = acc;
+    for (int j = 1; j < ncopy; ++j) acc += h[j * CG * nb + i];
+    const int c = i / nb;
+    pb[(size_t)c * N + (i - c * nb)] = acc;
   }
 }
 
@@ -198,14 +209,14 @@ __device__ void block_scan(float* x, int N) {
 
 __global__ void __launch_bounds__(kThreads)
 cdf_fold_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                int N, int C, int nblk) {
+                int N, int C, int nblk, int nkb) {
   __shared__ float sw[kWarps][32];
-  const int bc = blockIdx.x;
+  const int bc = blockIdx.x / nkb;
   const int b = bc / C;
   const int c = bc % C;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int k = blockIdx.y * 32 + lane;
+  const int k = (blockIdx.x - bc * nkb) * 32 + lane;
   float acc = 0.0f;
   if (k < N)
     for (int i = warp; i < nblk; i += kWarps)
@@ -228,49 +239,57 @@ cdf_scan_kernel(float* __restrict__ out, int N) {
 template <int CG>
 cudaError_t launch_partial(const float* v, const float* edges, const float* w,
                            float* partial, int B, int G, int N, int C, int c0,
-                           int nblk, int wchunk, int ncopy, cudaStream_t st) {
-  const size_t smem = (size_t)(N + 1 + ncopy * CG * N) * sizeof(float);
+                           int k0, int nb, int nblk, int wchunk, int ncopy,
+                           cudaStream_t st) {
+  const size_t smem = (size_t)(nb + 1 + ncopy * CG * nb) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         cdf_partial_kernel<CG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  cdf_partial_kernel<CG><<<dim3(nblk, B), kThreads, smem, st>>>(
-      v, edges, w, partial, G, N, C, c0, nblk, wchunk, ncopy);
+  cdf_partial_kernel<CG><<<(unsigned)nblk * B, kThreads, smem, st>>>(
+      v, edges, w, partial, G, N, C, c0, k0, nb, nblk, wchunk, ncopy);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// nrange: bins a first-pass launch takes (N where one group's histogram
+// fits in shared memory, else ranges of nrange bins)
 extern "C" int xc_weighted_cdf(const void* values, const void* edges,
                                const void* weights, void* partial, void* out,
-                               int B, int G, int N, int C, int nblk,
-                               int wchunk, int ncopy, void* stream) {
+                               int B, int G, int N, int C, int nrange,
+                               int nblk, int wchunk, int ncopy, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float* v = (const float*)values;
   const float* e = (const float*)edges;
   const float* w = (const float*)weights;
   float* p = (float*)partial;
-  for (int c0 = 0; c0 < C; c0 += kGroup) {
-    const int cg = C - c0 < kGroup ? C - c0 : kGroup;
-    cudaError_t err;
-    switch (cg) {
-#define XC_CASE(n)                                                          \
-      case n:                                                               \
-        err = launch_partial<n>(v, e, w, p, B, G, N, C, c0, nblk, wchunk,   \
-                                ncopy, st);                                 \
-        break;
-      XC_CASE(1) XC_CASE(2) XC_CASE(3) XC_CASE(4)
-      XC_CASE(5) XC_CASE(6) XC_CASE(7) XC_CASE(8)
+  if (nrange < 1) return (int)cudaErrorInvalidValue;
+  for (int k0 = 0; k0 < N; k0 += nrange) {
+    const int nb = N - k0 < nrange ? N - k0 : nrange;
+    for (int c0 = 0; c0 < C; c0 += kGroup) {
+      const int cg = C - c0 < kGroup ? C - c0 : kGroup;
+      cudaError_t err;
+      switch (cg) {
+#define XC_CASE(n)                                                           \
+        case n:                                                              \
+          err = launch_partial<n>(v, e, w, p, B, G, N, C, c0, k0, nb, nblk,  \
+                                  wchunk, ncopy, st);                        \
+          break;
+        XC_CASE(1) XC_CASE(2) XC_CASE(3) XC_CASE(4)
+        XC_CASE(5) XC_CASE(6) XC_CASE(7) XC_CASE(8)
 #undef XC_CASE
-      default:
-        return (int)cudaErrorInvalidValue;
+        default:
+          return (int)cudaErrorInvalidValue;
+      }
+      if (err != cudaSuccess) return (int)err;
     }
-    if (err != cudaSuccess) return (int)err;
   }
-  cdf_fold_kernel<<<dim3(B * C, (N + 31) / 32), kThreads, 0, st>>>(
-      p, (float*)out, N, C, nblk);
+  const int nkb = (N + 31) / 32;
+  cdf_fold_kernel<<<(unsigned)(B * C) * nkb, kThreads, 0, st>>>(
+      p, (float*)out, N, C, nblk, nkb);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   cdf_scan_kernel<<<B * C, kThreads, 0, st>>>((float*)out, N);

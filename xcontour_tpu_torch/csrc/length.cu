@@ -30,27 +30,59 @@
 // carry full relative precision; cos(lat) at each end is cosf(y0 + offset).
 // No cell size bounds the kernel (the TPU's Maclaurin series did).
 //
-// Bound on the H100: FP32 issue, per (cell, level) pair that the level can
-// cross.  K7 therefore keeps the TPU's pretest: the wrapper sorts each batch
-// element's levels, and each (RB x CB)-cell tile takes the min and max of
-// its valid corners and finds, by binary search, the contiguous range
-// [n0, n1) of sorted levels within [min, max).  A zonally banded field
-// crosses few levels per tile.
+// Bound on the H100: FP32 issue.  A (cell, level) pair costs a few compares
+// to classify, and a crossed pair one or two segments (two edge fractions,
+// each an IEEE division, and a haversine or a hypot per segment).  The
+// level crosses the valid cell exactly when min <= level < max of its
+// corners, so both kernels find the crossed pairs from corner ranges and
+// measure only those, 32 to a warp: a crossed pair met by one lane of a
+// warp that classifies cells would keep the other 31 waiting through its
+// segment arithmetic.
 //
-// K7 design: a block per tile, 16 cell rows x 128 cell columns, 256 threads.
-// A thread owns one column and 8 consecutive cells of it, and keeps their
-// 9 x 2 corner values and row coordinates in registers across the level
-// loop.  Per level, a warp shuffle sums the 32 threads' partial lengths and
-// lane 0 stores it in shared memory; after each chunk of up to 512 levels
-// the block sums its 8 warps in order and writes the tile's partial totals.
-// A second kernel, a warp per (b, n), sums the active tiles in a fixed
-// order.  No float atomics: two runs agree bitwise.  Offsets are 64-bit.
+// Totals are 64-bit fixed point: each length rounded up (a positive length
+// never vanishes, a zero one stays zero) at a scale 2^scale, added by
+// integer atomics, whose order does not change the bits, so two runs agree
+// bit for bit.  A first one-block kernel sets the scale from the
+// coordinates: a segment is at most the largest row spacing plus the
+// largest column spacing, ext < 2^e, and scale = 62 - ceil(log2(2 cells))
+// - e keeps a total of `cells` cells of two segments under 2^62 (a quantum
+// of 2^-41 ext at ERA5's 720 x 1439 cells).  A non-finite length sets the
+// top bit, and that total becomes NaN.  A last kernel turns the totals into
+// floats (K7: back into the caller's level order).
 //
-// K8 design: a block per window reads the window straight from the (Ny, Nx)
-// field at its anchor (oy, ox) = (wy, wx) * stride (no patch stack), each
-// thread walks cells with a stride of 256, and the block sums in a fixed
-// order.  Neighbouring windows overlap, so the field is read from L2.
-
+// K7 design: a block per tile of 16 cell rows x 128 cell columns (grid x
+// = batch x tiles), 256 threads, each owning 8 cells of one column.  The
+// block stages the tile's 17 x 129 corners and its coordinates in shared
+// memory, reduces its valid corners' [min, max), and warp 0 finds the
+// range [n0, n1) of sorted levels that can cross it by a 32-way search.
+// Per chunk of up to 1024 of those levels (staged), each cell counts the
+// chunk's levels below its min and below its max, from the index evenly
+// spaced levels would give, checked against the levels (binary search
+// where that misses); a block scan of the cells' crossed counts gives each
+// (cell, level) pair a slot in a shared-memory queue, and every thread
+// measures queued pairs, t, t + 256, ...  Lane l adds into copy l % ncopy
+// of the chunk's totals (the lanes measuring one contour's pairs hit
+// different words), the copies are folded, and one atomic a level adds
+// the tile's total.  At most 64 registers a thread (4 blocks an SM): the
+// kernel is latency-bound, and the cap measured 0.27 ms against 0.44 at
+// 96 registers (ERA5, N = 121).
+//
+// K8 design: the windows overlap (window 101, stride 10: a cell lies in up
+// to 100 windows), so each cell is read once, not once a window.  A warp
+// per block of stride x stride cells on the windows' lattice (8 a block;
+// a large block is cut into slabs of 8 steps of 32 cells, a warp each, so
+// that a few large blocks still fill the card) takes its cells 2 steps of
+// 32 at a time (lane map of min(stride, 32) columns, no division a cell),
+// keeps each cell's corner [lo, hi) in registers and reduces the steps'
+// [min, max): the pretest, shared by the up to 100 windows that cover the
+// block.  It tests those windows' levels
+// against the range, 32 at a time, and for each that passes classifies its
+// cells against the level, clipped to the window (a block a window covers
+// in part is tested whole: a superset), appending the crossed ones (ballot,
+// population count) to a queue of 64 in shared memory; whenever 32 are
+// queued, every lane measures one (corners and coordinates reloaded
+// through L1) and adds it to its window's total.  At most 64 registers a
+// thread.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -58,10 +90,31 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRB = 16;                            // cell rows of a K7 tile
-constexpr int kCB = 128;                           // cell columns of a K7 tile
+constexpr unsigned kFull = 0xffffffffu;
+
+// K7
+constexpr int kRB = 16;                            // cell rows of a tile
+constexpr int kCB = 128;                           // cell columns of a tile
 constexpr int kRows = kRB / (kThreads / kCB);      // cells per thread: 8
-constexpr int kLevelChunk = 512;
+constexpr int kLevelChunk = 1024;                  // sorted levels a pass holds
+constexpr int kLevelBits = 10;                     // log2(kLevelChunk)
+constexpr int kQueue = 2048;                       // pairs a round measures
+constexpr int kAccWords = 2048;                    // copies x levels of totals
+constexpr int kMinBlocks = 4;                      // 64 registers a thread
+constexpr unsigned long long kNonFinite = 1ull << 63;
+
+// K8
+constexpr int kCellSteps = 2;                      // a lane's cells held at once
+constexpr int kSlabSteps = 8;                      // a warp's steps of a block
+constexpr int kWQ = 64;                            // a warp's queue
+
+// The segments of each marching-squares case (code: bit k set where corner
+// k of 00, 01, 10, 11 lies above the level), 4 bits a code: the edges of
+// the first segment's two ends, p | q << 2, with edges 0 top (00-01),
+// 1 bottom (10-11), 2 left (00-10), 3 right (01-11).  The saddles ('low':
+// high corners cut off one by one) 6 (01 and 10 high) and 9 (00 and 11
+// high) add a segment from the bottom edge to the left (6) or right (9).
+constexpr unsigned long long kSegTable = 0x08ce948ddc49ec80ull;
 
 struct Pt {
   float y, x;  // offsets from the cell's (y0, x0) corner
@@ -70,6 +123,18 @@ struct Pt {
 __device__ __forceinline__ float frac(float lev, float va, float vb) {
   const float d = vb - va;
   return d == 0.f ? 0.f : (lev - va) / d;
+}
+
+// the level's point on an edge: top (0, f dx), bottom (dy, f dx), left
+// (f dy, 0), right (f dy, dx); one division whichever edge
+__device__ __forceinline__ Pt edge_point(int edge, float lev, float v00,
+                                         float v01, float v10, float v11,
+                                         float dy, float dx) {
+  const float va = edge == 1 ? v10 : (edge == 3 ? v01 : v00);
+  const float vb = edge == 0 ? v01 : (edge == 2 ? v10 : v11);
+  const float f = frac(lev, va, vb);
+  if (edge < 2) return Pt{edge == 1 ? dy : 0.f, f * dx};
+  return Pt{f * dy, edge == 3 ? dx : 0.f};
 }
 
 template <bool kLatlon>
@@ -84,57 +149,41 @@ __device__ __forceinline__ float seg_len(Pt p, Pt q, float y0) {
   return 2.f * asinf(sqrtf(a));
 }
 
-// Length of the level's segments in one valid cell that the level crosses
-// (code: bit k set where corner k of 00, 01, 10, 11 lies above the level;
-// not 0, not 15): corners v00 (y0, x0), v01 (y0, x1), v10 (y1, x0), v11
-// (y1, x1); extents dy = y1 - y0 and dx = x1 - x0.  Endpoints are selected
-// first and each segment measured once, as in the twin.  Kept out of line:
-// inlined into the unrolled cell loop with a per-case segment, K7 measured
-// 37x slower at ERA5 on an H100.
+// Length of the level's segments in a valid cell it crosses (code not 0,
+// not 15): corners v00 (y0, x0), v01 (y0, x1), v10 (y1, x0), v11 (y1, x1);
+// extents dy = y1 - y0 and dx = x1 - x0.
 template <bool kLatlon>
-__device__ __noinline__ float crossing_length(float lev, float v00, float v01,
-                                              float v10, float v11, float y0,
-                                              float dy, float dx, int code) {
-  const Pt top{0.f, frac(lev, v00, v01) * dx};
-  const Pt bot{dy, frac(lev, v10, v11) * dx};
-  const Pt lef{frac(lev, v00, v10) * dy, 0.f};
-  const Pt rig{frac(lev, v01, v11) * dy, dx};
-  // isolated corner 00: 1, 14; 01: 2, 13; 10: 4, 11; 11: 8, 7; horizontal
-  // 3, 12; vertical 5, 10; saddles ('low': high corners cut off one by
-  // one) 9 (00 and 11 high) and 6 (01 and 10 high)
-  const bool horiz = code == 3 || code == 12;
-  const bool verti = code == 5 || code == 10;
-  const bool iso10 = code == 4 || code == 11;
-  const bool iso11 = code == 8 || code == 7;
-  const bool to_lef = code == 1 || code == 14 || iso10 || code == 9;
-  const Pt p1 = horiz ? lef : (iso10 || iso11 ? bot : top);
-  const Pt q1 = to_lef ? lef : (verti ? bot : rig);
-  float len = seg_len<kLatlon>(p1, q1, y0);
-  if (code == 9 || code == 6)
-    len += seg_len<kLatlon>(bot, code == 9 ? rig : lef, y0);
+__device__ __forceinline__ float crossing_length(float lev, float v00,
+                                                 float v01, float v10,
+                                                 float v11, float y0,
+                                                 float dy, float dx,
+                                                 int code) {
+  const int seg = (int)(kSegTable >> (4 * code)) & 15;
+  const Pt p = edge_point(seg & 3, lev, v00, v01, v10, v11, dy, dx);
+  const Pt q = edge_point(seg >> 2, lev, v00, v01, v10, v11, dy, dx);
+  float len = seg_len<kLatlon>(p, q, y0);
+  if (code == 6 || code == 9) {
+    const Pt p2 = edge_point(1, lev, v00, v01, v10, v11, dy, dx);
+    const Pt q2 = edge_point(code == 9 ? 3 : 2, lev, v00, v01, v10, v11, dy,
+                             dx);
+    len += seg_len<kLatlon>(p2, q2, y0);
+  }
   return len;
 }
 
-// 0 when the level does not cross the (valid) cell, else its length.
-template <bool kLatlon>
-__device__ __forceinline__ float cell_length(float lev, float v00, float v01,
-                                             float v10, float v11, float y0,
-                                             float dy, float dx) {
-  const int code = (v00 > lev) | ((v01 > lev) << 1) | ((v10 > lev) << 2) |
-                   ((v11 > lev) << 3);
-  if (code == 0 || code == 15) return 0.f;
-  return crossing_length<kLatlon>(lev, v00, v01, v10, v11, y0, dy, dx, code);
+__device__ __forceinline__ int cell_code(float lev, float v00, float v01,
+                                         float v10, float v11) {
+  return (v00 > lev) | ((v01 > lev) << 1) | ((v10 > lev) << 2) |
+         ((v11 > lev) << 3);
 }
 
-__device__ __forceinline__ float warp_sum(float s) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-  return s;
+__device__ __forceinline__ bool any_nan(float a, float b, float c, float d) {
+  return isnan(a) || isnan(b) || isnan(c) || isnan(d);
 }
 
 // Number of sorted levels (NaN last) below x: NaN is never below x, so
 // the predicate is monotone along the sorted row.
-__device__ int count_below(const float* lev, int N, float x) {
+__device__ __forceinline__ int count_below(const float* lev, int N, float x) {
   int lo = 0, hi = N;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -143,222 +192,563 @@ __device__ int count_below(const float* lev, int N, float x) {
   return lo;
 }
 
-template <bool kLatlon>
-__global__ void __launch_bounds__(kThreads)
-lengths_tile_kernel(const float* __restrict__ data,
-                    const float* __restrict__ levs, int* __restrict__ n0s,
-                    int* __restrict__ n1s, const float* __restrict__ ycoord,
-                    const float* __restrict__ xcoord, long long ystride,
-                    long long xstride, float* __restrict__ partial, int Ny,
-                    int Nx, int N, int tiles, int n_cb) {
-  __shared__ float wsum[kWarps][kLevelChunk];
-  __shared__ float wlo[kWarps], whi[kWarps];
-  __shared__ int range[2];
-  const int b = blockIdx.y;
-  const long long tile = (long long)b * tiles + blockIdx.x;
-  const int rb = blockIdx.x / n_cb;
-  const int cb = blockIdx.x % n_cb;
-  const int tx = threadIdx.x % kCB;
-  const int c = cb * kCB + tx;
-  const int r0 = rb * kRB + (threadIdx.x / kCB) * kRows;
-  const float* db = data + (long long)b * Ny * Nx;
-  const float* yb = ycoord + b * ystride;
-  const float* xb = xcoord + b * xstride;
-  const float* lb = levs + (long long)b * N;
-  const bool col_ok = c < Nx - 1;
-  const float dx = col_ok ? xb[c + 1] - xb[c] : 0.f;
+// The same count by the 32 lanes of a warp: a 32-way search (each step
+// tests 32 pivots and keeps the stretch between the last below x and the
+// first not below), then one load a lane over the last 32 levels.
+__device__ __forceinline__ int warp_count_below(const float* lev, int N,
+                                                float x) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  int lo = 0, hi = N;  // the count lies in [lo, hi]
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) >> 5;
+    const int p = lo + lane * step;
+    const int k = __popc(__ballot_sync(kFull, p < hi && lev[p] < x));
+    const int nlo = k > 0 ? lo + (k - 1) * step + 1 : lo;
+    hi = min(hi, lo + k * step);
+    lo = nlo;
+  }
+  return lo + __popc(__ballot_sync(kFull, lo + lane < hi && lev[lo + lane] < x));
+}
 
-  float vl[kRows + 1], vr[kRows + 1], yy[kRows + 1];
+// count_below over levels l0 + i / inv, guessed and checked against the
+// levels themselves (so the count is always the comparisons' one), the
+// guess and its neighbours, else the binary search
+__device__ __forceinline__ int count_below_guess(const float* lev, int N,
+                                                 float x, float l0,
+                                                 float inv) {
+  const int g = (int)fminf(fmaxf(ceilf((x - l0) * inv), 0.f), (float)N);
 #pragma unroll
-  for (int i = 0; i <= kRows; ++i) {
-    const int r = r0 + i;
-    const bool ok = col_ok && r < Ny;
-    vl[i] = ok ? db[(long long)r * Nx + c] : NAN;
-    vr[i] = ok ? db[(long long)r * Nx + c + 1] : NAN;
-    yy[i] = r < Ny ? yb[r] : 0.f;
+  for (int d = 0; d < 3; ++d) {
+    const int c = d == 0 ? g : (d == 1 ? g - 1 : g + 1);
+    if (c >= 0 && c <= N && (c == 0 || lev[c - 1] < x) &&
+        (c == N || !(lev[c] < x)))
+      return c;
   }
-  // the pretest: the valid cells' corner [min, max) gives the range
-  // [n0, n1) of sorted levels that can cross the tile; a tile of NaN cells
-  // has min +inf and max -inf, so its range is empty
-  unsigned valid = 0;
-  float lo = INFINITY, hi = -INFINITY;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const bool ok = !(isnan(vl[i]) || isnan(vr[i]) || isnan(vl[i + 1]) ||
-                      isnan(vr[i + 1]));
-    valid |= (unsigned)ok << i;
-    if (ok) {
-      lo = fminf(lo, fminf(fminf(vl[i], vr[i]), fminf(vl[i + 1], vr[i + 1])));
-      hi = fmaxf(hi, fmaxf(fmaxf(vl[i], vr[i]), fmaxf(vl[i + 1], vr[i + 1])));
+  return count_below(lev, N, x);
+}
+
+// The fixed-point scale of K7 and K8: a total is at most `count` cells x
+// 2 segments x (the largest row spacing plus the largest column spacing
+// of the coordinates, ext < 2^e); *scale = bits - e with bits = 62 -
+// ceil(log2(2 count)) keeps it under 2^62.  y holds ny rows of Ny, x nx
+// rows of Nx.  One block.
+__global__ void __launch_bounds__(kThreads)
+spacing_scale_kernel(const float* __restrict__ ycoord, int ny, int Ny,
+                     const float* __restrict__ xcoord, int nx, int Nx,
+                     int bits, int* __restrict__ scale) {
+  __shared__ float red[2][kWarps];
+  float dy = 0.f, dx = 0.f;
+  for (int r = 0; r < ny; ++r)
+    for (int i = threadIdx.x; i < Ny - 1; i += kThreads) {
+      const float* p = ycoord + (long long)r * Ny + i;
+      const float d = fabsf(p[1] - p[0]);
+      if (isfinite(d)) dy = fmaxf(dy, d);
     }
-  }
+  for (int r = 0; r < nx; ++r)
+    for (int i = threadIdx.x; i < Nx - 1; i += kThreads) {
+      const float* p = xcoord + (long long)r * Nx + i;
+      const float d = fabsf(p[1] - p[0]);
+      if (isfinite(d)) dx = fmaxf(dx, d);
+    }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    dy = fmaxf(dy, __shfl_xor_sync(kFull, dy, o));
+    dx = fmaxf(dx, __shfl_xor_sync(kFull, dx, o));
   }
-  if (lane == 0) {
-    wlo[warp] = lo;
-    whi[warp] = hi;
+  if ((threadIdx.x & 31) == 0) {
+    red[0][threadIdx.x >> 5] = dy;
+    red[1][threadIdx.x >> 5] = dx;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     for (int w = 1; w < kWarps; ++w) {
-      lo = fminf(lo, wlo[w]);
-      hi = fmaxf(hi, whi[w]);
+      dy = fmaxf(dy, red[0][w]);
+      dx = fmaxf(dx, red[1][w]);
     }
-    const int a0 = count_below(lb, N, lo);
-    const int a1 = max(a0, count_below(lb, N, hi));
-    range[0] = a0;
-    range[1] = a1;
-    n0s[tile] = a0;
-    n1s[tile] = a1;
+    int e;
+    frexpf(dy + dx, &e);
+    *scale = bits - e;
+  }
+}
+
+// bits of the scale for totals over `count` cells (see above)
+int scale_bits(long long count) {
+  int lg = 0;
+  while ((1ll << lg) < 2 * count) ++lg;
+  return 62 - lg;
+}
+
+// exclusive block scan of one int a thread; *total gets the block's sum
+__device__ __forceinline__ int block_exclusive_scan(int v, int* wtot,
+                                                    int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += o;
+  }
+  if (lane == 31) wtot[warp] = incl;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    before += w < warp ? wtot[w] : 0;
+    all += wtot[w];
+  }
+  *total = all;
+  __syncthreads();  // wtot is reused by the next scan
+  return before + incl - v;
+}
+
+// K7: a block per tile of kRB x kCB cells of one batch element, thread t
+// owning column t % kCB, rows (t / kCB) x kRows + i.  Totals go to the
+// tile's level range of the batch element's 64-bit totals (integer
+// atomics, so their order does not matter).
+template <bool kLatlon>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+lengths_kernel(const float* __restrict__ data, const float* __restrict__ levs,
+               const float* __restrict__ ycoord,
+               const float* __restrict__ xcoord, long long ystride,
+               long long xstride, const int* __restrict__ scale_ptr,
+               unsigned long long* __restrict__ gacc, int Ny, int Nx, int N,
+               int tiles, int n_cb) {
+  __shared__ float sv[kRB + 1][kCB + 1];   // corners, NaN outside the field
+  __shared__ float sy[kRB + 1], sx[kCB + 1];
+  __shared__ float slev[kLevelChunk];
+  __shared__ unsigned long long acc[kAccWords];   // ncopy x cnt totals
+  __shared__ int queue[kQueue];            // cell << kLevelBits | level
+  __shared__ float red[2][kWarps];
+  __shared__ int wtot[kWarps];
+  __shared__ int info[2];                  // the tile's level range
+  const int b = blockIdx.x / tiles;
+  const int t = blockIdx.x - b * tiles;
+  const int rb = t / n_cb;
+  const int row0 = rb * kRB, col0 = (t - rb * n_cb) * kCB;
+  const float* db = data + (long long)b * Ny * Nx;
+  const float* yb = ycoord + b * ystride;
+  const float* xb = xcoord + b * xstride;
+  const float* lb = levs + (long long)b * N;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  for (int i = threadIdx.x; i < (kRB + 1) * (kCB + 1); i += kThreads) {
+    const int r = i / (kCB + 1), c = i - r * (kCB + 1);
+    const int gr = row0 + r, gc = col0 + c;
+    sv[r][c] = gr < Ny && gc < Nx ? db[(long long)gr * Nx + gc] : NAN;
+  }
+  if (threadIdx.x <= kRB)
+    sy[threadIdx.x] = row0 + threadIdx.x < Ny ? yb[row0 + threadIdx.x] : 0.f;
+  if (threadIdx.x <= kCB)
+    sx[threadIdx.x] = col0 + threadIdx.x < Nx ? xb[col0 + threadIdx.x] : 0.f;
+  __syncthreads();
+
+  // each cell's corner [lo, hi) (empty for a cell with a NaN corner or
+  // outside the field), and the tile's
+  const int tx = threadIdx.x % kCB;
+  const int r0 = (threadIdx.x / kCB) * kRows;
+  float lo[kRows], hi[kRows];
+  float tlo = INFINITY, thi = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = r0 + i;
+    const float v00 = sv[r][tx], v01 = sv[r][tx + 1];
+    const float v10 = sv[r + 1][tx], v11 = sv[r + 1][tx + 1];
+    const bool ok = !any_nan(v00, v01, v10, v11);
+    lo[i] = ok ? fminf(fminf(v00, v01), fminf(v10, v11)) : INFINITY;
+    hi[i] = ok ? fmaxf(fmaxf(v00, v01), fmaxf(v10, v11)) : -INFINITY;
+    tlo = fminf(tlo, lo[i]);
+    thi = fmaxf(thi, hi[i]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    tlo = fminf(tlo, __shfl_xor_sync(kFull, tlo, o));
+    thi = fmaxf(thi, __shfl_xor_sync(kFull, thi, o));
+  }
+  if (lane == 0) {
+    red[0][warp] = tlo;
+    red[1][warp] = thi;
   }
   __syncthreads();
-  const int n0 = range[0];
-  const int n1 = range[1];
+  // the tile's range [n0, n1) of sorted levels, by warp 0 (each lane the
+  // tile's values: the search is the warp's)
+  if (warp == 0) {
+    tlo = lane < kWarps ? red[0][lane] : INFINITY;
+    thi = lane < kWarps ? red[1][lane] : -INFINITY;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      tlo = fminf(tlo, __shfl_xor_sync(kFull, tlo, o));
+      thi = fmaxf(thi, __shfl_xor_sync(kFull, thi, o));
+    }
+    const int a0 = warp_count_below(lb, N, tlo);
+    const int a1 = max(a0, warp_count_below(lb, N, thi));
+    if (lane == 0) {
+      info[0] = a0;
+      info[1] = a1;
+    }
+  }
+  __syncthreads();
+  const int n0 = info[0], n1 = info[1], scale = *scale_ptr;
+  unsigned long long* ga = gacc + (long long)b * N;
 
-  float* pb = partial + tile * N;
   for (int base = n0; base < n1; base += kLevelChunk) {
     const int cnt = min(kLevelChunk, n1 - base);
-    for (int k = 0; k < cnt; ++k) {
-      const float lev = lb[base + k];
-      float s = 0.f;
-      if (valid) {
+    // lane l adds into copy l % ncopy of the chunk's totals, so the lanes
+    // of a warp that measure pairs of one level hit different words
+    const int ncopy = min(32, kAccWords / cnt);
+    for (int k = threadIdx.x; k < cnt; k += kThreads) slev[k] = lb[base + k];
+    for (int k = threadIdx.x; k < ncopy * cnt; k += kThreads) acc[k] = 0ull;
+    __syncthreads();
+    // each cell's crossed levels [a, a + m) of the chunk (all finite: the
+    // tile's range holds no NaN), the count below a value guessed as if
+    // the levels were evenly spaced, then checked
+    const float l0 = slev[0], span = slev[cnt - 1] - l0;
+    const float inv = span > 0.f ? (float)(cnt - 1) / span : 0.f;
+    int a[kRows], m[kRows], mine = 0;
 #pragma unroll
-        for (int i = 0; i < kRows; ++i)
-          if ((valid >> i) & 1u)
-            s += cell_length<kLatlon>(lev, vl[i], vr[i], vl[i + 1], vr[i + 1],
-                                      yy[i], yy[i + 1] - yy[i], dx);
+    for (int i = 0; i < kRows; ++i) {
+      a[i] = 0;
+      m[i] = 0;
+      if (lo[i] <= hi[i]) {
+        a[i] = count_below_guess(slev, cnt, lo[i], l0, inv);
+        m[i] = count_below_guess(slev, cnt, hi[i], l0, inv) - a[i];
+        mine += m[i];
       }
-      s = warp_sum(s);
-      if (lane == 0) wsum[warp][k] = s;
     }
-    __syncthreads();
-    for (int k = threadIdx.x; k < cnt; k += kThreads) {
-      float t = 0.f;
+    int pairs;
+    const int off = block_exclusive_scan(mine, wtot, &pairs);
+    for (int q0 = 0; q0 < pairs; q0 += kQueue) {
+      // queue the pairs whose slot falls in this round
+      int s = off;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) t += wsum[w][k];
-      pb[base + k] = t;
+      for (int i = 0; i < kRows; ++i) {
+        const int j0 = max(0, q0 - s), j1 = min(m[i], q0 + kQueue - s);
+        const int cell = (r0 + i) * kCB + tx;
+        for (int j = j0; j < j1; ++j)
+          queue[s + j - q0] = (cell << kLevelBits) | (a[i] + j);
+        s += m[i];
+      }
+      __syncthreads();
+      const int nq = min(kQueue, pairs - q0);
+      for (int p = threadIdx.x; p < nq; p += kThreads) {
+        const int e = queue[p];
+        const int k = e & (kLevelChunk - 1);
+        const int r = (e >> kLevelBits) / kCB;
+        const int c = (e >> kLevelBits) % kCB;
+        const float v00 = sv[r][c], v01 = sv[r][c + 1];
+        const float v10 = sv[r + 1][c], v11 = sv[r + 1][c + 1];
+        const float lev = slev[k];
+        const float len = crossing_length<kLatlon>(
+            lev, v00, v01, v10, v11, sy[r], sy[r + 1] - sy[r],
+            sx[c + 1] - sx[c], cell_code(lev, v00, v01, v10, v11));
+        const int ak = lane % ncopy * cnt + k;
+        if (isfinite(len))
+          atomicAdd(&acc[ak], __float2ull_ru(scalbnf(len, scale)));
+        else
+          atomicOr(&acc[ak], kNonFinite);
+      }
+      __syncthreads();
+    }
+    // fold the copies; one add a level into the batch element's totals
+    for (int k = threadIdx.x; k < cnt; k += kThreads) {
+      unsigned long long v = 0ull, nf = 0ull;
+      for (int j = 0; j < ncopy; ++j) {
+        v += acc[j * cnt + k] & ~kNonFinite;
+        nf |= acc[j * cnt + k];
+      }
+      if (nf & kNonFinite) atomicOr(&ga[base + k], kNonFinite);
+      if (v) atomicAdd(&ga[base + k], v);
     }
     __syncthreads();
   }
 }
 
-// out[b, n]: a warp per (b, n) sums the tiles whose range holds n, lane l
-// taking tiles l, l + 32, ..., then a fixed shuffle tree.
-__global__ void lengths_sum_kernel(const float* __restrict__ partial,
-                                   const int* __restrict__ n0s,
-                                   const int* __restrict__ n1s,
-                                   float* __restrict__ out, int B, int N,
-                                   int tiles) {
-  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (w >= (long long)B * N) return;  // the whole warp
-  const int lane = threadIdx.x & 31;
-  const long long t0 = (w / N) * tiles;
-  const int n = (int)(w % N);
-  float acc = 0.f;
-  for (int t = lane; t < tiles; t += 32) {
-    if (n >= n0s[t0 + t] && n < n1s[t0 + t])
-      acc += partial[(t0 + t) * N + n];
-  }
-  acc = warp_sum(acc);
-  if (lane == 0) out[w] = acc;
+// out[order[i]] (or out[i] without an order): the fixed-point total i as
+// a float, NaN where a length was not finite; totals of `row` entries a
+// row, order holding each row's positions
+__global__ void fixed_to_float_kernel(const unsigned long long* __restrict__ acc,
+                                      const long long* __restrict__ order,
+                                      const int* __restrict__ scale_ptr,
+                                      float* __restrict__ out, long long n,
+                                      int row) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const unsigned long long v = acc[i];
+  const long long o = order ? i - i % row + order[i] : i;
+  out[o] = v & kNonFinite ? NAN : (float)ldexp((double)v, -*scale_ptr);
 }
 
+// K8's queue of crossings: the cell (from the lattice block's corner), the
+// window and its level.
+struct WarpQueue {
+  int* r;
+  int* c;
+  int* w;
+  float* lev;
+  int n;
+};
+
+// The lanes measure queue entries [0, n), lane l entry l, corners from the
+// field at the block's corner p0, coordinates from the block's corner (ys,
+// xs), and add each length into its window's total.
 template <bool kLatlon>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void measure(const WarpQueue& q, int n,
+                                        const float* p0, int Nx,
+                                        const float* ys, const float* xs,
+                                        int scale,
+                                        unsigned long long* __restrict__ acc) {
+  const int lane = threadIdx.x & 31;
+  if (lane >= n) return;
+  const int r = q.r[lane], c = q.c[lane];
+  const float lev = q.lev[lane];
+  const float* p = p0 + (long long)r * Nx + c;
+  const float v00 = p[0], v01 = p[1], v10 = p[Nx], v11 = p[Nx + 1];
+  const float y0 = ys[r];
+  const float len = crossing_length<kLatlon>(
+      lev, v00, v01, v10, v11, y0, ys[r + 1] - y0, xs[c + 1] - xs[c],
+      cell_code(lev, v00, v01, v10, v11));
+  if (isfinite(len))
+    atomicAdd(&acc[q.w[lane]], __float2ull_ru(scalbnf(len, scale)));
+  else
+    atomicOr(&acc[q.w[lane]], kNonFinite);
+}
+
+// K8: a warp per slab of up to kSlabSteps steps of 32 cells of a lattice
+// block of s x s cells (8 warps a CUDA block; one slab a block unless the
+// stride is large).  Only the block's first min(s, cells) rows and columns
+// are read: past the window's cells (stride > window - 1) no window covers
+// a cell.  The warp takes its cells kCellSteps steps at a time (lane map
+// ccw x crps, no division per cell), keeps each cell's [lo, hi) in
+// registers and reduces the steps' [min, max); then tests the windows that
+// cover the block, 32 at a time, against that range, and for each that
+// passes classifies the cells against its level (clipped to the window),
+// queueing the crossed ones.
+template <bool kLatlon>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 local_lengths_kernel(const float* __restrict__ data,
                      const float* __restrict__ levels,
                      const float* __restrict__ ycoord,
                      const float* __restrict__ xcoord,
-                     float* __restrict__ out, int Nx, int Wx, int W,
-                     int stride) {
-  __shared__ float wsum[kWarps];
-  const long long w = (long long)blockIdx.y * Wx + blockIdx.x;
-  const float lev = levels[w];
-  if (isnan(lev)) {  // the whole block
-    if (threadIdx.x == 0) out[w] = 0.f;
-    return;
-  }
-  const long long oy = (long long)blockIdx.y * stride;
-  const long long ox = (long long)blockIdx.x * stride;
-  float s = 0.f;
-  for (int k = threadIdx.x; k < W * W; k += kThreads) {
-    const long long r = oy + k / W;
-    const long long c = ox + k % W;
-    const float* p = data + r * Nx + c;
-    const float v00 = p[0], v01 = p[1], v10 = p[Nx], v11 = p[Nx + 1];
-    if (isnan(v00) || isnan(v01) || isnan(v10) || isnan(v11)) continue;
-    const float y0 = ycoord[r];
-    s += cell_length<kLatlon>(lev, v00, v01, v10, v11, y0, ycoord[r + 1] - y0,
-                              xcoord[c + 1] - xcoord[c]);
-  }
-  s = warp_sum(s);
-  if ((threadIdx.x & 31) == 0) wsum[threadIdx.x >> 5] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = 0.f;
+                     const int* __restrict__ scale_ptr,
+                     unsigned long long* __restrict__ acc, int Ny, int Nx,
+                     int Wy, int Wx, int cells, int s, int nby, int nbx,
+                     int nbw, int ccw, int crps, int nsl) {
+  __shared__ int qr[kWarps][kWQ], qc[kWarps][kWQ], qw[kWarps][kWQ];
+  __shared__ float ql[kWarps][kWQ];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long wid = (long long)blockIdx.x * kWarps + warp;
+  if (wid >= (long long)nby * nbx * nsl) return;  // the whole warp
+  const long long blk = wid / nsl;
+  const int sl = (int)(wid - blk * nsl);
+  const int bi = (int)(blk / nbx);
+  const int bj = (int)(blk - (long long)bi * nbx);
+  const long long r0 = (long long)bi * s, c0 = (long long)bj * s;
+  const int bs = min(s, cells);
+  const int h = (int)min((long long)bs, Ny - 1 - r0);   // the block's cells
+  const int wd = (int)min((long long)bs, Nx - 1 - c0);  // inside the field
+  const int scale = *scale_ptr;
+  const float* p0 = data + r0 * Nx + c0;
+  const float* ys = ycoord + r0;
+  const float* xs = xcoord + c0;
+  WarpQueue q{qr[warp], qc[warp], qw[warp], ql[warp], 0};
+  const unsigned lt = (1u << lane) - 1u;
+  // the windows covering the block: rows wy0 .. wy0 + nwy - 1, columns
+  // wx0 .. wx0 + nwx - 1 (each covers at least one cell of it)
+  const int wy0 = max(0, bi - nbw + 1), wx0 = max(0, bj - nbw + 1);
+  const int nwy = min(Wy - 1, bi) - wy0 + 1, nwx = min(Wx - 1, bj) - wx0 + 1;
+  const int nwin = nwy * nwx;
+  const int clr = lane / ccw, clc = lane - clr * ccw;
+  const int nc = (wd + ccw - 1) / ccw;   // 1 unless stride > 32
+  // this warp's steps [g0, steps)
+  const int g0 = sl * kSlabSteps;
+  const int steps = min((h + crps - 1) / crps * nc, g0 + kSlabSteps);
+  for (int g = g0; g < steps; g += kCellSteps) {
+    float lo[kCellSteps], hi[kCellSteps];
+    int rr[kCellSteps], cc[kCellSteps];
+    float glo = INFINITY, ghi = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < kWarps; ++i) t += wsum[i];
-    out[w] = t;
+    for (int u = 0; u < kCellSteps; ++u) {
+      const int t = g + u;
+      const int tr = nc == 1 ? t : t / nc;
+      rr[u] = tr * crps + clr;
+      cc[u] = (t - tr * nc) * ccw + clc;
+      lo[u] = INFINITY;
+      hi[u] = -INFINITY;
+      if (t < steps && clr < crps && rr[u] < h && cc[u] < wd) {
+        const float* p = p0 + (long long)rr[u] * Nx + cc[u];
+        const float v00 = p[0], v01 = p[1], v10 = p[Nx], v11 = p[Nx + 1];
+        if (!any_nan(v00, v01, v10, v11)) {
+          lo[u] = fminf(fminf(v00, v01), fminf(v10, v11));
+          hi[u] = fmaxf(fmaxf(v00, v01), fmaxf(v10, v11));
+        }
+      }
+      glo = fminf(glo, lo[u]);
+      ghi = fmaxf(ghi, hi[u]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      glo = fminf(glo, __shfl_xor_sync(kFull, glo, o));
+      ghi = fmaxf(ghi, __shfl_xor_sync(kFull, ghi, o));
+    }
+    if (!(glo < ghi)) continue;  // no level crosses these cells
+    for (int t0 = 0; t0 < nwin; t0 += 32) {
+      const int t = t0 + lane;
+      const int dwy = t / nwx;   // per window tested, not per cell
+      const int wyy = wy0 + dwy, wxx = wx0 + t - dwy * nwx;
+      const int w = wyy * Wx + wxx;
+      const float lw = t < nwin ? levels[w] : NAN;
+      unsigned todo = __ballot_sync(kFull, glo <= lw && lw < ghi);
+      while (todo) {
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const float lev = __shfl_sync(kFull, lw, src);
+        const int win = __shfl_sync(kFull, w, src);
+        // the window's cells from the block's corner: [ry, ry + cells) x
+        // [rx, rx + cells)
+        const int ry = (int)((long long)__shfl_sync(kFull, wyy, src) * s - r0);
+        const int rx = (int)((long long)__shfl_sync(kFull, wxx, src) * s - c0);
+#pragma unroll
+        for (int u = 0; u < kCellSteps; ++u) {
+          if (g + u >= steps) break;  // warp-uniform
+          const bool hit = lo[u] <= lev && lev < hi[u] && rr[u] >= ry &&
+                           rr[u] < ry + cells && cc[u] >= rx &&
+                           cc[u] < rx + cells;
+          const unsigned got = __ballot_sync(kFull, hit);
+          if (hit) {
+            const int slot = q.n + __popc(got & lt);
+            q.r[slot] = rr[u];
+            q.c[slot] = cc[u];
+            q.w[slot] = win;
+            q.lev[slot] = lev;
+          }
+          q.n += __popc(got);
+          __syncwarp();
+          if (q.n >= 32) {
+            measure<kLatlon>(q, 32, p0, Nx, ys, xs, scale, acc);
+            // move the rest (fewer than 32) to the front
+            const bool mv = lane < q.n - 32;
+            int mr = 0, mc = 0, mw = 0;
+            float ml = 0.f;
+            if (mv) {
+              mr = q.r[32 + lane];
+              mc = q.c[32 + lane];
+              mw = q.w[32 + lane];
+              ml = q.lev[32 + lane];
+            }
+            __syncwarp();
+            if (mv) {
+              q.r[lane] = mr;
+              q.c[lane] = mc;
+              q.w[lane] = mw;
+              q.lev[lane] = ml;
+            }
+            q.n -= 32;
+            __syncwarp();
+          }
+        }
+      }
+    }
   }
+  measure<kLatlon>(q, q.n, p0, Nx, ys, xs, scale, acc);
+}
+
+// (lanes a row, rows a step) of a warp over rows of width w
+void lane_map(int w, int* cw, int* rps) {
+  *cw = w < 32 ? w : 32;
+  *rps = 32 / *cw;
 }
 
 }  // namespace
 
-// data (B, Ny, Nx); levels (B, N) sorted ascending, NaN last; n0/n1
-// (B, n_rb * n_cb) int32 scratch for the tiles' level ranges; y (B or 1, Ny)
-// and x (B or 1, Nx) coordinates; partial (B, n_rb * n_cb, N) scratch;
-// out (B, N) sorted totals.
+// data (B, Ny, Nx); levels (B, N) sorted ascending, NaN last, order (B, N)
+// their positions in the caller's order; y (B or 1, Ny) and x (B or 1, Nx)
+// coordinates; acc (B N + 1) 64-bit scratch (the totals, then the scale);
+// out (B, N) totals in the caller's order; tiles of n_rb x n_cb.
 extern "C" int xc_contour_lengths(const void* data, const void* levels,
-                                  void* n0, void* n1,
-                                  const void* y, const void* x, void* partial,
-                                  void* out, int B, int Ny, int Nx, int N,
-                                  int n_rb, int n_cb, int y_batched,
-                                  int x_batched, int latlon, void* stream) {
+                                  const void* order, const void* y,
+                                  const void* x, void* acc, void* out, int B,
+                                  int Ny, int Nx, int N, int n_rb, int n_cb,
+                                  int y_batched, int x_batched, int latlon,
+                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const long long n = (long long)B * N;
+  unsigned long long* a = (unsigned long long*)acc;
+  int* scale = (int*)(a + n);
+  cudaError_t err = cudaMemsetAsync(acc, 0, 8 * (size_t)n, st);
+  if (err != cudaSuccess) return (int)err;
+  spacing_scale_kernel<<<1, kThreads, 0, st>>>(
+      (const float*)y, y_batched ? B : 1, Ny, (const float*)x,
+      x_batched ? B : 1, Nx, scale_bits((long long)(Ny - 1) * (Nx - 1)),
+      scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const int tiles = n_rb * n_cb;
-  const dim3 grid(tiles, B);
+  const unsigned grid = (unsigned)((long long)tiles * B);
   const long long ys = y_batched ? Ny : 0;
   const long long xs = x_batched ? Nx : 0;
   if (latlon)
-    lengths_tile_kernel<true><<<grid, kThreads, 0, st>>>(
-        (const float*)data, (const float*)levels, (int*)n0, (int*)n1,
-        (const float*)y, (const float*)x, ys, xs,
-        (float*)partial, Ny, Nx, N, tiles, n_cb);
+    lengths_kernel<true><<<grid, kThreads, 0, st>>>(
+        (const float*)data, (const float*)levels, (const float*)y,
+        (const float*)x, ys, xs, scale, a, Ny, Nx, N, tiles, n_cb);
   else
-    lengths_tile_kernel<false><<<grid, kThreads, 0, st>>>(
-        (const float*)data, (const float*)levels, (int*)n0, (int*)n1,
-        (const float*)y, (const float*)x, ys, xs,
-        (float*)partial, Ny, Nx, N, tiles, n_cb);
-  cudaError_t err = cudaGetLastError();
+    lengths_kernel<false><<<grid, kThreads, 0, st>>>(
+        (const float*)data, (const float*)levels, (const float*)y,
+        (const float*)x, ys, xs, scale, a, Ny, Nx, N, tiles, n_cb);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long warps = (long long)B * N;
-  lengths_sum_kernel<<<(unsigned)((warps + kWarps - 1) / kWarps), kThreads, 0,
-                       st>>>((const float*)partial, (const int*)n0,
-                             (const int*)n1, (float*)out, B, N, tiles);
+  fixed_to_float_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
+                          0, st>>>(a, (const long long*)order, scale,
+                                   (float*)out, n, N);
   return (int)cudaGetLastError();
 }
 
-// data (Ny, Nx); levels (Wy, Wx); y (Ny,), x (Nx,); out (Wy, Wx) raw
-// totals of the windows of `window` points anchored every `stride` points.
+// data (Ny, Nx); levels (Wy, Wx); y (Ny,), x (Nx,); acc (Wy Wx + 1) 64-bit
+// scratch (the totals, then the scale); out (Wy, Wx) raw totals of the
+// windows of `window` points anchored every `stride` points; nby x nbx
+// lattice blocks, nbw a window's side.
 extern "C" int xc_local_lengths(const void* data, const void* levels,
-                                const void* y, const void* x, void* out,
-                                int Ny, int Nx, int Wy, int Wx, int window,
-                                int stride, int latlon, void* stream) {
-  (void)Ny;
+                                const void* y, const void* x, void* acc,
+                                void* out, int Ny, int Nx, int Wy, int Wx,
+                                int window, int stride, int nby, int nbx,
+                                int nbw, int latlon, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(Wx, Wy);
+  const int s = stride, cells = window - 1;
+  const long long n = (long long)Wy * Wx;
+  if (cells < 1)
+    return (int)cudaMemsetAsync(out, 0, sizeof(float) * (size_t)n, st);
+  unsigned long long* a = (unsigned long long*)acc;
+  const int* sc = (const int*)(a + n);
+  cudaError_t err = cudaMemsetAsync(acc, 0, 8 * (size_t)n, st);
+  if (err != cudaSuccess) return (int)err;
+  spacing_scale_kernel<<<1, kThreads, 0, st>>>(
+      (const float*)y, 1, Ny, (const float*)x, 1, Nx,
+      scale_bits((long long)cells * cells), (int*)(a + n));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // a block's cells a side that windows cover, its steps of 32, and the
+  // warps (slabs of kSlabSteps steps) that share them
+  const int bs = s < cells ? s : cells;
+  int ccw, crps;
+  lane_map(bs, &ccw, &crps);
+  const int nsl = ((bs + crps - 1) / crps * ((bs + ccw - 1) / ccw) +
+                   kSlabSteps - 1) / kSlabSteps;
+  const unsigned grid =
+      (unsigned)(((long long)nby * nbx * nsl + kWarps - 1) / kWarps);
+  const float *d = (const float*)data, *lv = (const float*)levels;
+  const float *yy = (const float*)y, *xx = (const float*)x;
   if (latlon)
     local_lengths_kernel<true><<<grid, kThreads, 0, st>>>(
-        (const float*)data, (const float*)levels, (const float*)y,
-        (const float*)x, (float*)out, Nx, Wx, window - 1, stride);
+        d, lv, yy, xx, sc, a, Ny, Nx, Wy, Wx, cells, s, nby, nbx, nbw, ccw,
+        crps, nsl);
   else
     local_lengths_kernel<false><<<grid, kThreads, 0, st>>>(
-        (const float*)data, (const float*)levels, (const float*)y,
-        (const float*)x, (float*)out, Nx, Wx, window - 1, stride);
+        d, lv, yy, xx, sc, a, Ny, Nx, Wy, Wx, cells, s, nby, nbx, nbw, ccw,
+        crps, nsl);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fixed_to_float_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
+                          0, st>>>(a, nullptr, sc, (float*)out, n, Wx);
   return (int)cudaGetLastError();
 }

@@ -605,6 +605,11 @@ dim3 surface_grid(int B, int Ny, int Nx, int per_block) {
   return dim3((Ny + per_block - 1) / per_block, (Nx + kTX - 1) / kTX, B);
 }
 
+// CUDA caps grid y and z at 65,535: the entry points launch a batch in
+// chunks of at most that many elements, the batch index in z (or y)
+// counted from the chunk's first element through offset pointers
+constexpr int kBatchChunk = 65535;
+
 }  // namespace
 
 extern "C" int xc_lwa_lin(const void* q, const void* W, const void* Q,
@@ -612,17 +617,27 @@ extern "C" int xc_lwa_lin(const void* q, const void* W, const void* Q,
                           int B, int Ny, int Nx, int increase, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int pt = 128;
-  lwa_lin_prep_kernel<<<dim3((Nx + pt - 1) / pt, (Ny + kCH - 1) / kCH, B),
-                        pt, 0, st>>>(
-      (const float*)q, (const float*)W, (const float*)Q, (const float*)c0,
-      (float*)E, (float*)tot, Ny, Nx);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int nch = (Ny + kCH - 1) / kCH;
+  const long long plane = (long long)Ny * Nx;
   const LinKernel kernel = kLinKernels[increase ? 1 : 0];
-  kernel<<<surface_grid(B, Ny, Nx, kJG * kJ), dim3(kTX, kJG), 0, st>>>(
-      (const float*)q, (const float*)W, (const float*)Q, (const float*)c0,
-      (const float*)E, (const float*)tot, (float*)out, Ny, Nx);
-  return (int)cudaGetLastError();
+  for (int b0 = 0; b0 < B; b0 += kBatchChunk) {
+    const int bc = B - b0 < kBatchChunk ? B - b0 : kBatchChunk;
+    const float* qb = (const float*)q + b0 * plane;
+    const float* Qb = (const float*)Q + (long long)b0 * Ny;
+    const float* cb = (const float*)c0 + b0;
+    float* Eb = (float*)E + b0 * plane;
+    float* tb = (float*)tot + (long long)b0 * nch * 2 * Nx;
+    float* ob = (float*)out + b0 * plane;
+    lwa_lin_prep_kernel<<<dim3((Nx + pt - 1) / pt, nch, bc), pt, 0, st>>>(
+        qb, (const float*)W, Qb, cb, Eb, tb, Ny, Nx);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<surface_grid(bc, Ny, Nx, kJG * kJ), dim3(kTX, kJG), 0, st>>>(
+        qb, (const float*)W, Qb, cb, Eb, tb, ob, Ny, Nx);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 extern "C" int xc_lwa_dense(const void* q, const void* Wz, const void* Q,
@@ -631,10 +646,18 @@ extern "C" int xc_lwa_dense(const void* q, const void* Wz, const void* Q,
   if (part < 0 || part > 2) return (int)cudaErrorInvalidValue;
   const DenseKernel kernel =
       kDenseKernels[((variant2 ? 1 : 0) * 3 + part) * 2 + (increase ? 1 : 0)];
-  kernel<<<surface_grid(B, Ny, Nx, kJG * kJ), dim3(kTX, kJG), 0,
-           (cudaStream_t)stream>>>((const float*)q, (const float*)Wz,
-                                   (const float*)Q, (float*)out, Ny, Nx);
-  return (int)cudaGetLastError();
+  const long long plane = (long long)Ny * Nx;
+  for (int b0 = 0; b0 < B; b0 += kBatchChunk) {
+    const int bc = B - b0 < kBatchChunk ? B - b0 : kBatchChunk;
+    kernel<<<surface_grid(bc, Ny, Nx, kJG * kJ), dim3(kTX, kJG), 0,
+             (cudaStream_t)stream>>>(
+        (const float*)q + b0 * plane, (const float*)Wz,
+        (const float*)Q + (long long)b0 * Ny, (float*)out + b0 * plane, Ny,
+        Nx);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 extern "C" int xc_lwa_lin2(const void* q, const void* Q, const void* W,
@@ -642,19 +665,28 @@ extern "C" int xc_lwa_lin2(const void* q, const void* Q, const void* W,
                            int Nx, int increase, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int pt = 128;
-  lwa_lin2_prep_kernel<<<dim3((Nx + pt - 1) / pt, B), pt, 0, st>>>(
-      (const float*)q, (const float*)Q, (const float*)W, (const float*)c0,
-      (float*)E, Ny, Nx);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid = surface_grid(B, Ny, Nx, kJG * kJPT), block(kTX, kJG);
-  if (increase)
-    lwa_lin2_kernel<true><<<grid, block, 0, st>>>(
-        (const float*)q, (const float*)Q, (const float*)W, (const float*)c0,
-        (const float*)E, (float*)out, Ny, Nx);
-  else
-    lwa_lin2_kernel<false><<<grid, block, 0, st>>>(
-        (const float*)q, (const float*)Q, (const float*)W, (const float*)c0,
-        (const float*)E, (float*)out, Ny, Nx);
-  return (int)cudaGetLastError();
+  const long long plane = (long long)Ny * Nx;
+  const dim3 block(kTX, kJG);
+  for (int b0 = 0; b0 < B; b0 += kBatchChunk) {
+    const int bc = B - b0 < kBatchChunk ? B - b0 : kBatchChunk;
+    const float* qb = (const float*)q + b0 * plane;
+    const float* Qb = (const float*)Q + (long long)b0 * Ny;
+    const float* cb = (const float*)c0 + b0;
+    float* Eb = (float*)E + b0 * plane;
+    float* ob = (float*)out + b0 * plane;
+    lwa_lin2_prep_kernel<<<dim3((Nx + pt - 1) / pt, bc), pt, 0, st>>>(
+        qb, Qb, (const float*)W, cb, Eb, Ny, Nx);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid = surface_grid(bc, Ny, Nx, kJG * kJPT);
+    if (increase)
+      lwa_lin2_kernel<true><<<grid, block, 0, st>>>(qb, Qb, (const float*)W,
+                                                     cb, Eb, ob, Ny, Nx);
+    else
+      lwa_lin2_kernel<false><<<grid, block, 0, st>>>(qb, Qb, (const float*)W,
+                                                      cb, Eb, ob, Ny, Nx);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }

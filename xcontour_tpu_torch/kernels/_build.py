@@ -31,21 +31,21 @@ P, I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # q, rdx, rdy, out, B, Ny, Nx, periodic_x, bc_y, stream
     "xc_squared_gradient": [P, P, P, P, I, I, I, I, I, P],
-    # values, edges, weights, partial, out, B, G, N, C, nblk, wchunk, ncopy,
-    # stream
-    "xc_weighted_cdf": [P, P, P, P, P, I, I, I, I, I, I, I, P],
+    # values, edges, weights, partial, out, B, G, N, C, nrange, nblk,
+    # wchunk, ncopy, stream
+    "xc_weighted_cdf": [P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     # q, W, Q, c0, E, tot, out, B, Ny, Nx, increase, stream
     "xc_lwa_lin": [P, P, P, P, P, P, P, I, I, I, I, P],
     # q, Wz, Q, out, B, Ny, Nx, increase, part, variant2, stream
     "xc_lwa_dense": [P, P, P, P, I, I, I, I, I, I, P],
     # q, Q, W, c0, E, out, B, Ny, Nx, increase, stream
     "xc_lwa_lin2": [P, P, P, P, P, P, I, I, I, I, P],
-    # data, levels, n0, n1, y, x, partial, out, B, Ny, Nx, N, n_rb, n_cb,
+    # data, levels, order, y, x, acc, out, B, Ny, Nx, N, n_rb, n_cb,
     # y_batched, x_batched, latlon, stream
-    "xc_contour_lengths": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
-                           P],
-    # data, levels, y, x, out, Ny, Nx, Wy, Wx, window, stride, latlon, stream
-    "xc_local_lengths": [P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "xc_contour_lengths": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    # data, levels, y, x, acc, out, Ny, Nx, Wy, Wx, window, stride, nby, nbx,
+    # nbw, latlon, stream
+    "xc_local_lengths": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
 }
 
 _LIB = None

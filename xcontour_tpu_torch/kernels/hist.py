@@ -11,7 +11,8 @@ nothing.  The kernel keeps each lane's current bin and running sums in
 registers and looks for a new bin only when a value leaves that one; the
 plain version is the digitize + segment-sum + cumsum form of
 ``_edges_cdf_xla``.  :func:`plan` sizes the kernel's grid from the SM count
-(``tests/test_torch_hist_tiles.py`` emulates the kernel with it).
+and :func:`bin_range` the bins one launch holds in shared memory
+(``tests/test_torch_hist_tiles.py`` emulates the kernel with both).
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ BLOCKS_PER_SM, MIN_CELLS = 4, 2048
 # up to 32 histogram copies (lane l adds into copy l % ncopy) in at most
 # this much shared memory, and at least one copy
 COPY_BYTES = 32 * 1024
-# the first pass holds the edges and a (C, N) histogram in shared memory
-_SMEM_LIMIT = 227 * 1024
+# the first pass holds the edges and a (channel group, bins) histogram in
+# the shared memory a block may use
+SMEM_LIMIT = 227 * 1024
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,6 +54,17 @@ def plan(B: int, G: int, N: int, C: int, sms: int):
     ncopy = next((n for n in (32, 16, 8, 4, 2) if n * cg * N * 4 <= COPY_BYTES),
                  1)
     return nblk, wchunk, ncopy
+
+
+def bin_range(N: int, C: int) -> int:
+    """Bins one first-pass launch takes: all N where the N + 1 edges and
+    one copy of a group's (min(C, 8), N) histogram fit in shared memory,
+    else the most that do; the launches then take the bins in ranges."""
+    cg = min(C, GROUP)
+    floats = SMEM_LIMIT // 4
+    if N + 1 + cg * N <= floats:
+        return N
+    return (floats - 1) // (cg + 1)
 
 
 def weighted_cdf_plain(values: torch.Tensor, edges: torch.Tensor,
@@ -78,7 +91,10 @@ def weighted_cdf(values: torch.Tensor, edges: torch.Tensor,
                  weights: torch.Tensor) -> torch.Tensor:
     """Multi-channel ascending CDF, (B, G) x (B, N+1) x (B, C, G) ->
     (B, C, N).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
+    the kernel: any batch, any number of bins (in ranges of
+    :func:`bin_range` where one launch's histogram does not fit in shared
+    memory); B * C * G weights and B * C * N outputs stay under 2^31, the
+    kernel's 32-bit cell and grid indices."""
     if values.device.type == "cpu":
         return weighted_cdf_plain(values, edges, weights)
     check_cuda_inputs(KERNEL.name, values=values, edges=edges,
@@ -94,20 +110,18 @@ def weighted_cdf(values: torch.Tensor, edges: torch.Tensor,
                          f"{tuple(edges.shape)}, {tuple(weights.shape)} disagree")
     if N < 1 or C < 1:
         raise ValueError(f"{KERNEL.name}: need N >= 1 bins and C >= 1 channels")
-    if (N + 1 + C * N) * 4 > _SMEM_LIMIT:
-        raise ValueError(f"{KERNEL.name}: {C} channels x {N} bins exceed "
-                         "the shared-memory histogram")
-    if B * C * G >= 2 ** 31:
-        raise ValueError(f"{KERNEL.name}: more than 2^31 weights")
+    if B * C * G >= 2 ** 31 or B * C * N >= 2 ** 31:
+        raise ValueError(f"{KERNEL.name}: more than 2^31 weights or outputs")
     from ._build import library
-    nblk, wchunk, ncopy = plan(B, G, N, C, _sm_count(values.device.index))
+    nrange = bin_range(N, C)
+    nblk, wchunk, ncopy = plan(B, G, nrange, C, _sm_count(values.device.index))
     partial = torch.empty((B, nblk, C, N), dtype=values.dtype,
                           device=values.device)
     out = torch.empty((B, C, N), dtype=values.dtype, device=values.device)
     status = library().xc_weighted_cdf(
         values.data_ptr(), edges.data_ptr(), weights.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), B, G, N, C, nblk, wchunk, ncopy,
-        stream_handle())
+        partial.data_ptr(), out.data_ptr(), B, G, N, C, nrange, nblk, wchunk,
+        ncopy, stream_handle())
     check_status(KERNEL.name, status)
     KERNEL.launches += 1
     return out

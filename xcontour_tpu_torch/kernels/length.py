@@ -16,6 +16,15 @@ Both follow the twin's tie rule: edge fractions by division and vertices
 that land bitwise on a corner at a fraction of 0 or 1, so a level equal to
 the field's minimum totals exactly 0.  A NaN level is evaluated at 0 and
 its total set to 0; the public functions turn a 0 total into NaN.
+
+Both kernels measure only the crossed (cell, level) pairs, a warp's 32
+lanes at a time: a level crosses a valid cell exactly when it lies in
+[min, max) of the cell's corners.  K7 finds each cell's range of sorted
+levels by search inside tiles of ``TILE`` cells; K8 tests each block of
+stride x stride cells on the windows' lattice (:func:`lattice`) against
+the levels of the windows that cover it.  Both sum in 64-bit fixed point
+by integer atomics, so two runs agree bit for bit.
+``tests/test_torch_length_tiles.py`` emulates both decompositions.
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ KERNEL_LOCAL_LENGTHS = Kernel("local_lengths",
                               "xcontour_tpu/kernels/length_pallas.py:417")
 
 # K7's tile of cells (csrc/length.cu kRB x kCB), the unit of its level pretest
-_RB, _CB = 16, 128
+TILE = (16, 128)
 
 
 def _level_total(level, v00, v01, v10, v11, y0, y1, x0, x1, nan_cell,
@@ -134,8 +143,10 @@ def contour_lengths(data: torch.Tensor, levels: torch.Tensor,
     """Raw perimeter totals (B, N) of data (B, Ny, Nx) at levels (B, N);
     coordinates shared, (Ny,)/(Nx,), or per batch element, (B, Ny)/(B, Nx),
     in radians if ``latlon``.  CPU tensors take the plain version (``chunk``
-    levels at a time); CUDA tensors launch K7 (a pass over tiles that also
-    finds each tile's range of sorted levels, then a sum)."""
+    levels at a time); CUDA tensors launch K7 (tiles that find their own
+    and each cell's range of sorted levels and measure the crossed pairs):
+    any batch, any number of levels, fewer than 2^31 cells (32-bit row
+    offsets)."""
     if data.device.type == "cpu":
         return contour_lengths_plain(data, levels, yc, xc, latlon=latlon,
                                      chunk=chunk)
@@ -154,32 +165,36 @@ def contour_lengths(data: torch.Tensor, levels: torch.Tensor,
         raise ValueError(f"{name}: need Ny, Nx >= 2")
     if data.numel() >= 2 ** 31:
         raise ValueError(f"{name}: more than 2^31 cells")
-    if B > 65535:
-        raise ValueError(f"{name}: more than 65535 batch elements")
     if B == 0 or N == 0:
         return levels.new_zeros((B, N))
     from ._build import library
     lev_s, order = torch.sort(levels, dim=-1, stable=True)   # NaN last
-    lev_s = lev_s.contiguous()
-    n_rb, n_cb = -(-(Ny - 1) // _RB), -(-(Nx - 1) // _CB)
-    n0 = torch.empty((B, n_rb * n_cb), dtype=torch.int32, device=data.device)
-    n1 = torch.empty_like(n0)
-    partial = torch.empty((B, n_rb * n_cb, N), dtype=data.dtype,
-                          device=data.device)
-    out_s = torch.empty((B, N), dtype=data.dtype, device=data.device)
+    n_rb, n_cb = -(-(Ny - 1) // TILE[0]), -(-(Nx - 1) // TILE[1])
+    # the totals in 64-bit fixed point, then the scale's word
+    acc = torch.empty((B * N + 1,), dtype=torch.int64, device=data.device)
+    out = torch.empty((B, N), dtype=data.dtype, device=data.device)
     status = library().xc_contour_lengths(
-        data.data_ptr(), lev_s.data_ptr(), n0.data_ptr(), n1.data_ptr(),
-        yc.data_ptr(), xc.data_ptr(), partial.data_ptr(), out_s.data_ptr(),
-        B, Ny, Nx, N, n_rb, n_cb, int(yc.dim() == 2), int(xc.dim() == 2),
-        int(latlon), stream_handle())
+        data.data_ptr(), lev_s.data_ptr(), order.data_ptr(), yc.data_ptr(),
+        xc.data_ptr(), acc.data_ptr(), out.data_ptr(), B, Ny, Nx, N, n_rb,
+        n_cb, int(yc.dim() == 2), int(xc.dim() == 2), int(latlon),
+        stream_handle())
     check_status(name, status)
     KERNEL_LENGTHS.launches += 1
-    # unsort: sorted position k holds the result of original level order[k]
-    return torch.empty_like(out_s).scatter_(1, order, out_s)
+    return out
 
 
 def _anchors(n: int, window: int, stride: int) -> range:
     return range(0, n - window + 1, stride)
+
+
+def lattice(Wy: int, Wx: int, window: int, stride: int):
+    """(nby, nbx, nbw) of K8's pretest: the blocks of stride x stride
+    cells from the field's corner that the windows cover (nby x nbx), and
+    the blocks a side of one window (nbw; the window's last block row and
+    column may be covered in part, and past a window of fewer cells than
+    the stride a block's last rows and columns lie in no window)."""
+    nbw = (window - 2) // stride + 1 if window > 1 else 0
+    return Wy - 1 + nbw, Wx - 1 + nbw, nbw
 
 
 def local_lengths_plain(data: torch.Tensor, levels: torch.Tensor,
@@ -210,7 +225,10 @@ def local_lengths(data: torch.Tensor, levels: torch.Tensor, yc: torch.Tensor,
     points of data (Ny, Nx), anchored every ``stride`` points, at that
     window's level (Wy, Wx); coordinates (Ny,), (Nx,), radians if
     ``latlon``.  CPU tensors take the plain version; CUDA tensors launch
-    K8, which reads each window from the field in place."""
+    K8 (a warp per lattice block, testing the levels of the windows that
+    cover it against its corner range, measuring the crossed cells): any
+    window >= 1 and stride >= 1, fewer than 2^31 cells (32-bit column
+    offsets)."""
     if data.device.type == "cpu":
         return local_lengths_plain(data, levels, yc, xc, window=window,
                                    stride=stride, latlon=latlon)
@@ -229,16 +247,19 @@ def local_lengths(data: torch.Tensor, levels: torch.Tensor, yc: torch.Tensor,
                          f"{tuple(xc.shape)} do not match ({Ny}, {Nx})")
     if window < 1 or stride < 1:
         raise ValueError(f"{name}: window and stride must be >= 1")
-    if data.numel() >= 2 ** 31 or Wy > 65535:
-        raise ValueError(f"{name}: more than 2^31 cells or 65535 window rows")
+    if data.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: more than 2^31 cells")
     if Wy == 0 or Wx == 0:
         return levels.new_zeros((Wy, Wx))
     from ._build import library
+    nby, nbx, nbw = lattice(Wy, Wx, window, stride)
+    # the windows' totals in 64-bit fixed point, then the scale's word
+    acc = torch.empty((Wy * Wx + 1,), dtype=torch.int64, device=data.device)
     out = torch.empty((Wy, Wx), dtype=data.dtype, device=data.device)
     status = library().xc_local_lengths(
         data.data_ptr(), levels.data_ptr(), yc.data_ptr(), xc.data_ptr(),
-        out.data_ptr(), Ny, Nx, Wy, Wx, window, stride, int(latlon),
-        stream_handle())
+        acc.data_ptr(), out.data_ptr(), Ny, Nx, Wy, Wx, window, stride, nby,
+        nbx, nbw, int(latlon), stream_handle())
     check_status(name, status)
     KERNEL_LOCAL_LENGTHS.launches += 1
     return out

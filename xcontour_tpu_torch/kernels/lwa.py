@@ -20,7 +20,11 @@ launch at such a Ny counts as K6's.
 
 Shapes: q (B, Ny, Nx) tracer, Q (B, Ny) sorted profile, W (Ny, Nx) composed
 weight -> (B, Ny, Nx), surface index j along axis 1.  The surface mask is
-the index form (row >= j), exact for a strictly monotone coordinate.
+the index form (row >= j), exact for a strictly monotone coordinate.  The
+kernels take any batch (launched in chunks of 65,535 elements, CUDA's cap
+on a grid's y and z) and fewer than 2^31 cells (32-bit offsets within a
+snapshot's rows and columns); Ny and Nx each up to 65,535 * 32, the grid
+y dimension of their row chunks and column strips.
 """
 
 from __future__ import annotations
@@ -42,6 +46,9 @@ _PARTS = {"all": 0, "upper": 1, "lower": 2}
 
 # rows per chunk of K3's E prep (kCH in csrc/lwa.cu)
 E_CHUNK = 32
+# the longest side the launches take: 65,535 row chunks or column strips of
+# 32 in a grid's y dimension
+_MAX_SIDE = 65535 * 32
 
 # the JAX package's y-blocked regime: a (Ny, 128) float32 panel over its
 # 1.5 MB VMEM budget (lwa_pallas.py:430)
@@ -193,6 +200,8 @@ def _check_shapes(name, q, Q, W):
                          f"{tuple(W.shape)} disagree")
     if q.numel() >= 2 ** 31:
         raise ValueError(f"{name}: more than 2^31 cells")
+    if max(Ny, Nx) > _MAX_SIDE:
+        raise ValueError(f"{name}: Ny or Nx over {_MAX_SIDE}")
 
 
 def lwa_lin(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
