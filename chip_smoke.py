@@ -75,7 +75,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      device time of each CUDA kernel K3 and K5 launch (prep against
      surface kernel, torch.profiler) and the SM clock and power that
      nvidia-smi samples under K3 and K4; snapshots/s of each streamed step,
-     peak device memory of each path.
+     peak device memory of each path;
+  7. gradients: every kernel wrapper raises on a CUDA tensor that requires
+     grad; each autograd Function (K1-K8) on the card: its forward against
+     the wrapper's bits (K2 within its bound: float atomics) and its
+     gradients of sum(r * out) against torch.autograd.grad through the
+     plain version at 2x181x360 (K6 2x3104x128, K8 one level, window 31 /
+     stride 10), then its forward and backward ms and the backward's peak
+     memory at its path's shape (ERA5 B = 4, K6 the tall grid); the adjoint
+     steps (the JAX bench's nansum(lwa^2) + nansum(nkeff) of
+     keff_lwa_pipeline 'auto' at the headline shape and at ERA5 B = 4;
+     'dense', with_lwa2, clength_pipeline and local_contour_lengths at ERA5
+     B = 4), with forward and backward ms, gradient-snapshots/s, peak
+     memory and launches a step (equal to a no-grad step's), the gradient
+     nonzero and non-finite only within two cells of a NaN cell; each
+     loss's gradient on the card against the port's CPU gradient at
+     2x91x180.  The kernels JSON carries each Function's backward ms.
 
 The last three lines are the kernels JSON, the card line from nvidia-smi,
 and {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
@@ -193,6 +208,23 @@ K8_WINDOWS = ((101, 7), (64, 10), (101, 40), (161, 80), (31, 45))
 # window rows past it (window 2, stride 1 on LIMIT_ROWS x 8)
 LIMIT_B = 65537
 LIMIT_ROWS = 65600
+# phase 7, the autograd Functions: each against torch.autograd.grad through
+# its plain version on the same card inputs at GRAD_CHECK (K6 at GRAD_TALL,
+# K8 on one level at GRAD_LOCAL), within GRAD_BOUND of the largest
+# |gradient| (the backward recomputes the same plain version, chunk by
+# chunk: only the order of the sums differs); the adjoint steps at ERA5
+# with GRAD_ERA5_B snapshots (the JAX bench's ERA5 adjoint batch,
+# bench.py:335) and at HEADLINE; card against CPU at GRAD_SMALL, where
+# GRAD_CARD_CPU[1] of the cells must lie within GRAD_CARD_CPU[0] of the
+# largest |gradient| (the forward's float32 noise, the 'lin' floor among it,
+# reaches the gradient through the loss)
+GRAD_CHECK = dict(B=2, nlat=181, nlon=360, N=61)
+GRAD_TALL = (2, 3104, 128)
+GRAD_LOCAL = dict(window=31, stride=10)
+GRAD_ERA5_B = 4
+GRAD_SMALL = dict(B=2, nlat=91, nlon=180, N=121)
+GRAD_BOUND = 1e-5
+GRAD_CARD_CPU = (1e-3, 0.999)
 # no single PyTorch call computes any of K1-K8 (torch.histogram has no CUDA
 # form, torch.histc takes no weights, torch.bincount weighs integer bins
 # that a torch.bucketize must find first and leaves the cumsum; no call
@@ -1105,6 +1137,411 @@ def check_kernel(label, name, kern, plain, shape):
     return err
 
 
+def _loss_weights(out, seed):
+    """r, seeded numpy normal draws of ``out``'s shape on its device."""
+    r = np.random.default_rng(seed).standard_normal(tuple(out.shape))
+    return torch.as_tensor(r, dtype=out.dtype, device=out.device)
+
+
+def checkpointed_dense(q, Q, W, **kw):
+    """lwa_dense_plain under autograd with each 16-surface chunk
+    checkpointed (torch.utils.checkpoint recomputes its temporaries in the
+    backward): the plain version's gradient in the memory of one chunk,
+    where holding every chunk's temporaries (K6's shape: 194 chunks) would
+    not fit on the card."""
+    from torch.utils.checkpoint import checkpoint
+    from xcontour_tpu_torch.kernels import lwa
+
+    def rows(a, b, c, js):
+        return lwa._dense_rows(lwa._dense_parts(a, b, c), js, **kw)
+    return torch.cat([checkpoint(rows, q, Q, W, js, use_reentrant=False)
+                      for js in lwa._surface_chunks(q.shape[1])], dim=1)
+
+
+def function_cases(q, grid, N, tall_q, tall_grid, local, n_lengths=None):
+    """name -> (Function call, plain call, wrapper call, inputs) for the
+    autograd Function over each of K1-K8: K1-K5 on q with N levels, K7 on
+    q with ``n_lengths`` (default N), K6 on tall_q, K8 on q[0] at the
+    windows ``local`` and their rolling means.  Each call takes the
+    differentiated inputs: q (K1), the two weight channels (K2), q, Q and
+    W (K3-K6), data and levels (K7, K8)."""
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch.diagnostics import length as dlength
+    from xcontour_tpu_torch.diagnostics import local_length as dlocal
+    from xcontour_tpu_torch.diagnostics import lwa as dlwa
+    from xcontour_tpu_torch.diagnostics.lwa import nanmax
+    from xcontour_tpu_torch.kernels import hist, length, lwa, stencil
+    from xcontour_tpu_torch.ops import histogram, stencil as ostencil
+
+    B = q.shape[0]
+    dy, dx = ostencil._spacing(grid, q.dtype)
+    rdx, rdy = (1.0 / dx).contiguous(), (1.0 / dy).contiguous()
+    kw1 = dict(periodic_x=grid.periodic_x, bc_y=grid.bc_y)
+    grdS = stencil.squared_gradient_plain(q, rdx, rdy, **kw1)
+    ctr = xt.cal_contours(q, N)
+    _, edges = histogram._edges(ctr)
+    edges = edges.contiguous()
+    vf = q.reshape(B, -1).contiguous()
+    w1 = torch.broadcast_to(grid.dA, q.shape).reshape(B, -1).contiguous()
+    w2 = (grdS * grid.dA).reshape(B, -1).contiguous()
+    Q = xt.keff_lwa_pipeline(q, grid, N=N)["Q"].contiguous()
+    W = (grid.dA / nanmax(grid.dA) * grid.dA).contiguous()
+    tQ = xt.lwa_pipeline(tall_q, tall_grid, N=N)["Q"].contiguous()
+    tW = (tall_grid.dA / nanmax(tall_grid.dA) * tall_grid.dA).contiguous()
+    yc = torch.deg2rad(grid.ydef).contiguous()
+    xc = torch.deg2rad(grid.xdef).contiguous()
+    q0 = q[0].contiguous()
+    lv = xt.rolling_mean(q0, local["window"], local["stride"])[0].contiguous()
+    kw8 = dict(local, latlon=True)
+
+    def lwa_case(method, kern, plain, v2, qq, QQ, WW):
+        return (lambda a, b, c: dlwa._LWA.apply(a, b, c, method, True, "all",
+                                                v2),
+                lambda a, b, c: plain(a, b, c, increase=True),
+                lambda a, b, c: kern(a, b, c, increase=True), (qq, QQ, WW))
+    dense_v2 = lambda a, b, c, increase: lwa.lwa_dense_plain(
+        a, b, c, increase=increase, variant2=True)
+    return {
+        "squared_gradient": (
+            lambda a: ostencil._SquaredGradient.apply(a, rdx, rdy, kw1),
+            lambda a: stencil.squared_gradient_plain(a, rdx, rdy, **kw1),
+            lambda a: stencil.squared_gradient(a, rdx, rdy, **kw1), (q,)),
+        "weighted_cdf": (
+            lambda a, b: torch.stack(
+                histogram._WeightedCDF.apply(vf, edges, a, b), dim=1),
+            lambda a, b: hist.weighted_cdf_plain(vf, edges,
+                                                 torch.stack([a, b], 1)),
+            lambda a, b: hist.weighted_cdf(vf, edges, torch.stack([a, b], 1)),
+            (w1, w2)),
+        "lwa_lin": lwa_case("lin", lwa.lwa_lin, lwa.lwa_lin_plain, False,
+                            q, Q, W),
+        "lwa_dense": lwa_case("dense", lwa.lwa_dense, lwa.lwa_dense_plain,
+                              False, q, Q, W),
+        "lwa_dense_v2": lwa_case(
+            "dense", lambda a, b, c, increase: lwa.lwa_dense(
+                a, b, c, increase=increase, variant2=True), dense_v2, True,
+            q, Q, W),
+        "lwa_lin2": lwa_case("lin", lwa.lwa_lin2, lwa.lwa_lin2_plain, True,
+                             q, Q, W),
+        "lwa_dense_tall": lwa_case(
+            "dense", lwa.lwa_dense,
+            lambda a, b, c, increase: checkpointed_dense(
+                a, b, c, increase=increase, part="all", variant2=False),
+            False, tall_q, tQ, tW),
+        "contour_lengths": (
+            lambda a, b: dlength._ContourLengths.apply(a, b, yc, xc, True, 8),
+            lambda a, b: length.contour_lengths_plain(a, b, yc, xc,
+                                                      latlon=True),
+            lambda a, b: length.contour_lengths(a, b, yc, xc, latlon=True),
+            (q, xt.cal_contours(q, n_lengths or N).contiguous())),
+        "local_lengths": (
+            lambda a, b: dlocal._LocalLengths.apply(a, b, yc, xc, kw8),
+            lambda a, b: length.local_lengths_plain(a, b, yc, xc, **kw8),
+            lambda a, b: length.local_lengths(a, b, yc, xc, **kw8), (q0, lv)),
+    }
+
+
+def _leaves(inputs):
+    return [x.detach().clone().requires_grad_() for x in inputs]
+
+
+def grad_err(got, want, where):
+    """Largest |got - want| over the largest |want|; the non-finite
+    patterns must agree."""
+    _expect(torch.equal(torch.isfinite(got), torch.isfinite(want))
+            and torch.equal(torch.isnan(got), torch.isnan(want)),
+            f"{where}: non-finite patterns differ")
+    m = torch.isfinite(want)
+    scale = want[m].double().abs().max().item() if m.any() else 0.0
+    err = (got[m].double() - want[m].double()).abs().max().item() \
+        if m.any() else 0.0
+    return err / scale if scale > 0 else err, scale
+
+
+def check_function(name, fn, plain, wrapper, inputs, seed):
+    """One Function on the card: its forward against the wrapper's on the
+    same inputs (bit for bit, but K2, whose float atomics add in any order:
+    within its kernel bound), and its gradients of sum(r * out) against
+    torch.autograd.grad through the plain version (the same non-finite
+    pattern, within GRAD_BOUND of the largest |gradient|).  Returns the
+    worst relative error."""
+    xs = _leaves(inputs)
+    out = fn(*xs)
+    ref = wrapper(*(x.detach() for x in xs))
+    torch.cuda.synchronize()
+    same = torch.equal(out.detach().view(torch.int32), ref.view(torch.int32))
+    if name == "weighted_cdf":
+        _, rel = rel_err(out.detach(), ref)
+        _expect(rel <= KERNEL_BOUNDS[name],
+                f"{name}: the Function's forward differs from the wrapper's")
+    else:
+        _expect(same, f"{name}: the Function's forward differs from the "
+                      "wrapper's bits")
+    r = _loss_weights(out, seed)
+    got = torch.autograd.grad(torch.nansum(out * r), xs)
+    ys = _leaves(inputs)
+    want = torch.autograd.grad(torch.nansum(plain(*ys) * r), ys)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        rel, scale = grad_err(g, w, f"{name} input {i}")
+        _expect(scale > 0, f"{name} input {i}: zero gradient")
+        worst = max(worst, rel)
+    ok = worst <= GRAD_BOUND
+    log(f"phase 7 function {name} {tuple(inputs[0].shape)}: forward "
+        f"{'bit for bit' if same else 'within bound'} of the wrapper; "
+        f"gradients against plain autograd rel {worst:.3e} bound "
+        f"{GRAD_BOUND:g} {'OK' if ok else 'FAIL'}")
+    _expect(ok, f"{name}: gradient differs from plain autograd")
+    return worst
+
+
+def time_backward(name, fn, inputs, seed, reps=3):
+    """(forward ms, backward ms, backward's peak GiB above what it starts
+    with) of one Function by CUDA events, the graph kept between the
+    backward runs."""
+    xs = _leaves(inputs)
+    fwd = cuda_ms(lambda: fn(*xs), reps)
+    out = fn(*xs)
+    loss = torch.nansum(out * _loss_weights(out, seed))
+    run = lambda: torch.autograd.grad(loss, xs, retain_graph=True)
+    run()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bwd = cuda_ms(run, reps)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    log(f"phase 7 time function {name} {tuple(inputs[0].shape)}: forward "
+        f"{fwd:.4f} ms, backward {bwd:.4f} ms, backward peak {peak:.3f} GiB")
+    return fwd, bwd, peak
+
+
+def grad_losses(grid, table, local_window):
+    """label -> loss of a (B, Ny, Nx) tracer: the JAX bench's adjoint loss
+    nansum(lwa^2) + nansum(nkeff) of keff_lwa_pipeline(lmin='analytic'),
+    'auto' (K1, K2, K3) and 'dense' (K4), with_lwa2 (+ nansum(lwa2^2),
+    K5); clength_pipeline N = CLENGTH_N[0] (nansum of the lengths and of
+    the finite Leq2; K2, K7); local_contour_lengths at ``local_window`` on
+    each snapshot (nansum of the lengths; K8)."""
+    import xcontour_tpu_torch as xt
+
+    def finite_sum(x):
+        return torch.nansum(torch.where(torch.isfinite(x), x,
+                                        torch.zeros_like(x)))
+
+    def keff_lwa(method, lwa2=False):
+        def loss(t, N):
+            o = xt.keff_lwa_pipeline(t, grid, N=N, lmin="analytic",
+                                     lwa_method=method, with_lwa2=lwa2,
+                                     table=table)
+            out = torch.nansum(o["lwa"] * o["lwa"]) + torch.nansum(o["nkeff"])
+            return out + torch.nansum(o["lwa2"] * o["lwa2"]) if lwa2 else out
+        return loss
+
+    def clength(t, N):
+        o = xt.clength_pipeline(t, grid, N=CLENGTH_N[0], table=table)
+        return torch.nansum(o["lengths"]) + finite_sum(o["Leq2"])
+
+    def local(t, N):
+        return sum(torch.nansum(xt.local_contour_lengths(
+            t[k], grid.ydef, grid.xdef, **local_window)[0])
+            for k in range(t.shape[0]))
+    return {"keff_lwa auto": (keff_lwa("auto"), ("squared_gradient",
+                                                 "weighted_cdf", "lwa_lin")),
+            "keff_lwa dense": (keff_lwa("dense"), ("squared_gradient",
+                                                   "weighted_cdf",
+                                                   "lwa_dense")),
+            "keff_lwa with_lwa2": (keff_lwa("auto", True),
+                                   ("lwa_lin", "lwa_lin2")),
+            "clength": (clength, ("weighted_cdf", "contour_lengths")),
+            "local": (local, ("local_lengths",))}
+
+
+def near_nan(q, cells=2):
+    """Cells within ``cells`` rows or columns of a NaN cell of q."""
+    m = torch.isnan(q).float()[:, None]
+    k = 2 * cells + 1
+    return torch.nn.functional.max_pool2d(m, k, 1, cells)[:, 0] > 0
+
+
+def adjoint_step(label, loss, kernels, q, N, records, reps=3):
+    """forward + backward steps of ``loss`` on q: (median forward ms,
+    median backward ms, peak GiB, launches a step, gradient).  The launch
+    counts of a gradient step must equal a no-grad step's, the gradient
+    must be nonzero and its non-finite cells lie within two rows or
+    columns of q's NaN cells."""
+    def counts():
+        return {r.name: r.launches for r in records}
+    for r in records:
+        r.launches = 0
+    with torch.no_grad():
+        loss(q, N)
+    torch.cuda.synchronize()
+    plain_counts = counts()
+    fwd, bwd = [], []
+    for i in range(reps + 1):
+        t = q.detach().clone().requires_grad_()
+        for r in records:
+            r.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        value = loss(t, N)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g, = torch.autograd.grad(value, t)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if i:                                   # the first is a warm-up
+            fwd.append((t1 - t0) * 1e3)
+            bwd.append((t2 - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step = counts()
+    _expect(step == plain_counts, f"{label}: a gradient step launches "
+            f"{step}, a no-grad step {plain_counts}")
+    short = [k for k in kernels if step[k] == 0]
+    _expect(not short, f"{label}: kernels not launched: {short}")
+    finite = torch.isfinite(g)
+    gmax = g[finite].abs().max().item() if finite.any() else 0.0
+    _expect(gmax > 0, f"{label}: zero gradient")
+    stray = int((~finite & ~near_nan(q)).sum())
+    _expect(stray == 0, f"{label}: {stray} non-finite gradient cells more "
+            "than two cells from a NaN cell")
+    f_ms, b_ms = statistics.median(fwd), statistics.median(bwd)
+    log(f"phase 7 adjoint {label} {tuple(q.shape)}: forward {f_ms:.2f} ms, "
+        f"backward {b_ms:.2f} ms (steps {[round(x, 2) for x in bwd]}), "
+        f"{q.shape[0] * 1e3 / (f_ms + b_ms):.1f} gradient-snapshots/s, peak "
+        f"{peak:.3f} GiB, launches a step {step}, non-finite gradient cells "
+        f"{int((~finite).sum())} (all within 2 of a NaN cell), max |g| "
+        f"{gmax:.6g}")
+    return f_ms, b_ms, peak, step, g
+
+
+def grad_card_vs_cpu(label, loss_gpu, loss_cpu, q, N):
+    """A loss's gradient on the card (float32) against the port's CPU
+    float32 gradient: the same non-finite pattern, and GRAD_CARD_CPU[1] of
+    the finite cells within GRAD_CARD_CPU[0] of the largest |gradient|;
+    the worst cell printed."""
+    grads = []
+    for loss, dev in ((loss_gpu, q.device), (loss_cpu, "cpu")):
+        t = q.detach().to(dev).clone().requires_grad_()
+        grads.append(torch.autograd.grad(loss(t, N), t)[0].cpu())
+    got, want = grads
+    _expect(torch.equal(torch.isfinite(got), torch.isfinite(want)),
+            f"grad card vs CPU {label}: non-finite patterns differ")
+    m = torch.isfinite(want)
+    scale = want[m].abs().max().item()
+    diff = torch.where(m, (got - want).abs(), torch.zeros_like(got))
+    tol, share_min = GRAD_CARD_CPU
+    share = (diff[m] <= tol * scale).double().mean().item()
+    worst = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
+    ok = share >= share_min and scale > 0
+    log(f"phase 7 grad card vs CPU {label} {tuple(q.shape)}: {100 * share:.4f}% "
+        f"of cells within {tol:g} of max |g| {scale:.6g} (need "
+        f"{100 * share_min:g}%), worst cell {tuple(int(i) for i in worst)} "
+        f"diff {diff[worst].item() / scale:.3e} of max (card "
+        f"{got[worst].item():.6g}, CPU {want[worst].item():.6g}); non-finite "
+        f"cells {int((~m).sum())} on both {'OK' if ok else 'FAIL'}")
+    _expect(ok, f"grad card vs CPU {label}: gradients differ")
+
+
+def wrapper_grad_limits(dev):
+    """Every kernel wrapper, called directly on a CUDA tensor that
+    requires grad, raises: wrappers record no graph."""
+    from xcontour_tpu_torch.kernels import hist, length, lwa, stencil
+    T = lambda *s: torch.rand(*s, device=dev)
+    q, W, Q = T(2, 8, 16), T(8, 16), T(2, 8)
+    lev, yc, xc = T(2, 3), T(8), T(16)
+    calls = {
+        "squared_gradient": lambda a: stencil.squared_gradient(
+            a, T(8, 16), T(8), periodic_x=True),
+        "weighted_cdf": lambda a: hist.weighted_cdf(
+            a.reshape(2, -1), torch.sort(T(2, 4), -1).values,
+            T(2, 1, 128)),
+        "lwa_lin": lambda a: lwa.lwa_lin(a, Q, W, increase=True),
+        "lwa_lin2": lambda a: lwa.lwa_lin2(a, Q, W, increase=True),
+        "lwa_dense": lambda a: lwa.lwa_dense(a, Q, W, increase=True),
+        "contour_lengths": lambda a: length.contour_lengths(
+            a, lev, yc, xc, latlon=True),
+        "local_lengths": lambda a: length.local_lengths(
+            a[0], T(2, 4), yc, xc, window=4, stride=4, latlon=True)}
+    for name, call in calls.items():
+        try:
+            call(q.clone().requires_grad_())
+        except RuntimeError as e:
+            _expect("records no graph" in str(e), f"{name}: {e}")
+        else:
+            raise AssertionError(f"{name}: a direct call on a tensor that "
+                                 "requires grad did not raise")
+    log(f"phase 7 limits: each of {len(calls)} wrappers raises on a CUDA "
+        "tensor that requires grad")
+
+
+def grad_phase(dev, records, era_q, era_grid, era_table, head_q, head_grid,
+               head_table):
+    """Phase 7: the autograd Functions on the card.  Returns {name: (forward
+    ms, backward ms, backward peak GiB)} of each Function at its path's
+    shape, and {label: (forward ms, backward ms, peak GiB, launches)} of
+    each adjoint step."""
+    import xcontour_tpu_torch as xt
+    wrapper_grad_limits(dev)
+
+    # each Function against plain autograd at the check shapes
+    g = GRAD_CHECK
+    lat, lon, pv = make_pv(g["B"], g["nlat"], g["nlon"], 21)
+    grid = xt.from_latlon(lat, lon, device=dev)
+    tlat, tlon, tpv = make_pv(*GRAD_TALL, 22)
+    tgrid = xt.from_latlon(tlat, tlon, device=dev)
+    q, tq = torch.as_tensor(pv).to(dev), torch.as_tensor(tpv).to(dev)
+    cases = function_cases(q, grid, g["N"], tq, tgrid, GRAD_LOCAL)
+    for i, (name, (fn, plain, wrapper, inputs)) in enumerate(cases.items()):
+        check_function(name, fn, plain, wrapper, inputs, 300 + i)
+    del cases
+
+    # each Function's forward and backward at its path's shape: ERA5 B =
+    # GRAD_ERA5_B (K8 on one level at LOCAL), K6 on the tall grid
+    B = GRAD_ERA5_B
+    tall_lat, tall_lon, tall_pv = make_pv(TALL["B"], TALL["nlat"],
+                                          TALL["nlon"], 200)
+    tall_grid = xt.from_latlon(tall_lat, tall_lon, device=dev)
+    cases = function_cases(era_q[:B].contiguous(), era_grid, ERA5["N"],
+                           torch.as_tensor(tall_pv).to(dev), tall_grid, LOCAL,
+                           n_lengths=CLENGTH_N[0])
+    times = {}
+    for i, (name, (fn, _, _, inputs)) in enumerate(cases.items()):
+        times[name] = time_backward(name, fn, inputs, 400 + i)
+    del cases
+
+    # the adjoint steps at the JAX bench's shapes
+    steps = {}
+    head = grad_losses(head_grid, head_table, LOCAL)["keff_lwa auto"]
+    steps["keff_lwa auto headline"] = adjoint_step(
+        "keff_lwa auto headline", head[0], head[1], head_q, HEADLINE["N"],
+        records)[:4]
+    q = era_q[:B].contiguous()
+    for label, (loss, kernels) in grad_losses(era_grid, era_table,
+                                              LOCAL).items():
+        key = f"{label} era5"
+        steps[key] = adjoint_step(key, loss, kernels, q, ERA5["N"],
+                                  records)[:4]
+
+    # card against CPU on a small step of each loss
+    s = GRAD_SMALL
+    slat, slon, spv = make_pv(s["B"], s["nlat"], s["nlon"], 23)
+    cgrid = xt.from_latlon(slat, slon, device="cpu")
+    ggrid = xt.from_latlon(slat, slon, device=dev)
+    ctab = xt.cal_area_eqCoord_table_hist(cgrid.fluid_mask(), cgrid.ydef,
+                                          cgrid.dA, increase=True, lt=True)
+    gtab = xt.cal_area_eqCoord_table_hist(ggrid.fluid_mask(), ggrid.ydef,
+                                          ggrid.dA, increase=True, lt=True)
+    gl = grad_losses(ggrid, gtab, GRAD_LOCAL)
+    cl = grad_losses(cgrid, ctab, GRAD_LOCAL)
+    sq = torch.as_tensor(spv).to(dev)
+    for label in gl:
+        grad_card_vs_cpu(label, gl[label][0], cl[label][0], sq, s["N"])
+    return times, steps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing is run", file=sys.stderr)
@@ -1548,12 +1985,21 @@ def main() -> int:
             f"{timing[key][1]:.4f} ms, bound {b_ms:.4f} ms "
             f"({bounds[key][1]}), {100 * b_ms / k_ms:.2f}% of bound")
 
+    # 7. gradients: the autograd Functions on the card
+    t0 = time.perf_counter()
+    grad_times, grad_steps = grad_phase(dev, records, era_steps[0], era_grid,
+                                        era_table(), head_q, head_grid,
+                                        head_table)
+    log(f"phase 7 gradients: OK in {time.perf_counter() - t0:.1f} s")
+
     def entry(r, key, err_key, extra=()):
         e = dict(name=r.name, route="cuda", source=r.source,
                  replaces=r.replaces, launches=totals[r.name],
                  max_abs_err=errs[err_key], ms=timing[key][0],
                  plain_ms=timing[key][1], bound_ms=bounds[key][0],
-                 bound_by=bounds[key][1], library_ms=LIBRARY_MS)
+                 bound_by=bounds[key][1], library_ms=LIBRARY_MS,
+                 backward_ms=grad_times[r.name][1],
+                 backward_peak_gib=grad_times[r.name][2])
         for tag, k in extra:
             if k in errs:
                 e[f"max_abs_err_{tag}"] = errs[k]

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .grid import _device
+from .kernels import needs_grad
 from .ops.gradient import gradient_index
 from .ops.histogram import weighted_cdf, weighted_cdf_both
 from .ops.interp import interp1d
@@ -174,10 +175,83 @@ def cal_area_eqCoord_table_hist(mask, ydef, dA, *, increase: bool,
     return Table(values=values, coords=ydef)
 
 
+def _finite_or_zero(t):
+    return torch.where(torch.isfinite(t), t, torch.zeros_like(t))
+
+
+class _GradSafeDiv(torch.autograd.Function):
+    """``num / den``: the plain division's primal (0/0 NaN, x/0 inf), and
+    the JAX package's grad-safe VJP (``core._grad_safe_div``).  Degenerate
+    lanes (den == 0, a non-finite operand) and non-finite products take
+    the zero subgradient, so a zero cotangent never meets a NaN jacobian
+    in the Keff tail; the live lanes' cotangents are factored, g/d before
+    the next /d, so no den^2 under- or overflows.  The backward is plain
+    torch ops, so it can be differentiated again."""
+
+    @staticmethod
+    def forward(ctx, num, den):
+        ctx.save_for_backward(num, den)
+        return num / den
+
+    @staticmethod
+    def backward(ctx, g):
+        num, den = ctx.saved_tensors
+        bad = (den == 0) | ~torch.isfinite(den) | ~torch.isfinite(num)
+        d = torch.where(bad, torch.ones_like(den), den)
+        gd = g / d
+        zero = torch.zeros_like(gd)
+        gnum = _finite_or_zero(torch.where(bad, zero, gd))
+        gden = _finite_or_zero(torch.where(bad, zero, -gd * (num / d)))
+        return gnum.sum_to_size(num.shape), gden.sum_to_size(den.shape)
+
+
+class _GradSafeDivSq(torch.autograd.Function):
+    """``num / (den * den)`` (the Leq^2 form) with the plain primal and
+    JAX's fused, factored VJP (``core._grad_safe_div_sq``): the cotangent
+    into den is -2 (g (num/d/d)) / d, each intermediate in float32 range
+    where a den^2 followed by a division would overflow; lanes where den^2
+    underflows to 0 count as degenerate too."""
+
+    @staticmethod
+    def forward(ctx, num, den):
+        ctx.save_for_backward(num, den)
+        return num / (den * den)
+
+    @staticmethod
+    def backward(ctx, g):
+        num, den = ctx.saved_tensors
+        bad = ((den == 0) | (den * den == 0) | ~torch.isfinite(den)
+               | ~torch.isfinite(num))
+        d = torch.where(bad, torch.ones_like(den), den)
+        gd = g / d
+        L = (num / d) / d
+        zero = torch.zeros_like(gd)
+        gnum = _finite_or_zero(torch.where(bad, zero, gd / d))
+        gden = _finite_or_zero(torch.where(bad, zero, -2.0 * (g * L) / d))
+        return gnum.sum_to_size(num.shape), gden.sum_to_size(den.shape)
+
+
+def grad_safe_div(num, den):
+    """``num / den`` whose gradient zeroes degenerate lanes
+    (:class:`_GradSafeDiv`); the plain division where nothing needs a
+    gradient."""
+    if needs_grad(num, den):
+        return _GradSafeDiv.apply(num, den)
+    return num / den
+
+
+def grad_safe_div_sq(num, den):
+    """``num / (den * den)`` with the grad-safe VJP
+    (:class:`_GradSafeDivSq`); plain where nothing needs a gradient."""
+    if needs_grad(num, den):
+        return _GradSafeDivSq.apply(num, den)
+    return num / (den * den)
+
+
 def cal_gradient_wrt_area(var, area):
     """dVar/dA via centered differences along the contour index (0/0 gives
-    NaN, x/0 inf: the plain division)."""
-    return gradient_index(var, -1) / gradient_index(area, -1)
+    NaN, x/0 inf: the plain division, with the grad-safe VJP)."""
+    return grad_safe_div(gradient_index(var, -1), gradient_index(area, -1))
 
 
 def cal_contour_weigh_mean(tracer, contours, dA, integrand, area=None, *,
@@ -203,11 +277,11 @@ def cal_contour_weigh_mean_hist(tracer, contours, dA, integrand, area=None, *,
 def cal_contour_mean(tracer, contours, dA, integrand, grdm, area=None, *,
                      lt: bool = False):
     """Along-contour mean <f |grad q|> / <|grad q|>, broadcast integrals
-    (0/0 gives NaN: the plain division)."""
+    (0/0 gives NaN: the plain division, with the grad-safe VJP)."""
     upper = cal_contour_weigh_mean(tracer, contours, dA, integrand * grdm,
                                    area, lt=lt)
     lower = cal_contour_weigh_mean(tracer, contours, dA, grdm, area, lt=lt)
-    return upper / lower
+    return grad_safe_div(upper, lower)
 
 
 def cal_contour_mean_hist(tracer, contours, dA, integrand, grdm, area=None, *,
@@ -217,20 +291,21 @@ def cal_contour_mean_hist(tracer, contours, dA, integrand, grdm, area=None, *,
                                         area, lt=lt)
     lower = cal_contour_weigh_mean_hist(tracer, contours, dA, grdm, area,
                                         lt=lt)
-    return upper / lower
+    return grad_safe_div(upper, lower)
 
 
 def cal_sqared_equivalent_length(dgrdSdA, dqdA):
-    """Leq^2 = (d int|grad q|^2 dA / dA) / (dq/dA)^2.  (The name keeps the
-    reference API's typo.)"""
-    return dgrdSdA / (dqdA * dqdA)
+    """Leq^2 = (d int|grad q|^2 dA / dA) / (dq/dA)^2, with the grad-safe
+    VJP.  (The name keeps the reference API's typo.)"""
+    return grad_safe_div_sq(dgrdSdA, dqdA)
 
 
 def cal_normalized_Keff(Leq2, Lmin, mask: float = 1e5):
     """nkeff = Leq^2 / Lmin / Lmin, NaN at and above ``mask``.  Two
     sequential divisions, not /(Lmin*Lmin): that is how the reference and
-    the float64 oracle round, and the fused form can flip the threshold."""
-    nkeff = Leq2 / Lmin / Lmin
+    the float64 oracle round, and the fused form can flip the threshold.
+    Both take the grad-safe VJP."""
+    nkeff = grad_safe_div(grad_safe_div(Leq2, Lmin), Lmin)
     return torch.where(nkeff < mask, nkeff,
                        torch.full_like(nkeff, float("nan")))
 

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..kernels import length as _k7
+from ..kernels import needs_grad
 from ..utils.constants import Rearth as _REARTH
 
 
@@ -39,12 +40,38 @@ def contour_lengths(data: torch.Tensor, contours: torch.Tensor,
     Ny, Nx = data.shape[-2:]
     N = contours.shape[-1]
     ctr = torch.broadcast_to(contours, batch + (N,))
-    totals = _k7.contour_lengths(
-        data.reshape(-1, Ny, Nx).contiguous(), ctr.reshape(-1, N).contiguous(),
-        yc, xc, latlon=latlon, chunk=chunk).reshape(batch + (N,))
+    df = data.reshape(-1, Ny, Nx).contiguous()
+    cf = ctr.reshape(-1, N).contiguous()
+    if needs_grad(df, cf, yc, xc):
+        totals = _ContourLengths.apply(df, cf, yc, xc, latlon, chunk)
+    else:
+        totals = _k7.contour_lengths(df.detach(), cf.detach(), yc.detach(),
+                                     xc.detach(), latlon=latlon, chunk=chunk)
+    totals = totals.reshape(batch + (N,))
     totals = torch.where(totals == 0, torch.full_like(totals, float("nan")),
                          totals)
     return totals * Rearth if latlon else totals
+
+
+class _ContourLengths(torch.autograd.Function):
+    """K7 with the plain version's VJP (JAX:
+    ``diagnostics/length._lengths_pallas_ad``), recomputed a chunk of
+    levels at a time (:func:`..kernels.length.contour_lengths_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, data, levels, yc, xc, latlon, chunk):
+        ctx.save_for_backward(data, levels, yc, xc)
+        ctx.latlon, ctx.chunk = latlon, chunk
+        return _k7.contour_lengths(data.detach(), levels.detach(),
+                                   yc.detach(), xc.detach(), latlon=latlon,
+                                   chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _k7.contour_lengths_vjp(*ctx.saved_tensors, g,
+                                        ctx.needs_input_grad[:4],
+                                        latlon=ctx.latlon, chunk=ctx.chunk)
+        return (*grads, None, None)
 
 
 _PAD_MODES = ("edge", "wrap", "reflect", "symmetric", "constant")

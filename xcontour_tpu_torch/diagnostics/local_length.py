@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from ..kernels import length as _k8
+from ..kernels import needs_grad
 from ..utils.constants import Rearth as _REARTH
 
 
@@ -52,6 +53,25 @@ def rolling_mean(data: torch.Tensor, window: int, stride: int,
     return torch.where(n >= min_count, mean, torch.full_like(mean, float("nan"))), oy, ox
 
 
+class _LocalLengths(torch.autograd.Function):
+    """K8 with the plain version's VJP (JAX:
+    ``diagnostics/local_length._local_pallas_ad``), recomputed a row of
+    windows at a time (:func:`..kernels.length.local_lengths_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, data, levels, yc, xc, kw):
+        ctx.save_for_backward(data, levels, yc, xc)
+        ctx.kw = kw
+        return _k8.local_lengths(data.detach(), levels.detach(), yc.detach(),
+                                 xc.detach(), **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _k8.local_lengths_vjp(*ctx.saved_tensors, g,
+                                      ctx.needs_input_grad[:4], **ctx.kw)
+        return (*grads, None)
+
+
 def _window_centers(ydef, xdef, oy, ox, window: int):
     """Window-center coordinates (the anchors when the grid is narrower
     than half a window)."""
@@ -79,8 +99,13 @@ def local_contour_lengths(data: torch.Tensor, ydef: torch.Tensor,
     means, oy, ox = rolling_mean(data, window, stride, min_count)
     if levels is None:
         levels = means
-    totals = _k8.local_lengths(data.contiguous(), levels.contiguous(), yc, xc,
-                               window=window, stride=stride, latlon=latlon)
+    d, lv = data.contiguous(), levels.contiguous()
+    kw = dict(window=window, stride=stride, latlon=latlon)
+    if needs_grad(d, lv, yc, xc):
+        totals = _LocalLengths.apply(d, lv, yc, xc, kw)
+    else:
+        totals = _k8.local_lengths(d.detach(), lv.detach(), yc.detach(),
+                                   xc.detach(), **kw)
     lengths = torch.where(torch.isnan(levels) | (totals == 0),
                           torch.full_like(totals, float("nan")), totals)
     if latlon:

@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 
 from ..kernels import lwa as _kl
+from ..kernels import needs_grad
 
 
 def nanmax(t: torch.Tensor) -> torch.Tensor:
@@ -48,6 +49,40 @@ def _resolve_method(method: str, part: str) -> str:
     return method
 
 
+def _launch(q, Q, W, method, increase, part, variant2):
+    """The kernel wrapper of ``method``: K3/K5 for 'lin', K4/K6 else."""
+    if method == "lin":
+        lin = _kl.lwa_lin2 if variant2 else _kl.lwa_lin
+        return lin(q, Q, W, increase=increase)
+    return _kl.lwa_dense(q, Q, W, increase=increase, part=part,
+                         variant2=variant2)
+
+
+class _LWA(torch.autograd.Function):
+    """K3/K5 ('lin') or K4/K6 ('dense') with the plain twin's VJP (JAX:
+    ``diagnostics/lwa._lwa_pallas_ad``): the lin twin for 'lin', the dense
+    twin for 'dense' and part selections, recomputed 16 surfaces at a time
+    (:func:`..kernels.lwa.lwa_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, q, Q, W, method, increase, part, variant2):
+        ctx.save_for_backward(q, Q, W)
+        ctx.args = (method, increase, part, variant2)
+        return _launch(q.detach(), Q.detach(), W.detach(), *ctx.args)
+
+    @staticmethod
+    def backward(ctx, g):
+        method, increase, part, variant2 = ctx.args
+        if method == "lin":
+            kind, kw = ("lin2" if variant2 else "lin"), dict(increase=increase)
+        else:
+            kind = "dense"
+            kw = dict(increase=increase, part=part, variant2=variant2)
+        grads = _kl.lwa_vjp(kind, *ctx.saved_tensors, g,
+                            ctx.needs_input_grad[:3], **kw)
+        return (*grads, None, None, None, None)
+
+
 def _lwa(q, Q, dA, ydef, increase, part, weight, method, variant2):
     part = part.lower()
     method = _resolve_method(method, part)
@@ -59,12 +94,11 @@ def _lwa(q, Q, dA, ydef, increase, part, weight, method, variant2):
     qf = q.reshape(-1, Ny, Nx).contiguous()
     Qf = torch.broadcast_to(Q, batch + (Ny,)).reshape(-1, Ny).contiguous()
     W = torch.broadcast_to(W, (Ny, Nx)).contiguous()
-    if method == "lin":
-        lin = _kl.lwa_lin2 if variant2 else _kl.lwa_lin
-        out = lin(qf, Qf, W, increase=increase)
+    args = (method, increase, part, variant2)
+    if needs_grad(qf, Qf, W):
+        out = _LWA.apply(qf, Qf, W, *args)
     else:
-        out = _kl.lwa_dense(qf, Qf, W, increase=increase, part=part,
-                            variant2=variant2)
+        out = _launch(qf.detach(), Qf.detach(), W.detach(), *args)
     return out.reshape(batch + (Ny, Nx))
 
 

@@ -8,11 +8,18 @@ tensors it launches the kernel or raises — there is no fallback.
 Each kernel has a :class:`Kernel` record whose ``launches`` count goes up by
 one per kernel launch, so a run can show that its main path went through
 the kernels.
+
+Gradients: the modules that call a wrapper wrap it in a
+``torch.autograd.Function`` (the JAX package's custom VJPs), whose forward
+is the wrapper on detached tensors and whose backward is plain PyTorch:
+:func:`vjp` recomputes the plain version piece by piece.  A call where no
+input needs a gradient (:func:`needs_grad`) calls the wrapper directly.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,7 +37,9 @@ class Kernel:
 
 def check_cuda_inputs(name: str, **tensors: torch.Tensor) -> None:
     """The wrappers' launch preconditions: float32, contiguous, on one CUDA
-    device, and not requiring grad (the kernels have no backward yet)."""
+    device, and not requiring grad: a wrapper records no graph.  Gradients
+    go through the entry points (the ops, diagnostics and pipelines), whose
+    autograd Functions pass the wrappers detached tensors."""
     device = None
     for arg, t in tensors.items():
         if t.device.type != "cuda":
@@ -45,8 +54,10 @@ def check_cuda_inputs(name: str, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: {arg} is not contiguous")
         if t.requires_grad:
             raise RuntimeError(
-                f"{name}: {arg} requires grad; the CUDA kernel has no "
-                "backward yet (see ROADMAP Queue 1 item 9)")
+                f"{name}: {arg} requires grad; a kernel wrapper records no "
+                "graph: differentiate through the entry points "
+                "(squared_gradient, weighted_cdf*, local_wave_activity*, "
+                "contour_lengths, local_contour_lengths, the pipelines)")
 
 
 def check_status(name: str, status: int) -> None:
@@ -57,3 +68,76 @@ def check_status(name: str, status: int) -> None:
 
 def stream_handle() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether a call must go through its autograd Function: grad mode is
+    on and some input requires grad.  Otherwise the caller calls the
+    wrapper directly, with no autograd bookkeeping."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+Piece = Tuple[Callable[[Sequence[torch.Tensor]], torch.Tensor], torch.Tensor]
+
+
+def vjp(pieces: Iterable[Piece], inputs: Sequence[torch.Tensor],
+        needs: Sequence[bool],
+        prep: Optional[Callable[..., Sequence[torch.Tensor]]] = None
+        ) -> list:
+    """The cotangents of ``inputs`` for an output made of pieces, by
+    recomputing each piece under autograd.
+
+    ``parts = prep(*inputs)`` (the inputs themselves without ``prep``);
+    each piece is ``(fn, cotangent)`` with ``fn(parts)`` that piece of the
+    output.  A piece is recomputed and differentiated against the parts
+    alone, so memory holds one piece's temporaries; the parts' summed
+    cotangents then go back through ``prep`` once.  Returns one cotangent
+    per input, None where ``needs`` is False or the input is unused.
+
+    The backward of a Function runs with grad mode on when a graph of the
+    gradient is asked for (``create_graph``); the recomputation is then
+    recorded on the saved inputs themselves, so the gradient can be
+    differentiated again."""
+    create = torch.is_grad_enabled()
+    with torch.enable_grad():
+        xs = [x if create else x.detach().requires_grad_(n)
+              for x, n in zip(inputs, needs)]
+        parts = list(xs if prep is None else prep(*xs))
+        hold = parts if create or prep is None else \
+            [p.detach().requires_grad_(p.requires_grad) for p in parts]
+        live = [i for i, h in enumerate(hold) if h.requires_grad]
+        acc = [None] * len(hold)
+        for fn, g in pieces:
+            out = fn(hold)
+            if not out.requires_grad:
+                continue
+            grads = torch.autograd.grad(out, [hold[i] for i in live], g,
+                                        create_graph=create,
+                                        retain_graph=create, allow_unused=True)
+            for i, gi in zip(live, grads):
+                if gi is not None:
+                    acc[i] = gi if acc[i] is None else acc[i] + gi
+        if prep is None:
+            return [a if n else None for a, n in zip(acc, needs)]
+        out = [None] * len(inputs)
+        back = []
+        for p, a in zip(parts, acc):
+            if a is None:
+                continue
+            # a part that is an input passes its cotangent on as it is
+            same = [i for i, x in enumerate(xs) if p is x]
+            if same:
+                i = same[0]
+                out[i] = a if out[i] is None else out[i] + a
+            else:
+                back.append((p, a))
+        want = [i for i, n in enumerate(needs) if n]
+        if back and want:
+            grads = torch.autograd.grad([p for p, _ in back],
+                                        [xs[i] for i in want],
+                                        [a for _, a in back],
+                                        create_graph=create, allow_unused=True)
+            for i, gi in zip(want, grads):
+                if gi is not None:
+                    out[i] = gi if out[i] is None else out[i] + gi
+        return [o if n else None for o, n in zip(out, needs)]

@@ -67,19 +67,25 @@ def bin_range(N: int, C: int) -> int:
     return (floats - 1) // (cg + 1)
 
 
+def digitize(values: torch.Tensor, edges: torch.Tensor):
+    """(bin, valid) of values (B, G) against ascending edges (B, N+1):
+    searchsorted(side='right') - 1 with the top edge inclusive, clamped to
+    [0, N-1]; valid where edges[0] <= v <= edges[N] (never NaN)."""
+    N = edges.shape[-1] - 1
+    idx = torch.searchsorted(edges.contiguous(), values.contiguous(),
+                             right=True) - 1
+    top = edges[:, -1:]
+    idx = torch.where(values == top, N - 1, idx).clamp(0, N - 1)
+    return idx, (values >= edges[:, :1]) & (values <= top)
+
+
 def weighted_cdf_plain(values: torch.Tensor, edges: torch.Tensor,
                        weights: torch.Tensor) -> torch.Tensor:
     """values (B, G); edges (B, N+1) ascending; weights (B, C, G) ->
     (B, C, N) ascending CDF."""
     B, C, G = weights.shape
     N = edges.shape[-1] - 1
-    # searchsorted(side='right') - 1, the top edge inclusive; valid where
-    # edges[0] <= v <= edges[N] (never NaN)
-    idx = torch.searchsorted(edges.contiguous(), values.contiguous(),
-                             right=True) - 1
-    top = edges[:, -1:]
-    idx = torch.where(values == top, N - 1, idx).clamp(0, N - 1)
-    valid = (values >= edges[:, :1]) & (values <= top)
+    idx, valid = digitize(values, edges)
     w = torch.where(torch.isnan(weights) | ~valid[:, None, :],
                     torch.zeros_like(weights), weights)
     hist = torch.zeros((B, C, N), dtype=weights.dtype, device=weights.device)

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from . import Kernel, check_cuda_inputs, check_status, stream_handle
+from . import Kernel, check_cuda_inputs, check_status, stream_handle, vjp
 
 KERNEL_LENGTHS = Kernel("contour_lengths", "xcontour_tpu_torch/csrc/length.cu",
                         "xcontour_tpu/kernels/length_pallas.py:188")
@@ -68,12 +68,27 @@ def _level_total(level, v00, v01, v10, v11, y0, y1, x0, x1, nan_cell,
     rig = (lerp(frac(v01, v11), y0, y1), x1)
 
     def seglen(p, q):
+        # the twin's grad-safe forms (_hypot_grad_safe, _haversine): the
+        # zero-length segments that levels pinned to a field's extrema make
+        # through cell corners have 0/0 jacobians, so those lanes (and the
+        # antipodal a == 1) take their exact primal as a constant through
+        # a substituted argument, and the zero subgradient
         if not latlon:
-            return torch.hypot(p[0] - q[0], p[1] - q[1])
+            d0, d1 = p[0] - q[0], p[1] - q[1]
+            deg = (d0 == 0) & (d1 == 0)
+            one = zero + 1
+            return torch.where(deg, zero,
+                               torch.hypot(torch.where(deg, one, d0),
+                                           torch.where(deg, one, d1)))
         a = (torch.sin((q[0] - p[0]) * 0.5) ** 2
              + torch.cos(p[0]) * torch.cos(q[0])
              * torch.sin((q[1] - p[1]) * 0.5) ** 2)
-        return 2.0 * torch.arcsin(torch.sqrt(torch.clamp(a, 0.0, 1.0)))
+        a = torch.clamp(a, 0.0, 1.0)
+        bad = (a == 0) | (a == 1)
+        core = 2.0 * torch.arcsin(torch.sqrt(torch.where(bad, zero + 0.25,
+                                                         a)))
+        return torch.where(bad, torch.where(a == 0, zero, zero + torch.pi),
+                           core)
 
     def sel(c, p, q):
         return (torch.where(c, p[0], q[0]), torch.where(c, p[1], q[1]))
@@ -128,6 +143,29 @@ def contour_lengths_plain(data: torch.Tensor, levels: torch.Tensor,
     if not outs:
         return levels.new_zeros((B, 0))
     return torch.cat(outs, dim=-1)
+
+
+# the most (batch element, level, cell) triples one level chunk of the
+# plain versions' VJP recomputes: its temporaries are ~80 tensors of this
+# size (64 MB each in float32), whatever the batch
+VJP_TRIPLES = 1 << 24
+
+
+def contour_lengths_vjp(data, levels, yc, xc, g, needs, *, latlon: bool,
+                        chunk: int = 8):
+    """Cotangents of (data, levels, yc, xc) of :func:`contour_lengths_plain`
+    for the cotangent g (B, N), a chunk of levels at a time: at most
+    ``chunk`` levels, fewer where B x levels x cells would pass
+    ``VJP_TRIPLES``."""
+    B, N = levels.shape
+    cells = data.shape[-2] * data.shape[-1]
+    step = max(1, min(chunk, VJP_TRIPLES // max(1, B * cells)))
+
+    def piece(k):
+        return lambda p: contour_lengths_plain(
+            p[0], p[1][:, k:k + step], p[2], p[3], latlon=latlon, chunk=step)
+    pieces = [(piece(k), g[:, k:k + step]) for k in range(0, N, step)]
+    return vjp(pieces, (data, levels, yc, xc), needs)
 
 
 def _check_coords(name, c, B, n, what):
@@ -208,14 +246,44 @@ def local_lengths_plain(data: torch.Tensor, levels: torch.Tensor,
     Wx = len(_anchors(Nx, window, stride))
     if len(oy) == 0 or Wx == 0:
         return levels.new_zeros((len(oy), Wx))
-    xwin = xc.unfold(0, window, stride)                   # (Wx, window)
-    rows = []
-    for iy, y0 in enumerate(oy):
-        patches = data[y0:y0 + window].unfold(1, window, stride)
-        rows.append(contour_lengths_plain(
-            patches.permute(1, 0, 2), levels[iy, :, None],
-            yc[y0:y0 + window], xwin, latlon=latlon)[:, 0])
-    return torch.stack(rows)
+    return torch.cat([_window_rows(data, levels, yc, xc, slice(iy, iy + 1),
+                                   window, stride, latlon)
+                      for iy in range(len(oy))])
+
+
+def _window_rows(data, levels, yc, xc, rows: slice, window: int, stride: int,
+                 latlon: bool):
+    """Raw totals (k, Wx) of the k window rows ``rows``: each window a
+    batch element of :func:`contour_lengths_plain` with its own y and x
+    coordinates."""
+    k = rows.stop - rows.start
+    y0 = rows.start * stride
+    span = slice(y0, y0 + (k - 1) * stride + window)
+    patches = data[span].unfold(0, window, stride).unfold(1, window, stride)
+    Wx = patches.shape[1]                          # (k, Wx, window, window)
+    ywin = yc[span].unfold(0, window, stride)[:, None]
+    xwin = xc.unfold(0, window, stride)[None]
+    return contour_lengths_plain(
+        patches.reshape(k * Wx, window, window),
+        levels[rows].reshape(k * Wx, 1),
+        ywin.expand(k, Wx, window).reshape(k * Wx, window),
+        xwin.expand(k, Wx, window).reshape(k * Wx, window),
+        latlon=latlon)[:, 0].reshape(k, Wx)
+
+
+def local_lengths_vjp(data, levels, yc, xc, g, needs, *, window: int,
+                      stride: int, latlon: bool):
+    """Cotangents of (data, levels, yc, xc) of :func:`local_lengths_plain`
+    for the cotangent g (Wy, Wx), a chunk of window rows at a time: as
+    many rows as keep (windows x cells) within ``VJP_TRIPLES``."""
+    Wy, Wx = levels.shape
+    step = max(1, VJP_TRIPLES // max(1, Wx * (window - 1) ** 2))
+
+    def piece(rows):
+        return lambda p: _window_rows(*p, rows, window, stride, latlon)
+    pieces = [(piece(slice(i, min(Wy, i + step))), g[i:i + step])
+              for i in range(0, Wy, step)]
+    return vjp(pieces, (data, levels, yc, xc), needs)
 
 
 def local_lengths(data: torch.Tensor, levels: torch.Tensor, yc: torch.Tensor,

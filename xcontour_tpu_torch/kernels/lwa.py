@@ -29,9 +29,11 @@ y dimension of their row chunks and column strips.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from . import Kernel, check_cuda_inputs, check_status, stream_handle
+from . import Kernel, check_cuda_inputs, check_status, stream_handle, vjp
 
 KERNEL_LIN = Kernel("lwa_lin", "xcontour_tpu_torch/csrc/lwa.cu",
                     "xcontour_tpu/kernels/lwa_pallas.py:86")
@@ -89,11 +91,8 @@ def _prefix_E(inc):
     return torch.cat([zero, torch.cumsum(inc, dim=1)], dim=1)
 
 
-def lwa_lin_plain(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
-                  increase: bool) -> torch.Tensor:
-    """Linearized part='all' LWA in plain PyTorch (``_lwa_lin_xla``): the
-    E t-term by the telescoping recurrence plus a chunked 4-op c-term
-    reduction per surface."""
+def _lin_parts(q, Q, W, *, increase: bool):
+    """lwa_lin_plain's per-field terms (qk, Qc, Wv, E)."""
     qc, Qc, Qt = _center(q, Q)
     sent = float("inf") if increase else float("-inf")
     valid = torch.isfinite(q) & torch.isfinite(W)
@@ -103,24 +102,33 @@ def lwa_lin_plain(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
     P0 = torch.cumsum(Wv, dim=1) - Wv
     E = _prefix_E((Qt[:, 1:, None] - qt[:, :-1]) * Wv[:, :-1]
                   + (Qt[:, 1:] - Qt[:, :-1])[..., None] * P0[:, :-1])
-    zero = torch.zeros((), dtype=q.dtype, device=q.device)
-    rows = []
-    for js in _surface_chunks(q.shape[1]):
-        Qj = Qc[:, js, None, None]                        # (B, c, 1, 1)
-        qe = qk[:, None] - Qj                             # (B, c, Ny, Nx)
-        ext = torch.minimum(qe, zero) if increase else torch.maximum(qe, zero)
-        R = (ext * Wv[:, None]).sum(2)                    # (B, c, Nx)
-        row = -(R + E[:, js])
-        rows.append(torch.where(torch.isnan(Qj[..., 0]), zero, row))
-    return torch.cat(rows, dim=1)
+    return qk, Qc, Wv, E
 
 
-def lwa_lin2_plain(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
-                   increase: bool) -> torch.Tensor:
-    """Linearized part='all' LWA2 in plain PyTorch
-    (``_lwa_lin_xla(variant2=True)``): invalid profile rows become
-    sentinels with zero weight, the t-term E follows the variant-2
-    telescoping recurrence, and a non-finite surface value gives 0."""
+def _lin_rows(parts, js: slice, *, increase: bool):
+    """lwa_lin_plain's surfaces ``js`` (B, c, Nx) from its parts."""
+    qk, Qc, Wv, E = parts
+    zero = torch.zeros((), dtype=qk.dtype, device=qk.device)
+    Qj = Qc[:, js, None, None]                            # (B, c, 1, 1)
+    qe = qk[:, None] - Qj                                 # (B, c, Ny, Nx)
+    ext = torch.minimum(qe, zero) if increase else torch.maximum(qe, zero)
+    R = (ext * Wv[:, None]).sum(2)                        # (B, c, Nx)
+    row = -(R + E[:, js])
+    return torch.where(torch.isnan(Qj[..., 0]), zero, row)
+
+
+def lwa_lin_plain(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
+                  increase: bool) -> torch.Tensor:
+    """Linearized part='all' LWA in plain PyTorch (``_lwa_lin_xla``): the
+    E t-term by the telescoping recurrence plus a chunked 4-op c-term
+    reduction per surface."""
+    parts = _lin_parts(q, Q, W, increase=increase)
+    return torch.cat([_lin_rows(parts, js, increase=increase)
+                      for js in _surface_chunks(q.shape[1])], dim=1)
+
+
+def _lin2_parts(q, Q, W, *, increase: bool):
+    """lwa_lin2_plain's per-field terms (qc, Qs, Wv, E)."""
     qc, Qc, Qt = _center(q, Q)
     validQ = torch.isfinite(Q)
     sent = float("inf") if increase else float("-inf")
@@ -131,16 +139,30 @@ def lwa_lin2_plain(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
     qt = torch.where(torch.isfinite(q), qc, torch.zeros_like(qc))
     E = _prefix_E((Qt[:, :-1, None] - qt[:, 1:]) * Wv[:, :-1]
                   - (qt[:, 1:] - qt[:, :-1]) * P0[:, :-1])
-    zero = torch.zeros((), dtype=q.dtype, device=q.device)
-    rows = []
-    for js in _surface_chunks(q.shape[1]):
-        qrow = qc[:, js]                                  # (B, c, Nx)
-        qe = qrow[:, :, None, :] - Qs[:, None, :, None]   # (B, c, Ny, Nx)
-        ext = torch.maximum(qe, zero) if increase else torch.minimum(qe, zero)
-        R = (ext * Wv[:, None]).sum(2)                    # (B, c, Nx)
-        row = -(R + E[:, js])
-        rows.append(torch.where(torch.isfinite(qrow), row, zero))
-    return torch.cat(rows, dim=1)
+    return qc, Qs, Wv, E
+
+
+def _lin2_rows(parts, js: slice, *, increase: bool):
+    """lwa_lin2_plain's surfaces ``js`` (B, c, Nx) from its parts."""
+    qc, Qs, Wv, E = parts
+    zero = torch.zeros((), dtype=qc.dtype, device=qc.device)
+    qrow = qc[:, js]                                      # (B, c, Nx)
+    qe = qrow[:, :, None, :] - Qs[:, None, :, None]       # (B, c, Ny, Nx)
+    ext = torch.maximum(qe, zero) if increase else torch.minimum(qe, zero)
+    R = (ext * Wv[:, None]).sum(2)                        # (B, c, Nx)
+    row = -(R + E[:, js])
+    return torch.where(torch.isfinite(qrow), row, zero)
+
+
+def lwa_lin2_plain(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
+                   increase: bool) -> torch.Tensor:
+    """Linearized part='all' LWA2 in plain PyTorch
+    (``_lwa_lin_xla(variant2=True)``): invalid profile rows become
+    sentinels with zero weight, the t-term E follows the variant-2
+    telescoping recurrence, and a non-finite surface value gives 0."""
+    parts = _lin2_parts(q, Q, W, increase=increase)
+    return torch.cat([_lin2_rows(parts, js, increase=increase)
+                      for js in _surface_chunks(q.shape[1])], dim=1)
 
 
 def _mask3(qe, m, increase: bool):
@@ -172,23 +194,51 @@ def lwa_dense_plain(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
     the part selected with ``increase`` (the reference's LWA2)."""
     if part not in _PARTS:
         raise ValueError("part must be in ['all', 'upper', 'lower']")
-    Ny = q.shape[1]
-    Wz = torch.where(torch.isnan(W), torch.zeros_like(W), W)
-    iy = torch.arange(Ny, device=q.device)
+    parts = _dense_parts(q, Q, W)
+    kw = dict(increase=increase, part=part, variant2=variant2)
+    return torch.cat([_dense_rows(parts, js, **kw)
+                      for js in _surface_chunks(q.shape[1])], dim=1)
+
+
+def _dense_parts(q, Q, W):
+    """lwa_dense_plain's per-field terms: q, Q and W with NaN weights
+    zeroed."""
+    return q, Q, torch.where(torch.isnan(W), torch.zeros_like(W), W)
+
+
+def _dense_rows(parts, js: slice, *, increase: bool, part: str,
+                variant2: bool):
+    """lwa_dense_plain's surfaces ``js`` (B, c, Nx) from its parts."""
+    q, Q, Wz = parts
+    iy = torch.arange(q.shape[1], device=q.device)
+    jj = torch.arange(js.start, js.stop, device=q.device)
     zero = torch.zeros((), dtype=q.dtype, device=q.device)
-    rows = []
-    for js in _surface_chunks(Ny):
-        jj = torch.arange(js.start, js.stop, device=q.device)
-        if variant2:
-            qe = q[:, js, None, :] - Q[:, None, :, None]   # (B, c, Ny, Nx)
-        else:
-            qe = q[:, None] - Q[:, js, None, None]          # (B, c, Ny, Nx)
-        m = (iy[None, :] >= jj[:, None])[None, :, :, None]
-        mask = _mask3(qe, m, increase != variant2)
-        mz = _part_zero(mask, part, increase)
-        qz = torch.where(torch.isnan(qe), zero, qe)
-        rows.append(-(qz * mz * Wz).sum(2))
-    return torch.cat(rows, dim=1)
+    if variant2:
+        qe = q[:, js, None, :] - Q[:, None, :, None]       # (B, c, Ny, Nx)
+    else:
+        qe = q[:, None] - Q[:, js, None, None]              # (B, c, Ny, Nx)
+    m = (iy[None, :] >= jj[:, None])[None, :, :, None]
+    mask = _mask3(qe, m, increase != variant2)
+    mz = _part_zero(mask, part, increase)
+    qz = torch.where(torch.isnan(qe), zero, qe)
+    return -(qz * mz * Wz).sum(2)
+
+
+def lwa_vjp(kind: str, q, Q, W, g, needs, **kw):
+    """Cotangents of (q, Q, W) of the plain version ``kind`` ('lin',
+    'lin2' or 'dense', keyword arguments ``kw``) for the cotangent g
+    (B, Ny, Nx): its per-field terms once, its surfaces recomputed and
+    differentiated 16 at a time, so the backward holds one chunk's
+    (B, 16, Ny, Nx) temporaries (the JAX package differentiates the same
+    twins: 'lin' for method 'lin', 'dense' for 'dense' and parts)."""
+    prep, rows = {"lin": (_lin_parts, _lin_rows),
+                  "lin2": (_lin2_parts, _lin2_rows),
+                  "dense": (_dense_parts, _dense_rows)}[kind]
+    if kind != "dense":
+        prep = functools.partial(prep, **kw)
+    pieces = [(functools.partial(rows, js=js, **kw), g[:, js])
+              for js in _surface_chunks(q.shape[1])]
+    return vjp(pieces, (q, Q, W), needs, prep=prep)
 
 
 def _check_shapes(name, q, Q, W):

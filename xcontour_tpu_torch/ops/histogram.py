@@ -24,6 +24,7 @@ from typing import List, Sequence
 import torch
 
 from ..kernels import hist as _k2
+from ..kernels import needs_grad
 
 
 def _edges(bf: torch.Tensor):
@@ -36,26 +37,79 @@ def _edges(bf: torch.Tensor):
     return bincrease, torch.cat([asc[:, :1] - step, asc], dim=1)
 
 
-def _finish(cdf: torch.Tensor, bincrease: torch.Tensor, lt: bool):
-    """Ascending (B, C, N) CDF -> the reference CDF (lt/gt flip, then the
-    decreasing-bin re-pairing)."""
+def _finish_one(cdf: torch.Tensor, bincrease: torch.Tensor, lt: bool):
     if not lt:
         cdf = cdf[..., -1:] - cdf
-    return torch.where(bincrease[:, None, :], cdf, cdf.flip(-1))
+    return torch.where(bincrease, cdf, cdf.flip(-1))
+
+
+def _finish(asc, bincrease: torch.Tensor, lt: bool) -> List[torch.Tensor]:
+    """Ascending CDFs -> the reference CDFs (lt/gt flip, then the
+    decreasing-bin re-pairing), one (B, N) tensor per channel.  A (B, C, N)
+    launch output is finished at once; a tuple of (B, N) channels (the
+    outputs of :class:`_WeightedCDF`) each on its own, so that a channel
+    no differentiated output uses gets no cotangent."""
+    if isinstance(asc, tuple):
+        return [_finish_one(a, bincrease, lt) for a in asc]
+    return list(_finish_one(asc, bincrease[:, None, :], lt).unbind(1))
+
+
+class _WeightedCDF(torch.autograd.Function):
+    """K2 with the analytic weight cotangent (JAX:
+    ``ops/histogram._pallas_cdf_multi_ad``).  Forward: one launch for all
+    channels, one (B, N) output per channel.  Backward: the ascending CDF is
+    linear in the weights, out[k] = sum of w over cells with bin <= k, so
+    a weight's cotangent is the reverse cumulative sum of its channel's
+    cotangent over levels, gathered at the cell's bin; zero on cells
+    outside [e0, eN], NaN values and NaN weights.  Values and edges get
+    none (the digitize is piecewise constant).  A channel whose output has
+    no gradient gets None: its zeros are never made."""
+
+    @staticmethod
+    def forward(ctx, vf, edges, *wfs):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(vf, edges, *wfs)
+        out = _k2.weighted_cdf(vf.detach(), edges.detach(),
+                               torch.stack([w.detach() for w in wfs], dim=1))
+        return tuple(c.clone() for c in out.unbind(1))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        vf, edges, *wfs = ctx.saved_tensors
+        live = [c for c, g in enumerate(grads)
+                if g is not None and ctx.needs_input_grad[2 + c]]
+        out = [None] * len(wfs)
+        if live:
+            idx, valid = _k2.digitize(vf, edges)
+            for c in live:
+                g = grads[c]
+                above = g.flip(-1).cumsum(-1).flip(-1)        # sum over k >= j
+                cot = torch.gather(above, 1, idx)
+                keep = valid & ~torch.isnan(wfs[c])
+                out[c] = torch.where(keep, cot, torch.zeros_like(cot))
+        return (None, None, *out)
 
 
 def _ascending_cdf(values, bins, weights_list):
-    """One K2 launch: (ascending (B, C, N) CDF, bincrease (B, 1), batch
-    shape) of the weights over the values, digitized once."""
+    """One K2 launch: (ascending CDFs, bincrease (B, 1), batch shape) of
+    the weights over the values, digitized once.  Where a weight needs a
+    gradient the launch goes through :class:`_WeightedCDF` (a tuple of
+    (B, N) channels); otherwise the wrapper is called directly ((B, C, N))."""
     batch_shape = values.shape[:-2]
     G = values.shape[-2] * values.shape[-1]
     N = bins.shape[-1]
     vf = values.reshape(-1, G).contiguous()
-    wf = torch.stack([torch.broadcast_to(w, values.shape).reshape(-1, G)
-                      for w in weights_list], dim=1).contiguous()
+    wfs = [torch.broadcast_to(w, values.shape).reshape(-1, G)
+           for w in weights_list]
     bf = torch.broadcast_to(bins, batch_shape + (N,)).reshape(-1, N)
     bincrease, edges = _edges(bf)
-    return _k2.weighted_cdf(vf, edges.contiguous(), wf), bincrease, batch_shape
+    edges = edges.contiguous()
+    if needs_grad(*wfs):
+        asc = _WeightedCDF.apply(vf, edges, *(w.contiguous() for w in wfs))
+    else:
+        asc = _k2.weighted_cdf(vf.detach(), edges.detach(),
+                               torch.stack(wfs, dim=1).contiguous().detach())
+    return asc, bincrease, batch_shape
 
 
 def weighted_cdf_multi(values: torch.Tensor, bins: torch.Tensor,
@@ -67,9 +121,8 @@ def weighted_cdf_multi(values: torch.Tensor, bins: torch.Tensor,
     values : (..., Ny, Nx); bins : (N,) or (..., N); each weight
     broadcastable to ``values``.  Returns a list of (..., N) tensors."""
     asc, bincrease, batch_shape = _ascending_cdf(values, bins, weights_list)
-    cdf = _finish(asc, bincrease, lt)
-    return [cdf[:, c].reshape(batch_shape + (cdf.shape[-1],))
-            for c in range(len(weights_list))]
+    return [c.reshape(batch_shape + (c.shape[-1],))
+            for c in _finish(asc, bincrease, lt)]
 
 
 def weighted_cdf_both(values: torch.Tensor, bins: torch.Tensor,
@@ -77,8 +130,9 @@ def weighted_cdf_both(values: torch.Tensor, bins: torch.Tensor,
     """(the ``lt`` CDF, the ``not lt`` CDF) of one weight from one digitize:
     the two differ only in how the ascending CDF is finished."""
     asc, bincrease, batch_shape = _ascending_cdf(values, bins, [weights])
-    return tuple(_finish(asc, bincrease, side)[:, 0].reshape(
-        batch_shape + (asc.shape[-1],)) for side in (lt, not lt))
+    return tuple(c.reshape(batch_shape + (c.shape[-1],))
+                 for side in (lt, not lt)
+                 for c in _finish(asc, bincrease, side))
 
 
 def weighted_cdf(values: torch.Tensor, bins: torch.Tensor,

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..grid import Grid
+from ..kernels import needs_grad, vjp
 from ..kernels import stencil as _k1
 from ..kernels.stencil import _centered_x, _centered_y
 from .gradient import gradient_index
@@ -48,16 +49,41 @@ def gradient(q: torch.Tensor, grid: Grid, bc_y: str | None = None):
     return qy, qx
 
 
+class _SquaredGradient(torch.autograd.Function):
+    """K1 with the plain version's VJP (JAX:
+    ``ops/stencil._squared_gradient_pallas_ad``), recomputed elementwise
+    under autograd."""
+
+    @staticmethod
+    def forward(ctx, q, rdx, rdy, kw):
+        ctx.save_for_backward(q, rdx, rdy)
+        ctx.kw = kw
+        return _k1.squared_gradient(q.detach(), rdx.detach(), rdy.detach(),
+                                    **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        plain = lambda t: _k1.squared_gradient_plain(*t, **ctx.kw)
+        return (*vjp([(plain, g)], ctx.saved_tensors,
+                     ctx.needs_input_grad[:3]), None)
+
+
 def squared_gradient(q: torch.Tensor, grid: Grid,
                      bc_y: str | None = None) -> torch.Tensor:
     """|grad q|^2 (the Keff integrand) of (..., Ny, Nx) snapshots, through
-    the K1 wrapper (reciprocal spacings, multiplied)."""
+    the K1 wrapper (reciprocal spacings, multiplied); differentiable
+    through :class:`_SquaredGradient`."""
     if bc_y is None:
         bc_y = grid.bc_y
     dy, dx = _spacing(grid, q.dtype)
     Ny, Nx = q.shape[-2:]
     rdx = (1.0 / dx).contiguous()
     rdy = (1.0 / dy).contiguous()
-    out = _k1.squared_gradient(q.reshape(-1, Ny, Nx).contiguous(), rdx, rdy,
-                               periodic_x=grid.periodic_x, bc_y=bc_y)
+    qf = q.reshape(-1, Ny, Nx).contiguous()
+    kw = dict(periodic_x=grid.periodic_x, bc_y=bc_y)
+    if needs_grad(qf, rdx, rdy):
+        out = _SquaredGradient.apply(qf, rdx, rdy, kw)
+    else:
+        out = _k1.squared_gradient(qf.detach(), rdx.detach(), rdy.detach(),
+                                   **kw)
     return out.reshape(q.shape)

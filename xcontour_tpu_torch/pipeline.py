@@ -232,7 +232,9 @@ def clength_pipeline(tracer: torch.Tensor, grid: Grid,
     Leq >= L >= Lmin.
 
     The five conditional integrals (area, |grad q|^2, and the numerators
-    and denominator of the two contour means) share one digitize pass.
+    and denominator of the two contour means) share one digitize pass (one
+    K2 launch, with or without gradients: a channel that no differentiated
+    output uses carries no cotangent).
 
     Returns a dict with contour, intArea, Yeq, lengths, Lmin, Leq2, nkeff,
     cmGrd and cmInvGrd.
@@ -259,9 +261,12 @@ def clength_pipeline(tracer: torch.Tensor, grid: Grid,
     lengths = contour_lengths(tracer, ctr, grid.ydef, grid.xdef,
                               latlon=grid.latlon)
     Lmin = _lmin("frac", Yeq, grid, mask, ydef)
+    # the contour means divide as cal_contour_mean_hist does
     lower = core.cal_gradient_wrt_area(int_g, intArea)
-    cmGrd = core.cal_gradient_wrt_area(int_gg, intArea) / lower
-    cmInvGrd = core.cal_gradient_wrt_area(int_ig, intArea) / lower
+    cmGrd = core.grad_safe_div(core.cal_gradient_wrt_area(int_gg, intArea),
+                               lower)
+    cmInvGrd = core.grad_safe_div(core.cal_gradient_wrt_area(int_ig, intArea),
+                                  lower)
     k = _keff(ctr, intArea, intgrdS, Lmin, 1e5)
     return dict(contour=ctr, intArea=intArea, Yeq=Yeq, lengths=lengths,
                 Lmin=Lmin, Leq2=k["Leq2"], nkeff=k["nkeff"], cmGrd=cmGrd,
