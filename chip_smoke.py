@@ -90,7 +90,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      memory and launches a step (equal to a no-grad step's), the gradient
      nonzero and non-finite only within two cells of a NaN cell; each
      loss's gradient on the card against the port's CPU gradient at
-     2x91x180.  The kernels JSON carries each Function's backward ms.
+     2x91x180.  The kernels JSON carries each Function's backward ms;
+  8. the sort engines (plain PyTorch, no kernel of their own): the exact
+     conditional integral against the broadcast one on the ERA5 step (lt
+     and gt), cal_contours_at ('exact', 'broadcast', 'hist') at 241
+     equivalent latitudes on the reused table, each timed with its peak
+     memory, card against CPU at 2x256x512; lwa_pipeline(lwa_method=
+     'fast') on the tall grid against 'dense' (K6) and
+     keff_lwa_pipeline('fast', with_lwa2=True) at ERA5 against 'dense'
+     (K4), with no LWA kernel launched on the 'fast' side, and NaN profile
+     rows exactly zero; the lin/fast ladder (B = 4, Nx = 512, Ny from 1024
+     to 8192, and the ERA5 step: K3, K5 and 'fast' for both variants) and
+     the Ny from which 'fast' wins; 'auto' just below and at the port's
+     crossover, by K3's and K5's launch counts.
 
 The last three lines are the kernels JSON, the card line from nvidia-smi,
 and {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
@@ -163,7 +175,8 @@ KERNEL_BOUNDS = dict(squared_gradient=1e-6, weighted_cdf=1e-5,
 # 2 tan(Yeq) d, ~1e3 times the area noise, and a value at its threshold
 # may be NaN on one side only; latEq is Yeq under lwa_pipeline's name;
 # dgrdSdA and dqdA difference CDFs like Leq2; lwa2 at lwa's bound; the
-# contour means cmGrd and cmInvGrd difference CDFs like Leq2; rulers scale
+# contour means cmGrd and cmInvGrd difference CDFs like Leq2; the levels of
+# cal_contours_at come through a table lookup like Yeq; rulers scale
 # with cos(Yeq); D and D_bc are log-log slopes over three lengths, where the
 # shortest contours' relative error counts in full (the CPU suite measured
 # 9e-5 between the port and the JAX package).  local_contour_lengths runs
@@ -173,7 +186,7 @@ KERNEL_BOUNDS = dict(squared_gradient=1e-6, weighted_cdf=1e-5,
 CARD_CPU_TOL = dict(Yeq=1e-4, latEq=1e-4, Lmin=1e-4, Leq2=1e-4, nkeff=2e-3,
                     lwa=1.5e-4, lwa2=1.5e-4, dgrdSdA=1e-4, dqdA=1e-4,
                     cmGrd=1e-4, cmInvGrd=1e-4, rulers=1e-4, D=5e-4,
-                    D_bc=5e-4)
+                    D_bc=5e-4, levels=1e-4)
 CARD_CPU_TOL_DEFAULT = 2e-5
 NKEFF_MASK = 2e7
 
@@ -225,6 +238,26 @@ GRAD_ERA5_B = 4
 GRAD_SMALL = dict(B=2, nlat=91, nlon=180, N=121)
 GRAD_BOUND = 1e-5
 GRAD_CARD_CPU = (1e-3, 0.999)
+# phase 8, the sort engines (plain PyTorch: sort, cumsum, searchsorted,
+# gather).  The exact conditional integral against the broadcast one on the
+# same card tensors, within EXACT_BOUND of the largest sum: float32 sums of
+# the same weights in another order (sorted prefix sums against chunked
+# tree sums; K2's bound).  cal_contours_at at EXACT_PREDEF equivalent
+# latitudes on the reused table; its 'exact' and 'broadcast' levels within
+# LEVELS_BOUND of the largest level (the table lookup's bound, Yeq's in
+# CARD_CPU_TOL).  'fast' LWA and LWA2 against 'dense' (K4, K6) within
+# FAST_BOUND of the field maximum: the JAX suite's float32 floor for 'fast'
+# (tests/test_lwa_fast.py).  The lin/fast ladder: LADDER_B snapshots of
+# Ny x LADDER_NX at LADDER_NYS (the shape and rows of the JAX package's
+# crossover ladder, diagnostics/lwa.py, and 5120 between its 4096 and
+# 6144) and the ERA5 step, median of LADDER_REPS calls after a warm-up.
+EXACT_PREDEF = (-89.0, 89.0, 241)
+EXACT_BOUND = 1e-5
+LEVELS_BOUND = 1e-4
+FAST_BOUND = 1e-4
+LADDER_B, LADDER_NX = 4, 512
+LADDER_NYS = (1024, 2048, 3072, 4096, 5120, 6144, 8192)
+LADDER_REPS = 5
 # no single PyTorch call computes any of K1-K8 (torch.histogram has no CUDA
 # form, torch.histc takes no weights, torch.bincount weighs integer bins
 # that a torch.bucketize must find first and leaves the cumsum; no call
@@ -1085,7 +1118,7 @@ def flat_keff(out):
     return flat
 
 
-def card_vs_cpu(label, cpu, gpu, nkeff_mask=NKEFF_MASK):
+def card_vs_cpu(label, cpu, gpu, nkeff_mask=NKEFF_MASK, phase=5):
     """Every key of a CPU step against the card's, within CARD_CPU_TOL."""
     worst = []
     for k, want in cpu.items():
@@ -1098,7 +1131,7 @@ def card_vs_cpu(label, cpu, gpu, nkeff_mask=NKEFF_MASK):
         tol = CARD_CPU_TOL.get(base, CARD_CPU_TOL_DEFAULT)
         worst.append(f"{k} {rel:.2e}/{tol:g}")
         _expect(rel <= tol, f"card vs CPU {label}: {k} rel {rel:.3e} > {tol:g}")
-    log(f"phase 5 card vs CPU {label}: OK ({', '.join(worst)})")
+    log(f"phase {phase} card vs CPU {label}: OK ({', '.join(worst)})")
 
 
 def timed_steps(fn, steps):
@@ -1540,6 +1573,230 @@ def grad_phase(dev, records, era_q, era_grid, era_table, head_q, head_grid,
     for label in gl:
         grad_card_vs_cpu(label, gl[label][0], cl[label][0], sq, s["N"])
     return times, steps
+
+
+def measure(fn, reps=LADDER_REPS):
+    """(median ms of ``reps`` calls, each between CUDA events, after one
+    warm-up; peak device GiB above what was allocated before)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    return statistics.median(times), peak
+
+
+def exact_checks(dev, drive, q, grid, table):
+    """The exact engine on the ERA5 step: the exact integral against the
+    broadcast one (both lt), cal_contours_at with each method (K2 only for
+    'hist'), timed with their peak memory; card against CPU at 2x256x512.
+    Returns {label: (ms, peak GiB)}."""
+    import xcontour_tpu_torch as xt
+    none = dict(weighted_cdf=0, lwa_lin=0, lwa_lin2=0, lwa_dense=0,
+                lwa_dense_tall=0)
+    dA = grid.dA
+    ctr = xt.cal_contours(q, ERA5["N"])
+    timing = {}
+    for lt in (True, False):
+        def run(lt=lt):
+            return xt.cal_integral_within_contours_exact(q, ctr, dA, lt=lt)
+        got = drive(f"exact integral era5 lt={lt}", {}, run, exact=none)
+        want = xt.cal_integral_within_contours(q, ctr, dA, lt=lt)
+        err, rel = rel_err(got, want)
+        log(f"phase 8 exact integral era5 lt={lt} {tuple(got.shape)} against "
+            f"broadcast: max_abs_err {err:.6g} rel {rel:.3e} bound "
+            f"{EXACT_BOUND:g} {'OK' if rel <= EXACT_BOUND else 'FAIL'}")
+        _expect(rel <= EXACT_BOUND, "exact integral disagrees with broadcast")
+        timing[f"integral exact lt={lt}"] = measure(run)
+        timing[f"integral broadcast lt={lt}"] = measure(
+            lambda lt=lt: xt.cal_integral_within_contours(q, ctr, dA, lt=lt),
+            reps=3)
+    predef = torch.linspace(*EXACT_PREDEF, device=dev)
+    levels = {}
+    for method in ("exact", "broadcast", "hist"):
+        k2 = int(method == "hist")
+
+        def run(method=method):
+            return xt.cal_contours_at(predef, table, q, dA, increase=True,
+                                      lt=True, method=method)
+        levels[method] = drive(f"contours_at era5 {method}",
+                               {"weighted_cdf": k2}, run,
+                               exact=dict(none, weighted_cdf=k2))
+        _shapes({"levels": levels[method]},
+                {"levels": (q.shape[0], EXACT_PREDEF[2])},
+                f"contours_at era5 {method}")
+        _finite({"levels": levels[method]}, ["levels"],
+                f"contours_at era5 {method}")
+        timing[f"contours_at {method}"] = measure(
+            run, reps=3 if method == "broadcast" else LADDER_REPS)
+    # what cal_contours_at adds to its integral: the levels, the table
+    # lookup and the interpolation onto predef
+    rough = xt.cal_contours(q, EXACT_PREDEF[2])
+    area = xt.cal_integral_within_contours_exact(q, rough, dA, lt=True)
+    timing["contours_at without its integral"] = measure(
+        lambda: xt.interp_to_coords(predef, table.lookup_coordinates(area),
+                                    xt.cal_contours(q, EXACT_PREDEF[2])))
+    _, rel = rel_err(levels["exact"], levels["broadcast"])
+    _, rel_h = rel_err(levels["exact"], levels["hist"])
+    log(f"phase 8 contours_at era5 exact against broadcast: rel {rel:.3e} "
+        f"bound {LEVELS_BOUND:g} {'OK' if rel <= LEVELS_BOUND else 'FAIL'}; "
+        f"against hist: rel {rel_h:.3e}")
+    _expect(rel <= LEVELS_BOUND, "contours_at exact disagrees with broadcast")
+    for label, (ms, gib) in timing.items():
+        log(f"phase 8 time {label} era5: {ms:.4f} ms, peak {gib:.3f} GiB "
+            f"above its inputs")
+
+    # card against CPU on a small step
+    slat, slon, spv = make_pv(2, 256, 512, 7)
+    out = {}
+    for d in ("cpu", dev):
+        g = xt.from_latlon(slat, slon, device=d)
+        sq = torch.as_tensor(spv).to(d)
+        tbl = xt.cal_area_eqCoord_table_hist(g.fluid_mask(), g.ydef, g.dA,
+                                             increase=True, lt=True)
+        c = xt.cal_contours(sq, 121)
+        out[str(d)] = dict(
+            intArea=xt.cal_integral_within_contours_exact(sq, c, g.dA,
+                                                          lt=True),
+            levels=xt.cal_contours_at(
+                torch.linspace(-80.0, 80.0, 33, device=d), tbl, sq, g.dA,
+                increase=True, lt=True))
+    card_vs_cpu("exact integral and contours_at 2x256x512", out["cpu"],
+                out[str(dev)], phase=8)
+    return timing
+
+
+def fast_checks(dev, drive, era_q, era_grid, era_table, tall_q, tall_grid):
+    """'fast' through the pipelines against 'dense' on the card: the tall
+    grid's lwa_pipeline (K6) and the ERA5 keff_lwa_pipeline with LWA2 (K4),
+    no LWA kernel launched on the 'fast' side; NaN profile rows give exact
+    zero rows."""
+    import xcontour_tpu_torch as xt
+    none = dict(lwa_lin=0, lwa_lin2=0, lwa_dense=0, lwa_dense_tall=0)
+
+    def compare(label, fast, dense, keys):
+        for key in keys:
+            err, rel = rel_err(fast[key], dense[key])
+            log(f"phase 8 fast {label} {key} against dense: max_abs_err "
+                f"{err:.6g} rel {rel:.3e} bound {FAST_BOUND:g} "
+                f"{'OK' if rel <= FAST_BOUND else 'FAIL'}")
+            _expect(rel <= FAST_BOUND, f"fast {label} {key} disagrees")
+
+    # an own-table step: K2 for the table and for the step
+    fast = drive("lwa tall fast", {"weighted_cdf": 2},
+                 lambda: xt.lwa_pipeline(tall_q, tall_grid, N=TALL["N"],
+                                         lwa_method="fast"),
+                 exact=dict(none, weighted_cdf=2))
+    check_lwa_step(fast, tuple(tall_q.shape), TALL["N"], -90.0, 90.0,
+                   "lwa tall fast")
+    dense = drive("lwa tall dense (K6, reference)", {"lwa_dense_tall": 2},
+                  lambda: xt.lwa_pipeline(tall_q, tall_grid, N=TALL["N"],
+                                          lwa_method="dense"))
+    compare("tall", fast, dense, ("lwa", "lwa2"))
+
+    kw = dict(N=ERA5["N"], with_lwa2=True, table=era_table)
+    fast = drive("keff_lwa era5 fast with_lwa2",
+                 {"squared_gradient": 1, "weighted_cdf": 1},
+                 lambda: xt.keff_lwa_pipeline(era_q, era_grid,
+                                              lwa_method="fast", **kw),
+                 exact=dict(none, squared_gradient=1, weighted_cdf=1))
+    check_step(fast, ERA5["B"], ERA5["nlat"], ERA5["N"],
+               "keff_lwa era5 fast with_lwa2")
+    dense = drive("keff_lwa era5 dense with_lwa2 (K4, reference)",
+                  {"lwa_dense": 2},
+                  lambda: xt.keff_lwa_pipeline(era_q, era_grid,
+                                               lwa_method="dense", **kw))
+    compare("era5", fast, dense, ("lwa", "lwa2"))
+
+    Q = fast["Q"].clone()
+    rows = [0, ERA5["nlat"] // 2]
+    Q[:, rows] = float("nan")
+    args = (era_q, Q, era_grid.dA, era_grid.ydef)
+    nan_rows = {m: xt.local_wave_activity(*args, increase=True, method=m)
+                for m in ("fast", "dense")}
+    for m, out in nan_rows.items():
+        _expect(bool((out[:, rows] == 0).all()),
+                f"{m}: NaN profile rows are not exactly zero")
+    compare("era5 NaN profile rows", {"lwa": nan_rows["fast"]},
+            {"lwa": nan_rows["dense"]}, ("lwa",))
+    log(f"phase 8 fast era5 NaN profile rows {rows}: exact zeros in 'fast' "
+        f"and 'dense'")
+
+
+def ladder(dev, era_q, era_Q, era_grid):
+    """'lin' (K3, K5) against 'fast' through local_wave_activity[2] at
+    LADDER_B x Ny x LADDER_NX and the ERA5 step; returns the rows and, for
+    each variant and for the two together (lwa_pipeline runs both), the
+    smallest Ny of the ladder from which 'fast' is faster at every taller
+    Ny (None if it never is)."""
+    import xcontour_tpu_torch as xt
+    rows = []
+    shapes = [(LADDER_B, ny, LADDER_NX) for ny in LADDER_NYS]
+    for i, shape in enumerate(shapes + [tuple(era_q.shape)]):
+        if i < len(shapes):
+            lat, lon, pv = make_pv(*shape, 300 + i)
+            grid = xt.from_latlon(lat, lon, device=dev)
+            q = torch.as_tensor(pv).to(dev)
+            Q = xt.lwa_pipeline(q, grid, N=ERA5["N"],
+                                lwa_method="lin")["Q"].contiguous()
+        else:
+            q, Q, grid = era_q, era_Q, era_grid
+        row = dict(shape=list(shape))
+        for tag, fn in (("lwa", xt.local_wave_activity),
+                        ("lwa2", xt.local_wave_activity2)):
+            outs = {}
+            for m in ("lin", "fast"):
+                def call(m=m, fn=fn):
+                    return fn(q, Q, grid.dA, grid.ydef, increase=True,
+                              method=m)
+                outs[m] = call()
+                row[f"{tag}_{m}_ms"], row[f"{tag}_{m}_gib"] = measure(call)
+            _, row[f"{tag}_fast_vs_lin"] = rel_err(outs["fast"], outs["lin"])
+        log(f"phase 8 ladder {'x'.join(map(str, shape))}: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in row.items() if k != "shape"))
+        rows.append(row)
+    cross = {}
+    for tag, tags in (("lwa", ("lwa",)), ("lwa2", ("lwa2",)),
+                      ("both", ("lwa", "lwa2"))):
+        wins = [sum(r[f"{t}_fast_ms"] for t in tags)
+                < sum(r[f"{t}_lin_ms"] for t in tags)
+                for r in rows[:len(shapes)]]
+        first = [LADDER_NYS[k] for k in range(len(wins)) if all(wins[k:])]
+        cross[tag] = first[0] if first else None
+    return rows, cross
+
+
+def auto_checks(dev, drive):
+    """'auto' just below and at the port's crossover: K3 and K5 launch once
+    each below it and not at all at it (part='all', both variants)."""
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch.diagnostics import lwa as tlwa
+    c = tlwa._FAST_NY_CROSSOVER
+    for ny, n in ((c - 1, 1), (c, 0)):
+        lat, lon, pv = make_pv(2, ny, LADDER_NX, 500)
+        grid = xt.from_latlon(lat, lon, device=dev)
+        q = torch.as_tensor(pv).to(dev)
+        lo = torch.nan_to_num(q, nan=float("inf")).amin((-2, -1))
+        hi = torch.nan_to_num(q, nan=float("-inf")).amax((-2, -1))
+        ramp = torch.linspace(0.0, 1.0, ny, device=q.device)
+        Q = lo[:, None] + (hi - lo)[:, None] * ramp[None]
+        args = (q, Q, grid.dA, grid.ydef)
+        drive(f"auto Ny={ny} (crossover {c})", {"lwa_lin": n, "lwa_lin2": n},
+              lambda: (xt.local_wave_activity(*args, increase=True),
+                       xt.local_wave_activity2(*args, increase=True)),
+              exact=dict(lwa_lin=n, lwa_lin2=n, lwa_dense=0,
+                         lwa_dense_tall=0, weighted_cdf=0))
+        log(f"phase 8 auto at Ny={ny}: {'lin' if n else 'fast'} (K3, K5 "
+            f"launched {n} time{'s' if n != 1 else ''} each)")
 
 
 def main() -> int:
@@ -1991,6 +2248,24 @@ def main() -> int:
                                         era_table(), head_q, head_grid,
                                         head_table)
     log(f"phase 7 gradients: OK in {time.perf_counter() - t0:.1f} s")
+
+    # 8. the sort engines: exact integrals, cal_contours_at, 'fast' LWA,
+    # the lin/fast ladder and 'auto' on either side of the crossover
+    from xcontour_tpu_torch.diagnostics.lwa import _FAST_NY_CROSSOVER
+    t0 = time.perf_counter()
+    sort_table = era_table()
+    exact_checks(dev, drive, era_steps[0], era_grid, sort_table)
+    fast_checks(dev, drive, era_steps[0], era_grid, sort_table, tall_q,
+                tall_grid)
+    era_Q = xt.keff_lwa_pipeline(era_steps[0], era_grid, N=ERA5["N"],
+                                 table=sort_table)["Q"].contiguous()
+    rows, cross = ladder(dev, era_steps[0], era_Q, era_grid)
+    log(f"phase 8 crossover: 'fast' faster from Ny = {cross['lwa']} (LWA), "
+        f"{cross['lwa2']} (LWA2) and {cross['both']} (both) of the ladder "
+        f"on; the port's _FAST_NY_CROSSOVER = {_FAST_NY_CROSSOVER}")
+    log(f"phase 8 ladder json {json.dumps(dict(rows=rows, crossover=cross))}")
+    auto_checks(dev, drive)
+    log(f"phase 8 sort engines: OK in {time.perf_counter() - t0:.1f} s")
 
     def entry(r, key, err_key, extra=()):
         e = dict(name=r.name, route="cuda", source=r.source,

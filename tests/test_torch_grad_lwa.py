@@ -230,3 +230,77 @@ def test_weighted_cdf_weight_gradients_match_jax(lt, decreasing):
     assert got[0] is None and not np.asarray(want[0]).any()
     for g, w in zip(got[1:], want[1:]):
         assert_grad_equal(g, w)
+
+
+@pytest.mark.parametrize("nan_weight", [False, True])
+@pytest.mark.parametrize("variant2", [False, True])
+@pytest.mark.parametrize("increase", [True, False])
+def test_fast_gradients_match_jax(increase, variant2, nan_weight):
+    """'fast' (no Function: autograd through sort, gather and cumsum, as
+    jax.grad goes through lax.sort): the gradients of q, Q and the weight,
+    with a NaN cell, and with a NaN weight (whose 0 * NaN cotangent reaches
+    the profile's mean, so that every gradient of Q may be NaN: in both
+    packages alike)."""
+    rng = np.random.default_rng(50 + 2 * variant2 + increase)
+    Ny, Nx = 14, 10
+    ydef = np.linspace(-60.0, 60.0, Ny)
+    q = np.cumsum(rng.normal(size=(2, Ny, Nx)), axis=1)
+    Q = np.sort(rng.normal(size=(2, Ny)) * 2.0, axis=-1)
+    if not increase:
+        q, Q = -q, Q[:, ::-1].copy()
+    q[0, 3, 4] = np.nan
+    W = rng.uniform(0.5, 2.0, size=(Ny, Nx))
+    if nan_weight:
+        W[7, 2] = np.nan
+    dA = np.ones((Ny, Nx))
+    jfn = jlwa.local_wave_activity2 if variant2 else jlwa.local_wave_activity
+    tfn = xt.local_wave_activity2 if variant2 else xt.local_wave_activity
+
+    def jloss(t, P, w):
+        out = jfn(t, P, jnp.asarray(dA), jnp.asarray(ydef), increase=increase,
+                  weight=w, method="fast")
+        return jnp.nansum(out * out)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(Q), jnp.asarray(W))
+    args = [torch.tensor(a, requires_grad=True) for a in (q, Q, W)]
+    out = tfn(args[0], args[1], torch.tensor(dA), torch.tensor(ydef),
+              increase=increase, weight=args[2], method="fast")
+    got = torch.autograd.grad(torch.nansum(out * out), args)
+    for g, w in zip(got, want):
+        assert_grad_equal(g, w, nonzero=np.isfinite(np.asarray(w)).any())
+    if not nan_weight:
+        assert np.isfinite(np.asarray(want[1])).all()
+
+
+@pytest.mark.parametrize("lt", [True, False])
+def test_exact_integral_gradients_match_jax(lt):
+    """The exact conditional integral's gradient with respect to its
+    weights (dA and the integrand), NaN values and a NaN weight included;
+    the values get none (JAX: zeros)."""
+    rng = np.random.default_rng(60 + lt)
+    B, Ny, Nx, N = 2, 9, 11, 7
+    v = rng.normal(size=(B, Ny, Nx)).cumsum(1)
+    v[0, 2, 3] = np.nan
+    dA = rng.uniform(0.5, 1.5, size=(Ny, Nx))
+    dA[4, 4] = np.nan
+    f = rng.normal(size=(B, Ny, Nx))
+    ctr = np.stack([np.linspace(np.nanmin(v[b]), np.nanmax(v[b]), N)
+                    for b in range(B)])
+    r = rng.normal(size=(B, N))
+
+    def jloss(vv, a, ff):
+        out = jcore.cal_integral_within_contours_exact(
+            vv, jnp.asarray(ctr), a, ff, lt=lt)
+        return jnp.sum(out * r)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(v), jnp.asarray(dA), jnp.asarray(f))
+    args = [torch.tensor(a, requires_grad=True) for a in (v, dA, f)]
+    out = xt.cal_integral_within_contours_exact(
+        args[0], torch.tensor(ctr), args[1], args[2], lt=lt)
+    got = torch.autograd.grad(torch.sum(out * torch.tensor(r)), args,
+                              allow_unused=True)
+    assert got[0] is None and not np.asarray(want[0]).any()
+    for g, w in zip(got[1:], want[1:]):
+        assert_grad_equal(g, w)

@@ -272,10 +272,12 @@ def test_pad_modes_match_numpy(mode, n, pad):
 
 
 def test_unported_pad_mode_raises():
+    """np.pad's function form, and a name np.pad lacks, raise."""
     d, area, ctr = _crossing_inputs(3)
-    with pytest.raises(ValueError, match="pad mode"):
-        xt.contour_crossing(torch.as_tensor(d), torch.as_tensor(ctr),
-                            torch.as_tensor(area), 2, mode="mean")
+    for mode in (lambda v, w, i, k: None, "mirror"):
+        with pytest.raises(ValueError, match="pad mode"):
+            xt.contour_crossing(torch.as_tensor(d), torch.as_tensor(ctr),
+                                torch.as_tensor(area), 2, mode=mode)
 
 
 def test_coarsen_matches_jax():

@@ -161,13 +161,15 @@ def test_local_wave_activity_matches_jax(method, part):
 
 
 def test_method_resolution():
-    assert tlwa._resolve_method("auto", "all") == "lin"
-    assert tlwa._resolve_method("auto", "lower") == "dense"
-    assert tlwa._resolve_method("dense", "upper") == "dense"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        tlwa._resolve_method("fast", "all")
-    with pytest.raises(ValueError, match="part='all'"):
-        tlwa._resolve_method("lin", "upper")
+    ny = tlwa._FAST_NY_CROSSOVER - 1
+    assert tlwa._resolve_method("auto", "all", ny) == "lin"
+    assert tlwa._resolve_method("auto", "all", ny + 1) == "fast"
+    assert tlwa._resolve_method("auto", "lower", ny + 1) == "dense"
+    assert tlwa._resolve_method("dense", "upper", ny) == "dense"
+    assert tlwa._resolve_method("fast", "all", 8) == "fast"
+    for method in ("lin", "fast"):
+        with pytest.raises(ValueError, match="part='all'"):
+            tlwa._resolve_method(method, "upper", ny)
     with pytest.raises(ValueError):
-        tlwa._resolve_method("sorted", "all")
+        tlwa._resolve_method("sorted", "all", ny)
     assert kl.KERNEL_LIN.launches == 0 and kl.KERNEL_DENSE.launches == 0

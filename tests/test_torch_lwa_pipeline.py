@@ -141,15 +141,16 @@ def test_lwa_pipeline_rejects_unknown_modes_and_launches_nothing_on_cpu():
     tg = xt.from_latlon(lat, lon, dtype=torch.float64, device=CPU)
     with pytest.raises(ValueError, match="metric"):
         xt.lwa_pipeline(torch.as_tensor(q), tg, N=9, metric="dz")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        xt.lwa_pipeline(torch.as_tensor(q), tg, N=9, lwa_method="fast")
+    with pytest.raises(ValueError, match="part='all'"):
+        xt.lwa_pipeline(torch.as_tensor(q), tg, N=9, lwa_method="fast",
+                        part="upper")
     with pytest.raises(ValueError, match="part='all'"):
         xt.lwa_pipeline(torch.as_tensor(q), tg, N=9, lwa_method="lin",
                         part="upper")
     records = [lwa.KERNEL_LIN, lwa.KERNEL_LIN2, lwa.KERNEL_DENSE,
                lwa.KERNEL_DENSE_TALL]
     before = [r.launches for r in records]
-    for method in ("auto", "dense"):
+    for method in ("auto", "dense", "fast"):
         out = xt.lwa_pipeline(torch.as_tensor(q).float(),
                               xt.from_latlon(lat, lon, device=CPU), N=9,
                               lwa_method=method)

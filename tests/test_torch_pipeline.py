@@ -133,11 +133,11 @@ def test_unported_options_raise():
     tg = xt.from_latlon(lat, lon, dtype=torch.float64, device=CPU)
     out = xt.keff_lwa_pipeline(torch.as_tensor(q), tg, N=9, with_lwa2=True)
     assert out["lwa2"].shape == q.shape
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        xt.keff_lwa_pipeline(torch.as_tensor(q), tg, N=9, lwa_method="fast")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        xt.keff_lwa_pipeline(torch.as_tensor(q), tg, N=9, with_lwa2=True,
-                             lwa_method="fast")
+    out = xt.keff_lwa_pipeline(torch.as_tensor(q), tg, N=9, with_lwa2=True,
+                               lwa_method="fast")
+    assert out["lwa"].shape == out["lwa2"].shape == q.shape
+    with pytest.raises(ValueError, match="not in"):
+        xt.keff_lwa_pipeline(torch.as_tensor(q), tg, N=9, lwa_method="sorted")
     with pytest.raises(ValueError, match="lmin"):
         xt.keff_lwa_pipeline(torch.as_tensor(q), tg, N=9, lmin="exact")
 
@@ -150,7 +150,7 @@ def test_cpu_tensors_launch_no_kernel():
         r.launches = 0
     lat, lon, q, _ = _inputs(nlat=24, nlon=48)
     tg = xt.from_latlon(lat, lon, dtype=torch.float32, device=CPU)
-    for method in ("auto", "dense"):
+    for method in ("auto", "dense", "fast"):
         out = xt.keff_lwa_pipeline(torch.as_tensor(q).float(), tg, N=17,
                                    lwa_method=method, with_lwa2=True)
         assert out["lwa"].shape == out["lwa2"].shape == q.shape

@@ -8,10 +8,12 @@ the combined :func:`keff_lwa_pipeline`), the two geometry pipelines
 (:func:`clength_pipeline`, :func:`fractal_pipeline`) and windowed local
 lengths (:func:`local_contour_lengths`), and what they run: grid metrics
 (latitude-longitude, Cartesian and the MITgcm x-z plane), the |grad q|^2
-stencil, the weighted-CDF engine and the broadcast conditional integrals,
-the A(Y_eq) tables, the Keff algebra and the contour means, local wave
-activity in both the LWA and the impulse-Casimir LWA2 form, marching-squares
-perimeters, box counting, coarsening and the fractal dimension.
+stencil, the weighted-CDF engine, the broadcast and exact sort-based
+conditional integrals, the A(Y_eq) tables, the Keff algebra and the contour
+means, the contour levels at prescribed coordinates, local wave activity in
+both the LWA and the impulse-Casimir LWA2 form (with the sort-merge 'fast'
+method for tall grids), marching-squares perimeters, box counting,
+coarsening and the fractal dimension.
 
 Plain PyTorch versions run on CPU tensors; CUDA tensors go through the
 kernels in ``csrc/``, which ``nvcc`` builds at first use.
@@ -24,15 +26,19 @@ from .core import (Table, cal_area_eqCoord_table,
                    cal_area_eqCoord_table_hist, cal_contour_mean,
                    cal_contour_mean_hist, cal_contour_weigh_mean,
                    cal_contour_weigh_mean_hist, cal_contours,
-                   cal_gradient_wrt_area, cal_integral_within_contours,
+                   cal_contours_at, cal_gradient_wrt_area,
+                   cal_integral_within_contours,
+                   cal_integral_within_contours_exact,
                    cal_integral_within_contours_hist, cal_normalized_Keff,
-                   cal_sqared_equivalent_length, interp_to_coords)
+                   cal_sqared_equivalent_length, get_extrema_extend,
+                   interp_to_coords)
 from .diagnostics.fractal import fractal_dimension, loglog_slope
 from .diagnostics.length import contour_crossing, contour_lengths
 from .diagnostics.local_length import local_contour_lengths, rolling_mean
 from .diagnostics.lwa import local_wave_activity, local_wave_activity2
 from .grid import (Grid, equivalent_latitudes, from_cartesian, from_latlon,
-                   from_metrics, from_xz, grid_from_numpy, latitude_lengths_at)
+                   from_metrics, from_xz, grid_from_numpy, latitude_lengths_at,
+                   to_host)
 from .ops.stencil import gradient, squared_gradient
 from .pipeline import (clength_pipeline, fractal_pipeline,
                        keff_lwa_pipeline, keff_pipeline, lwa_pipeline)
@@ -41,14 +47,16 @@ from .utils.coarsen import coarsen
 __all__ = [
     "Grid", "Table", "cal_area_eqCoord_table", "cal_area_eqCoord_table_hist",
     "cal_contour_mean", "cal_contour_mean_hist", "cal_contour_weigh_mean",
-    "cal_contour_weigh_mean_hist", "cal_contours", "cal_gradient_wrt_area",
-    "cal_integral_within_contours", "cal_integral_within_contours_hist",
+    "cal_contour_weigh_mean_hist", "cal_contours", "cal_contours_at",
+    "cal_gradient_wrt_area", "cal_integral_within_contours",
+    "cal_integral_within_contours_exact", "cal_integral_within_contours_hist",
     "cal_normalized_Keff", "cal_sqared_equivalent_length", "clength_pipeline",
     "coarsen", "contour_crossing", "contour_lengths", "core",
     "equivalent_latitudes", "fractal_dimension", "fractal_pipeline",
-    "from_cartesian", "from_latlon", "from_metrics", "from_xz", "gradient",
-    "grid", "grid_from_numpy", "interp_to_coords", "keff_lwa_pipeline",
-    "keff_pipeline", "latitude_lengths_at", "local_contour_lengths",
-    "local_wave_activity", "local_wave_activity2", "loglog_slope",
-    "lwa_pipeline", "rolling_mean", "squared_gradient",
+    "from_cartesian", "from_latlon", "from_metrics", "from_xz",
+    "get_extrema_extend", "gradient", "grid", "grid_from_numpy",
+    "interp_to_coords", "keff_lwa_pipeline", "keff_pipeline",
+    "latitude_lengths_at", "local_contour_lengths", "local_wave_activity",
+    "local_wave_activity2", "loglog_slope", "lwa_pipeline", "rolling_mean",
+    "squared_gradient", "to_host",
 ]

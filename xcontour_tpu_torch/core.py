@@ -1,10 +1,10 @@
 """Contour-space core: the conservative-rearrangement engine.
 
-Counterpart of the subset of ``xcontour_tpu/core.py`` that the Keff/LWA
-and geometry pipelines use: contour levels, the conditional integrals
-(histogram and broadcast paths), the A(Y_eq) lookup tables, the Keff
-algebra (d/dA, Leq^2, normalized Keff), the contour means, and the
-contour -> coordinate interpolation.
+Counterpart of ``xcontour_tpu/core.py`` but its ``Contour2D`` facade:
+contour levels, the conditional integrals (histogram, broadcast and exact
+sort-based paths), the A(Y_eq) lookup tables, the Keff algebra (d/dA,
+Leq^2, normalized Keff), the contour means, and the contour -> coordinate
+interpolation with the contour levels at prescribed coordinates.
 
 Array conventions: plane fields (..., Ny, Nx) with the equivalent dim at
 axis -2; contour-space tensors (..., N) with the contour index last.
@@ -21,6 +21,7 @@ from .kernels import needs_grad
 from .ops.gradient import gradient_index
 from .ops.histogram import weighted_cdf, weighted_cdf_both
 from .ops.interp import interp1d
+from .ops.sort import exact_conditional_integral
 
 
 def cal_contours(tracer: torch.Tensor, N: int, *,
@@ -53,6 +54,16 @@ def cal_integral_within_contours_hist(tracer, contours, dA, integrand=None, *,
     wei = dA if integrand is None else integrand * dA
     return weighted_cdf(tracer, contours, torch.broadcast_to(wei, tracer.shape),
                         lt)
+
+
+def cal_integral_within_contours_exact(tracer, contours, dA, integrand=None,
+                                       *, lt: bool = False):
+    """Exact sort-based path (:mod:`.ops.sort`): the broadcast path's strict
+    conditional sums at sort cost, with no binning and no (contour x grid)
+    temporaries."""
+    wei = dA if integrand is None else integrand * dA
+    wei = torch.broadcast_to(wei, tracer.shape)
+    return exact_conditional_integral(tracer, contours, wei, lt)
 
 
 # contour levels per step of the broadcast paths: bounds their
@@ -118,6 +129,12 @@ class Table:
                 "increasing/decreasing — mixed-direction table values")
         object.__setattr__(self, "_inc", bool(inc[0]))
         return self.__dict__["_inc"]
+
+    def check_direction(self) -> None:
+        """Raise ValueError unless every batch element of the values runs in
+        one direction (the JAX package's checkify guard, as an explicit
+        check).  It reads the device once per Table, with the lookups."""
+        self._inc_values()
 
     def lookup_coordinates(self, values: torch.Tensor) -> torch.Tensor:
         """Given values (y), return coordinates (x)."""
@@ -310,10 +327,61 @@ def cal_normalized_Keff(Leq2, Lmin, mask: float = 1e5):
                        torch.full_like(nkeff, float("nan")))
 
 
-def interp_to_coords(predef, eq_coords, var):
-    """Remap a contour-indexed variable (..., N) onto prescribed coordinate
-    values; the direction of ``eq_coords`` is taken from its first batch
-    element, like the reference."""
-    flat = eq_coords.reshape(-1, eq_coords.shape[-1])
-    return interp1d(predef, eq_coords, var,
-                    increasing=flat[0, 0] < flat[0, -1])
+def get_extrema_extend(data, N: int):
+    """(min - step, max + step) with step = (max - min) / N over every
+    element, skipping NaN (NaN if all are NaN): the reference's
+    endpoint-extension helper."""
+    nan = torch.isnan(data)
+    some = ~nan.all()
+    lo = torch.where(nan, float("inf"), data).amin()
+    hi = torch.where(nan, float("-inf"), data).amax()
+    vmin, vmax = lo.where(some, float("nan")), hi.where(some, float("nan"))
+    step = (vmax - vmin) / N
+    return vmin - step, vmax + step
+
+
+def interp_to_coords(predef, eq_coords, var, increasing=None, axis: int = -1):
+    """Remap a contour-indexed variable onto prescribed coordinate values.
+    The direction of ``eq_coords`` is taken from its first batch element,
+    like the reference, unless ``increasing`` is given.
+
+    ``axis`` is the interpolation axis in both ``eq_coords`` and ``var``
+    (the reference's ``interpDim``): a negative axis counts from the end of
+    each array, a non-negative one needs equal ranks."""
+    if axis != -1:
+        if axis >= 0 and eq_coords.dim() != var.dim():
+            raise ValueError(
+                "interp_to_coords: a non-negative axis is ambiguous when "
+                f"eq_coords (ndim {eq_coords.dim()}) and var (ndim "
+                f"{var.dim()}) differ in rank; use a negative axis")
+        eq_coords = torch.movedim(eq_coords, axis, -1)
+        var = torch.movedim(var, axis, -1)
+    if increasing is None:
+        flat = eq_coords.reshape(-1, eq_coords.shape[-1])
+        increasing = flat[0, 0] < flat[0, -1]
+    out = interp1d(predef, eq_coords, var, increasing=increasing)
+    return out if axis == -1 else torch.movedim(out, -1, axis)
+
+
+_INTEGRALS = {"exact": cal_integral_within_contours_exact,
+              "broadcast": cal_integral_within_contours,
+              "hist": cal_integral_within_contours_hist}
+
+
+def cal_contours_at(predef, table: Table, tracer, dA, *, increase: bool,
+                    lt: bool, method: str = "exact"):
+    """Contour levels lying at prescribed equivalent coordinates ``predef``:
+    N = len(predef) rough levels -> their enclosed areas -> Y_eq through
+    ``table`` -> the levels interpolated onto ``predef``.
+
+    method: 'exact' (sort-based, the default), 'broadcast' or 'hist'.  The
+    'hist' path keeps the reference's assumption that the bins span the
+    tracer's extrema: for interior prescribed coordinates it under-counts
+    the area (everything below the prepended edge is left out), as the
+    reference's ``cal_contours_at_hist`` does.  The exact path has no such
+    window and round-trips cleanly."""
+    if method not in _INTEGRALS:
+        raise ValueError(f"method={method!r} not in {list(_INTEGRALS)}")
+    ctr = cal_contours(tracer, predef.shape[-1], increase=increase)
+    area = _INTEGRALS[method](tracer, ctr, dA, lt=lt)
+    return interp_to_coords(predef, table.lookup_coordinates(area), ctr)

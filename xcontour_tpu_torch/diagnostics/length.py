@@ -74,7 +74,8 @@ class _ContourLengths(torch.autograd.Function):
         return (*grads, None, None)
 
 
-_PAD_MODES = ("edge", "wrap", "reflect", "symmetric", "constant")
+_PAD_MODES = ("edge", "wrap", "reflect", "symmetric", "constant", "empty",
+              "mean", "maximum", "minimum", "median", "linear_ramp")
 
 
 def _pad_index(n: int, pad: int, mode: str, device) -> torch.Tensor:
@@ -94,16 +95,44 @@ def _pad_index(n: int, pad: int, mode: str, device) -> torch.Tensor:
     return torch.where(j >= n, 2 * n - 1 - j, j)
 
 
+def _median(a: torch.Tensor) -> torch.Tensor:
+    """np.median along the last axis, kept as an axis of one: the mean of
+    the two middle values for an even count, NaN where a row holds NaN
+    (torch.median takes the lower middle value)."""
+    n = a.shape[-1]
+    s = torch.sort(a, dim=-1).values
+    lo, hi = (n - 1) // 2, n // 2
+    med = (s[..., lo:lo + 1] + s[..., hi:hi + 1]) / 2
+    return torch.where(torch.isnan(a).any(-1, keepdim=True),
+                       torch.full_like(med, float("nan")), med)
+
+
+_STATS = {"mean": lambda a: a.mean(-1, keepdim=True),
+          "maximum": lambda a: a.amax(-1, keepdim=True),
+          "minimum": lambda a: a.amin(-1, keepdim=True),
+          "median": _median}
+
+
 def _pad_x(a: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
-    """np.pad(a, [(0, 0), ..., (0, pad)], mode) along the last axis;
-    'constant' appends zeros."""
-    if mode not in _PAD_MODES:
+    """np.pad(a, [(0, 0), ..., (0, pad)], mode) along the last axis, as
+    jnp.pad computes it: the statistic modes over the whole row (NaN where
+    the row holds NaN), 'linear_ramp' from the edge value down to 0.
+    'constant' appends zeros, and so does 'empty', whose values np.pad
+    leaves undefined."""
+    if callable(mode) or mode not in _PAD_MODES:
         raise ValueError(f"pad mode {mode!r} is not supported; use one of "
-                         f"{_PAD_MODES}")
+                         f"{_PAD_MODES} (np.pad's function form is not)")
     if pad == 0:
         return a
-    if mode == "constant":
-        tail = a.new_zeros(a.shape[:-1] + (pad,))
+    shape = a.shape[:-1] + (pad,)
+    if mode in ("constant", "empty"):
+        tail = a.new_zeros(shape)
+    elif mode in _STATS:
+        tail = _STATS[mode](a).expand(shape)
+    elif mode == "linear_ramp":
+        # jnp.linspace(0, edge, pad, endpoint=False), reversed
+        k = torch.arange(pad - 1, -1, -1, dtype=a.dtype, device=a.device)
+        tail = a[..., -1:] * (k / pad)
     else:
         tail = a[..., _pad_index(a.shape[-1], pad, mode, a.device)]
     return torch.cat([a, tail], dim=-1)
@@ -169,10 +198,12 @@ def contour_crossing(data, contours, area, stride=1, *, mode: str = "edge",
     values straddle a level adds sqrt(area) * stride.
 
     ``stride`` is an int or a sequence of ints (then a list is returned).
-    x is padded once by the largest stride with np.pad's ``mode`` ('edge',
-    'wrap', 'reflect', 'symmetric' or 'constant').  ``quirks=True`` keeps
-    the reference's indexing bugs (column boxes bounded by the row count,
-    area indexed by box); the default is the corrected full-width form.
+    x is padded once by the largest stride with np.pad's ``mode``: 'edge',
+    'wrap', 'reflect', 'symmetric', 'constant', 'mean', 'maximum',
+    'minimum', 'median', 'linear_ramp' or 'empty' (filled as 'constant').
+    ``quirks=True`` keeps the reference's indexing bugs (column boxes
+    bounded by the row count, area indexed by box); the default is the
+    corrected full-width form.
     """
     if isinstance(stride, Sequence):
         pad_x = int(max(stride))

@@ -96,6 +96,23 @@ class Grid:
             return torch.ones(self.shape, dtype=dtype, device=self.dA.device)
         return self.mask.to(dtype)
 
+    def total_area(self) -> torch.Tensor:
+        """The fluid area: dA summed over the fluid cells."""
+        return torch.sum(self.dA * self.fluid_mask(self.dA.dtype))
+
+    def integrate(self, field: torch.Tensor) -> torch.Tensor:
+        """The NaN-skipping area integral of ``field`` (..., Ny, Nx) over the
+        plane."""
+        return torch.nansum(field * self.dA, dim=(-2, -1))
+
+
+def to_host(grid: Grid) -> Grid:
+    """The same grid with every tensor on the CPU: the port's host copy
+    (the JAX package's ``to_host`` gives numpy leaves, so that a jitted
+    function closing over the grid embeds no device arrays; here it is a
+    copy to CPU memory, as ``grid.to('cpu')``)."""
+    return grid.to("cpu")
+
 
 def from_latlon(lat, lon, Rearth: float = _REARTH,
                 mask: Optional[np.ndarray] = None,

@@ -135,7 +135,7 @@ def lwa_pipeline(tracer: torch.Tensor, grid: Grid,
     impulse-Casimir LWA2.
 
     metric : 'dA' (wei*dA) or 'dy' (wei*dyF).
-    lwa_method : 'auto', 'lin' or 'dense' (see
+    lwa_method : 'auto', 'lin', 'dense' or 'fast' (see
         :func:`diagnostics.lwa.local_wave_activity`).
     table : a precomputed A(Y_eq) table, reusable across snapshots.
 
@@ -177,6 +177,7 @@ def keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
            'dxF'      — masked zonal sum of dxF interpolated to Yeq;
            'frac'     — latitude_lengths_at(lat) * zonal fluid fraction.
     metric : LWA weight, 'dA' (wei*dA) or 'dy' (wei*dyF).
+    lwa_method : 'auto', 'lin', 'dense' or 'fast', as in ``lwa_pipeline``.
     with_lwa2 : also return the impulse-Casimir LWA2 (``lwa2``).
     table : a precomputed A(Y_eq) table.  It depends only on (mask, ydef,
         dA), so a loop over many snapshots builds it once with
