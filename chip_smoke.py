@@ -102,7 +102,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      rows exactly zero; the lin/fast ladder (B = 4, Nx = 512, Ny from 1024
      to 8192, and the ERA5 step: K3, K5 and 'fast' for both variants) and
      the Ny from which 'fast' wins; 'auto' just below and at the port's
-     crossover, by K3's and K5's launch counts.
+     crossover, by K3's and K5's launch counts;
+  9. the facade, through the reference's names (``xcontour_tpu_torch.xcontour``)
+     at ERA5 scale on a grid from ``add_latlon_metrics``: notebook 1's Keff
+     chain on ``Contour2D`` (one A(Y_eq) table, then per step K1 once and K2
+     once a channel) against ``keff_pipeline(hist=True)``; notebook 2's
+     sorted profile and ``cal_local_wave_activity(mask_idx=[120, 360,
+     600])``, ``cal_local_wave_activity2``, ``cal_local_APE`` and
+     ``part='upper'`` against ``lwa_pipeline`` (K3, K5, K4 once each), the
+     masks against the reference's rule and the rows rebuilt from them
+     against K4; ``cal_contour_lengths`` (K7 once) against
+     ``clength_pipeline``, and K7 against the host traversal
+     (``find_contour`` + ``contour_length``, the native C++ library, which
+     must load) on one level at two interior levels; ``cal_contours_at`` in
+     its three forms against phase 8's levels; ``as_dataset`` of a B = 2
+     ``keff_lwa_pipeline`` step and ``interp_to_dataset`` through nc3 and
+     back, exact; ``add_MITgcm_missing_metrics`` and
+     ``Contour2D.from_arrays`` on the LAPE section, ``cal_local_APE``
+     against phase 4's LAPE ``lwa``; the card's facade at 2x91x180 against
+     the float64 oracle ``compat``.  Each chain timed (CUDA events, median
+     of 5) beside the pipeline it mirrors, with its launches a step and
+     peak memory; the dataset path's host copies, nc3 write and read.
 
 The last three lines are the kernels JSON, the card line from nvidia-smi,
 and {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
@@ -258,6 +278,38 @@ FAST_BOUND = 1e-4
 LADDER_B, LADDER_NX = 4, 512
 LADDER_NYS = (1024, 2048, 3072, 4096, 5120, 6144, 8192)
 LADDER_REPS = 5
+# phase 9, the facade: Contour2D and the reference namespace driven as the
+# reference's notebooks drive them, against the pipelines they mirror on the
+# same CUDA tensors.  K2's float atomics sum in another order each launch
+# (two runs of one pipeline differ), and the facade launches K2 once a
+# channel where the pipelines launch it once for two.  So an output is held
+# within FACADE_BOUND of its largest magnitude where only that order
+# differs; the keys a table lookup or a difference along the contour index
+# amplifies take their CARD_CPU_TOL bounds, on the contours that enclose,
+# and leave out, EXTREME_AREA of the largest enclosed area or more (the
+# contour levels and the integrals on every contour).  Towards a pole the
+# area left out is a ~ pi R^2 cos^2(Yeq), so Lmin ~ sqrt(a) and
+# nkeff ~ 1/a, and K2's float order, ~2e-7 of the total area on an H100,
+# moves nkeff by 2e-7 / EXTREME_AREA = 2e-3 (CARD_CPU_TOL's nkeff) of itself
+# at a = EXTREME_AREA.  On the extreme contours (a few a level: the ERA5
+# polar cell is 4e5 m^2, the order's noise ~1e8) the order alone decides
+# Yeq, Lmin, the differences of areas and nkeff, which differed by 59% of
+# the largest nkeff there on an NVIDIA H100 80GB HBM3 at 700 W.  nkeff
+# through threshold_agree.  LWA, LWA2, APE and part='upper' within
+# FACADE_BOUND of local_wave_activity[2] on the facade's own Q, and within
+# CARD_CPU_TOL['lwa'] of the pipeline's, whose Q differs by K2's order (4e-6
+# of the max on an H100, which the 'lin' cancellation took to 4.8e-5 of the
+# field maximum).  MASK_IDX: the
+# surfaces of the reference's LWA notebook (rows 120, 360, 600 of 721:
+# 60S, the equator, 60N).  K7 against the host traversal within the float64
+# bound of phase 3 (KERNEL_BOUNDS['contour_lengths']).  FACADE_SMALL: the
+# card's facade against the float64 oracle (compat), at CARD_CPU_TOL.
+# DATASET_B: the labelled dataset's batch (a step's outputs written to nc3).
+FACADE_BOUND = 1e-5
+EXTREME_AREA = 1e-4
+MASK_IDX = (120, 360, 600)
+FACADE_SMALL = dict(B=2, nlat=91, nlon=180, N=121)
+DATASET_B = 2
 # no single PyTorch call computes any of K1-K8 (torch.histogram has no CUDA
 # form, torch.histc takes no weights, torch.bincount weighs integer bins
 # that a torch.bucketize must find first and leaves the cumsum; no call
@@ -1672,7 +1724,7 @@ def exact_checks(dev, drive, q, grid, table):
                 increase=True, lt=True))
     card_vs_cpu("exact integral and contours_at 2x256x512", out["cpu"],
                 out[str(dev)], phase=8)
-    return timing
+    return timing, levels
 
 
 def fast_checks(dev, drive, era_q, era_grid, era_table, tall_q, tall_grid):
@@ -1797,6 +1849,393 @@ def auto_checks(dev, drive):
                          lwa_dense_tall=0, weighted_cdf=0))
         log(f"phase 8 auto at Ny={ny}: {'lin' if n else 'fast'} (K3, K5 "
             f"launched {n} time{'s' if n != 1 else ''} each)")
+
+
+def facade_vs(label, got, want, keys):
+    """The facade's outputs against the pipeline's on the same CUDA tensors
+    (module constants: FACADE_BOUND, CARD_CPU_TOL for amplified keys,
+    EXTREME_AREA for nkeff)."""
+    A = want["intArea"]
+    top = A.amax(-1, keepdim=True)
+    ill = torch.minimum(A, top - A) < EXTREME_AREA * top
+    worst = [f"{int(ill.sum())} extreme contours of {A.numel()}"]
+    for k in keys:
+        g, w = got[k], want[k]
+        if k in CARD_CPU_TOL:
+            nan = torch.full_like(g, float("nan"))
+            g, w = torch.where(ill, nan, g), torch.where(ill, nan, w)
+        if k == "nkeff":
+            g, w = threshold_agree(g, w, CARD_CPU_TOL["nkeff"])
+        _, rel = rel_err(g, w)
+        tol = CARD_CPU_TOL.get(k, FACADE_BOUND)
+        worst.append(f"{k} {rel:.2e}/{tol:g}")
+        _expect(rel <= tol, f"{label}: {k} rel {rel:.3e} > {tol:g}")
+    log(f"phase 9 facade {label} against the pipeline: OK ({', '.join(worst)})")
+
+
+def field_rel(label, got, want, bound=FACADE_BOUND):
+    """A field against another, relative to the other's maximum."""
+    err, rel = rel_err(got, want)
+    log(f"phase 9 {label}: max_abs_err {err:.6g} rel {rel:.3e} bound "
+        f"{bound:g} {'OK' if rel <= bound else 'FAIL'}")
+    _expect(rel <= bound, f"{label} disagrees")
+    return rel
+
+
+def keff_chain(an, grid, table, N):
+    """The reference's notebook 1 on a Contour2D: levels, the area and
+    |grad q|^2 integrals by histogram, their d/dA, Leq^2, Lmin at the
+    equivalent latitudes, normalized Keff (one K1 launch, two K2)."""
+    import xcontour_tpu_torch as xt
+    ctr = an.cal_contours(N)
+    grdS = xt.squared_gradient(an.tracer, grid)
+    area = an.cal_integral_within_contours_hist(ctr)
+    intS = an.cal_integral_within_contours_hist(ctr, integrand=grdS)
+    Yeq = table.lookup_coordinates(area)
+    dqdA = an.cal_gradient_wrt_area(ctr, area)
+    dgdA = an.cal_gradient_wrt_area(intS, area)
+    Leq2 = an.cal_sqared_equivalent_length(dgdA, dqdA)
+    Lmin = xt.latitude_lengths_at(Yeq)
+    return dict(contour=ctr, intArea=area, intgrdS=intS, Yeq=Yeq,
+                dgrdSdA=dgdA, dqdA=dqdA, Leq2=Leq2, Lmin=Lmin,
+                nkeff=an.cal_normalized_Keff(Leq2, Lmin, NKEFF_MASK))
+
+
+def lwa_profile(an, table, N):
+    """The sorted profile Q of notebook 2: levels, areas (K2), equivalent
+    latitudes, Q interpolated onto the grid's latitudes."""
+    ctr = an.cal_contours(N)
+    latEq = table.lookup_coordinates(an.cal_integral_within_contours_hist(ctr))
+    return an.interp_to_coords(an.grid.ydef, latEq, ctr)
+
+
+def mask_checks(q, Q, masks, W):
+    """Each mask of mask_idx against an independent statement of the
+    reference's rule (+1 where q < Q_j on or poleward of y_j, -1 where
+    q > Q_j equatorward of it, else 0; an ascending coordinate), and the
+    surface rebuilt from it, -sum_y mask (q - Q_j) W, against K4's row j on
+    the same inputs within K4's bound."""
+    from xcontour_tpu_torch.kernels import lwa as kl
+    iy = torch.arange(q.shape[-2], device=q.device)
+    dense = kl.lwa_dense(q.contiguous(), Q.contiguous(), W.contiguous(),
+                         increase=True)
+    zero = torch.zeros((), dtype=q.dtype, device=q.device)
+    worst = 0.0
+    for mask, j in zip(masks, MASK_IDX):
+        qe = q - Q[:, j, None, None]
+        north = (iy >= j)[:, None]
+        want = torch.where(north & (qe < 0), 1.0,
+                           torch.where(~north & (qe > 0), -1.0, 0.0))
+        _expect(torch.equal(mask, want.to(mask.dtype)),
+                f"mask at surface {j} differs from the reference's rule")
+        row = -(torch.where(torch.isnan(qe), zero, qe) * mask * W).sum(-2)
+        _, rel = rel_err(row, dense[:, j])
+        worst = max(worst, rel)
+    bound = KERNEL_BOUNDS["lwa_dense"]
+    log(f"phase 9 masks {MASK_IDX}: equal to the rule at every (b, y, x); "
+        f"rows rebuilt from them against K4 rel {worst:.3e} bound {bound:g} "
+        f"{'OK' if worst <= bound else 'FAIL'}")
+    _expect(worst <= bound, "rows rebuilt from the masks disagree with K4")
+
+
+def host_k7_checks(q, grid, ctr):
+    """K7 on one ERA5 level against the host traversal (native marching
+    squares, float64): at two interior levels, the sum of contour_length
+    over every piece find_contour extracts (neither wraps x) against K7's
+    total."""
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch.host import native
+    _expect(native._load() is not None,
+            "the native marching-squares library did not build or load")
+    lat = grid.ydef.cpu().numpy()
+    lon = grid.xdef.cpu().numpy()
+    field = q.cpu().numpy()
+    bound = KERNEL_BOUNDS["contour_lengths"]
+    out = []
+    for c in (ctr[ctr.shape[0] // 3], ctr[2 * ctr.shape[0] // 3]):
+        t0 = time.perf_counter()
+        segs = xt.xcontour.find_contour(field, (lat, lon), float(c))
+        host = sum(xt.contour_length(s, latlon=True) for s in segs)
+        host_s = time.perf_counter() - t0
+        k7 = xt.contour_lengths(q[None], c.reshape(1, 1), grid.ydef,
+                                grid.xdef, latlon=True)[0, 0].item()
+        rel = abs(k7 - host) / host
+        out.append(rel)
+        log(f"phase 9 K7 against the host traversal at level {float(c):.6g}: "
+            f"{len(segs)} pieces, host {host:.9g} m in {1e3 * host_s:.1f} ms, "
+            f"K7 {k7:.9g} m, rel {rel:.3e} bound {bound:g} "
+            f"{'OK' if rel <= bound else 'FAIL'}")
+        _expect(rel <= bound, "K7 disagrees with the host traversal")
+    return out
+
+
+def dataset_round_trip(label, ds, tmp):
+    """Write ``ds`` with to_nc3, read it back: values, dims and coordinates
+    as written.  Returns (write ms, read ms, MB)."""
+    from xcontour_tpu_torch.utils.ncio import load_dataset
+    path = f"{tmp}/{label}.nc"
+    t0 = time.perf_counter()
+    ds.to_nc3(path)
+    t1 = time.perf_counter()
+    back = load_dataset(path)
+    t2 = time.perf_counter()
+    for k, v in ds.variables.items():
+        _expect(np.array_equal(back[k], v, equal_nan=True),
+                f"{label}: {k} changed through nc3")
+        _expect(tuple(back.dims_of(k)) == tuple(ds.dims_of(k)),
+                f"{label}: dims of {k} {back.dims_of(k)} != {ds.dims_of(k)}")
+    for k, v in ds.coords.items():
+        _expect(np.array_equal(np.asarray(back[k]), v),
+                f"{label}: coordinate {k} changed through nc3")
+    mb = sum(v.nbytes for v in ds.variables.values()) / 2 ** 20
+    return 1e3 * (t1 - t0), 1e3 * (t2 - t1), mb
+
+
+def facade_small_oracle(dev):
+    """Contour2D on the card against the float64 oracle (compat) on the host
+    at FACADE_SMALL, each snapshot, at phase 5's float32 tolerances."""
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch import compat
+    B, nlat, nlon, N = (FACADE_SMALL[k] for k in ("B", "nlat", "nlon", "N"))
+    lat, lon, pv = make_pv(B, nlat, nlon, 11)
+    _, grid = xt.add_latlon_metrics({"latitude": lat, "longitude": lon})
+    an = xt.Contour2D(grid, pv, lt=True)
+    table = an.cal_area_eqCoord_table_hist(grid.fluid_mask())
+    k = keff_chain(an, grid, table, N)
+    Q = an.interp_to_coords(grid.ydef, k["Yeq"], k["contour"])
+    card = dict(intArea=k["intArea"], Yeq=k["Yeq"], Leq2=k["Leq2"],
+                Lmin=k["Lmin"], nkeff=k["nkeff"], Q=Q,
+                lwa=an.cal_local_wave_activity(an.tracer, Q),
+                lwa2=an.cal_local_wave_activity2(an.tracer, Q))
+    host = lambda t: t.detach().cpu().double().numpy()
+    ydef, dA, dxF = host(grid.ydef), host(grid.dA), host(grid.dxF)
+    grdS = host(xt.squared_gradient(an.tracer, grid))
+    ones = np.ones(pv.shape[-2:])
+    pre = np.linspace(-80.0, 80.0, 33)
+    for b in range(B):
+        q = pv[b].astype(np.float64)
+        kw = dict(N=N, increase=True, lt=True)
+        o = compat.keff_snapshot(q, grdS[b], ydef, dA, dxF, ones, pre,
+                                 lmin="analytic", nkeff_mask=NKEFF_MASK,
+                                 **kw)["origin"]
+        w = compat.lwa_snapshot(q, ydef, dA, ones, **kw)
+        want = {key: torch.as_tensor(v) for key, v in dict(
+            intArea=o["intArea"], Yeq=o["Yeq"], Leq2=o["Leq2"],
+            Lmin=o["Lmin"], nkeff=o["nkeff"], Q=w["Q"], lwa=w["lwa"],
+            lwa2=w["lwa2"]).items()}
+        card_vs_cpu(f"facade {B}x{nlat}x{nlon} snapshot {b} against the "
+                    f"float64 oracle", want, {key: v[b] for key, v in
+                                              card.items()}, phase=9)
+
+
+def facade_phase(dev, drive, path_counts, era_steps, era_grid, sort_table,
+                 sort_timing, sort_levels, lape_q, lape_out, lape_v):
+    """Phase 9: the facade through the reference's names at ERA5 scale.
+    Returns {chain: {ms, pipeline_ms, launches a step, peak GiB}} and the
+    labels of the paths it drove."""
+    import tempfile
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch import xcontour as xc
+    names = list(next(iter(path_counts.values())))
+    none = {n: 0 for n in names}
+    labels, chains = [], {}
+
+    def run(label, counts, fn):
+        labels.append(label)
+        return drive(label, counts, fn, exact=dict(none, **counts))
+
+    def chain(name, fn, mirror, label, reps=LADDER_REPS, against="pipeline"):
+        """Time one facade call and what it mirrors, ``against``: a call,
+        or its ms measured before."""
+        ms, gib = measure(fn, reps=reps)
+        pipe_ms = mirror if not callable(mirror) else measure(mirror,
+                                                               reps=reps)[0]
+        per_step = {k: c for k, c in path_counts[label].items() if c}
+        chains[name] = dict(ms=ms, against=against, against_ms=pipe_ms,
+                            launches_per_step=per_step, peak_gib=gib)
+        log(f"phase 9 time {name}: facade {ms:.4f} ms, {against} "
+            f"{'-' if pipe_ms is None else f'{pipe_ms:.4f}'} ms, launches a "
+            f"step {per_step}, peak {gib:.3f} GiB above its inputs")
+
+    S, N = STREAM_STEPS, ERA5["N"]
+    lat = era_grid.ydef.cpu().numpy()
+    lon = era_grid.xdef.cpu().numpy()
+    levs = np.linspace(300.0, 440.0, ERA5["B"])
+    metrics, grid = xc.add_latlon_metrics({"latitude": lat, "longitude": lon,
+                                           "lev": levs})
+    _expect(grid.dA.device == era_steps[0].device and "drF" in metrics,
+            "add_latlon_metrics: the grid is not on the card")
+    q = era_steps[0]
+    an = xc.Contour2D(grid, q, lt=True)
+    mask = grid.fluid_mask()
+
+    # the Keff chain (notebook 1): one table, then S steps
+    def keff_run():
+        table = an.cal_area_eqCoord_table_hist(mask)
+        return table, [keff_chain(xc.Contour2D(grid, qs, lt=True), grid,
+                                  table, N) for qs in era_steps[:S]]
+    table, outs = run("facade keff era5",
+                      {"squared_gradient": S, "weighted_cdf": 2 * S + 1},
+                      keff_run)
+    for i, out in enumerate(outs):
+        _check_keff(out, f"facade keff era5 step {i}")
+    want = xt.keff_pipeline(q, grid, N=N, lmin="analytic",
+                            nkeff_mask=NKEFF_MASK, table=table)["origin"]
+    facade_vs("keff era5", outs[0], want,
+              ("contour", "intArea", "intgrdS", "Yeq", "dgrdSdA", "dqdA",
+               "Leq2", "Lmin", "nkeff"))
+    run("facade keff era5 step", {"squared_gradient": 1, "weighted_cdf": 2},
+        lambda: keff_chain(an, grid, table, N))
+    chain("keff", lambda: keff_chain(an, grid, table, N),
+          lambda: xt.keff_pipeline(q, grid, N=N, lmin="analytic",
+                                   nkeff_mask=NKEFF_MASK, table=table),
+          "facade keff era5 step")
+
+    # the LWA chain (notebook 2)
+    Q = run("facade Q era5", {"weighted_cdf": 1},
+            lambda: lwa_profile(an, table, N))
+    lwa, contours, masks = run(
+        "facade lwa era5 mask_idx", {"lwa_lin": 1},
+        lambda: an.cal_local_wave_activity(q, Q, mask_idx=list(MASK_IDX)))
+    pipe = xt.lwa_pipeline(q, grid, N=N, table=table)
+    field_rel("facade Q era5 against lwa_pipeline", Q, pipe["Q"])
+
+    def lwa_vs(label, got, part="all", variant2=False, key="lwa"):
+        fn = xt.local_wave_activity2 if variant2 else xt.local_wave_activity
+        own = fn(q, Q, grid.dA, grid.ydef, increase=True, part=part)
+        field_rel(f"facade {label} era5 against local_wave_activity"
+                  f"{'2' if variant2 else ''} on its Q", got, own)
+        want = pipe if part == "all" else xt.lwa_pipeline(
+            q, grid, N=N, part=part, table=table)
+        field_rel(f"facade {label} era5 against lwa_pipeline"
+                  f"{'' if part == 'all' else f'(part={part!r})'}'s {key}",
+                  got, want[key], CARD_CPU_TOL["lwa"])
+    lwa_vs("lwa mask_idx", lwa)
+    _expect(len(contours) == len(masks) == len(MASK_IDX)
+            and all(torch.equal(c, Q[:, j]) for c, j in zip(contours,
+                                                             MASK_IDX)),
+            "mask_idx: contours are not the profile at the surfaces")
+    lwa2 = run("facade lwa2 era5", {"lwa_lin2": 1},
+               lambda: an.cal_local_wave_activity2(q, Q))
+    lwa_vs("lwa2", lwa2, variant2=True, key="lwa2")
+    ape = run("facade ape era5", {"lwa_lin": 1},
+              lambda: an.cal_local_APE(q, Q))
+    lwa_vs("ape", ape)
+    W = an.dA / an.dA.max() * an.dA
+    mask_checks(q, Q, masks, W)
+    del masks, contours
+    upper = run("facade lwa upper era5", {"lwa_dense": 1},
+                lambda: an.cal_local_wave_activity(q, Q, part="upper"))
+    lwa_vs("lwa upper", upper, part="upper")
+    del upper
+    run("facade lwa era5 step", {"weighted_cdf": 1, "lwa_lin": 1,
+                                 "lwa_lin2": 1},
+        lambda: (lambda Q: (an.cal_local_wave_activity(q, Q),
+                            an.cal_local_wave_activity2(q, Q)))(
+            lwa_profile(an, table, N)))
+    chain("lwa", lambda: (lambda Q: (an.cal_local_wave_activity(q, Q),
+                                     an.cal_local_wave_activity2(q, Q)))(
+              lwa_profile(an, table, N)),
+          lambda: xt.lwa_pipeline(q, grid, N=N, table=table),
+          "facade lwa era5 step")
+    chain("lwa mask_idx", lambda: an.cal_local_wave_activity(
+              q, Q, mask_idx=list(MASK_IDX)),
+          lambda: an.cal_local_wave_activity(q, Q), "facade lwa era5 mask_idx",
+          against="the same call without mask_idx")
+    chain("lwa upper", lambda: an.cal_local_wave_activity(q, Q, part="upper"),
+          lambda: xt.local_wave_activity(q, Q, grid.dA, grid.ydef,
+                                         increase=True, part="upper"),
+          "facade lwa upper era5", against="local_wave_activity")
+
+    # geometry: K7 through the facade, and against the host traversal
+    N7 = CLENGTH_N[0]
+    lengths = run(f"facade lengths era5 N={N7}", {"contour_lengths": 1},
+                  lambda: an.cal_contour_lengths(N7, latlon=True))
+    cl = xt.clength_pipeline(q, grid, N=N7, table=table)
+    field_rel(f"facade lengths era5 N={N7} against clength_pipeline", lengths,
+              cl["lengths"], KERNEL_BOUNDS["contour_lengths"])
+    level = ERA5["B"] // 2
+    host_rel = host_k7_checks(q[level], grid, cl["contour"][level])
+    chain("lengths", lambda: an.cal_contour_lengths(N7, latlon=True),
+          lambda: xt.clength_pipeline(q, grid, N=N7, table=table),
+          f"facade lengths era5 N={N7}")
+
+    # contour levels at prescribed latitudes, on phase 8's table
+    predef = torch.linspace(*EXACT_PREDEF, device=dev)
+    for method, k2 in (("broadcast", 0), ("hist", 1), ("exact", 0)):
+        name = "cal_contours_at" + ("" if method == "broadcast"
+                                    else f"_{method}")
+        fn = lambda name=name: getattr(an, name)(predef, sort_table)
+        levels = run(f"facade {name} era5", {"weighted_cdf": k2}, fn)
+        field_rel(f"facade {name} era5 against phase 8's {method}", levels,
+                  sort_levels[method], LEVELS_BOUND)
+        chain(name, fn, sort_timing[f"contours_at {method}"][0],
+              f"facade {name} era5",
+              reps=3 if method == "broadcast" else LADDER_REPS,
+              against=f"phase 8's cal_contours_at {method}")
+
+    # labelled datasets through nc3 (scipy's writer imported before the
+    # timed writes)
+    import scipy.io  # noqa: F401
+    pre_y = torch.linspace(-88.0, 88.0, 177, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = run("facade dataset keff_lwa era5", {
+            "squared_gradient": 1, "weighted_cdf": 1, "lwa_lin": 1},
+            lambda: xt.keff_lwa_pipeline(q[:DATASET_B], grid, N=N,
+                                         pre_y=pre_y, table=table))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds = xt.as_dataset(out, grid, pre_y=pre_y)
+        copy_ms = 1e3 * (time.perf_counter() - t0)
+        write_ms, read_ms, mb = dataset_round_trip("keff_lwa", ds, tmp)
+        _expect(ds.dims_of("lwa") == ("time", "latitude", "longitude")
+                and ds.dims_of("nkeff_at") == ("time", "latitude_interp"),
+                f"as_dataset dims {ds.dims}")
+        log(f"phase 9 dataset keff_lwa era5 B={DATASET_B}: as_dataset "
+            f"(host copies) {copy_ms:.2f} ms, to_nc3 {write_ms:.2f} ms, "
+            f"load_dataset {read_ms:.2f} ms, {mb:.1f} MiB of variables: "
+            f"round trip exact")
+        k = outs[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = an.interp_to_dataset(
+            predef, k["Yeq"], {"q": k["contour"], "latEq": k["Yeq"],
+                               "area": k["intArea"], "nkeff": k["nkeff"]},
+            batch_dims=("time",),
+            batch_coords={"time": np.arange(ERA5["B"], dtype=np.float64)})
+        interp_ms = 1e3 * (time.perf_counter() - t0)
+        iwrite_ms, iread_ms, imb = dataset_round_trip("interp", ids, tmp)
+        _expect(ids.dims_of("q") == ("time", "latitude"),
+                f"interp_to_dataset dims {ids.dims}")
+        log(f"phase 9 dataset interp_to_dataset era5: {interp_ms:.2f} ms, "
+            f"to_nc3 {iwrite_ms:.2f} ms, load_dataset {iread_ms:.2f} ms, "
+            f"{imb:.3f} MiB: round trip exact")
+    chains["dataset"] = dict(as_dataset_ms=copy_ms, to_nc3_ms=write_ms,
+                             load_ms=read_ms, mib=mb,
+                             interp_to_dataset_ms=interp_ms,
+                             interp_to_nc3_ms=iwrite_ms)
+
+    # LAPE: the MITgcm metric constructor and the vendored Contour2D on the x-z plane
+    def lape_run():
+        metrics, mgrid = xc.add_MITgcm_missing_metrics(lape_v)
+        a1 = xc.Contour2D(mgrid, lape_q, increase=False, lt=False)
+        a2 = xc.Contour2D.from_arrays(lape_q, metrics["yA"], lape_v["Z"],
+                                      lape_v["XC"], increase=False, lt=False)
+        return [a.cal_local_APE(lape_q, lape_out["Q"]) for a in (a1, a2)], a1
+    (ape_grid, ape_arrays), a1 = run("facade lape", {"lwa_lin": 2}, lape_run)
+    field_rel("facade lape (add_MITgcm_missing_metrics) against phase 4",
+              ape_grid, lape_out["lwa"])
+    field_rel("facade lape (from_arrays) against phase 4", ape_arrays,
+              lape_out["lwa"])
+    run("facade lape step", {"lwa_lin": 1},
+        lambda: a1.cal_local_APE(lape_q, lape_out["Q"]))
+    chain("lape", lambda: a1.cal_local_APE(lape_q, lape_out["Q"]),
+          lambda: xt.local_wave_activity(lape_q, lape_out["Q"], a1.dA,
+                                         a1.grid.ydef, increase=False),
+          "facade lape step", against="local_wave_activity")
+
+    facade_small_oracle(dev)
+    return chains, labels, host_rel
 
 
 def main() -> int:
@@ -2025,9 +2464,9 @@ def main() -> int:
             lambda q: xt.lwa_pipeline(q, lape_grid, lape_mask, N=LAPE["N"],
                                       increase=False, lt=False, table=table),
             [lape_q] * S)
-    outs, times = drive("lape", {"weighted_cdf": S, "lwa_lin": S,
-                                 "lwa_lin2": S}, run_lape)
-    for out in outs:
+    lape_outs, times = drive("lape", {"weighted_cdf": S, "lwa_lin": S,
+                                      "lwa_lin2": S}, run_lape)
+    for out in lape_outs:
         check_lape(out, lshape, LAPE["N"], "lape")
     rates["lape"] = (LAPE["B"] / statistics.median(times), None, times)
     log(f"phase 4 lape: step s {[round(t, 5) for t in times]}: checks OK")
@@ -2254,7 +2693,8 @@ def main() -> int:
     from xcontour_tpu_torch.diagnostics.lwa import _FAST_NY_CROSSOVER
     t0 = time.perf_counter()
     sort_table = era_table()
-    exact_checks(dev, drive, era_steps[0], era_grid, sort_table)
+    sort_timing, sort_levels = exact_checks(dev, drive, era_steps[0],
+                                            era_grid, sort_table)
     fast_checks(dev, drive, era_steps[0], era_grid, sort_table, tall_q,
                 tall_grid)
     era_Q = xt.keff_lwa_pipeline(era_steps[0], era_grid, N=ERA5["N"],
@@ -2267,6 +2707,18 @@ def main() -> int:
     auto_checks(dev, drive)
     log(f"phase 8 sort engines: OK in {time.perf_counter() - t0:.1f} s")
 
+    # 9. the facade: Contour2D, the reference namespace, labelled datasets
+    t0 = time.perf_counter()
+    chains, facade_labels, _ = facade_phase(
+        dev, drive, path_counts, era_steps, era_grid, sort_table, sort_timing,
+        sort_levels, lape_q, lape_outs[0], lv)
+    facade_counts = {r.name: sum(path_counts[label][r.name]
+                                 for label in facade_labels)
+                     for r in records}
+    log(f"phase 9 launches over the facade's paths: {facade_counts}")
+    log(f"phase 9 json {json.dumps(chains)}")
+    log(f"phase 9 facade: OK in {time.perf_counter() - t0:.1f} s")
+
     def entry(r, key, err_key, extra=()):
         e = dict(name=r.name, route="cuda", source=r.source,
                  replaces=r.replaces, launches=totals[r.name],
@@ -2274,7 +2726,8 @@ def main() -> int:
                  plain_ms=timing[key][1], bound_ms=bounds[key][0],
                  bound_by=bounds[key][1], library_ms=LIBRARY_MS,
                  backward_ms=grad_times[r.name][1],
-                 backward_peak_gib=grad_times[r.name][2])
+                 backward_peak_gib=grad_times[r.name][2],
+                 launches_facade=facade_counts[r.name])
         for tag, k in extra:
             if k in errs:
                 e[f"max_abs_err_{tag}"] = errs[k]

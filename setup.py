@@ -16,7 +16,7 @@ setup(
     packages=find_packages(exclude=["docs", "tests", "examples", "tools"]),
     # the PyTorch port builds its CUDA sources with nvcc at first use
     package_data={"xcontour_tpu": ["../csrc/*.cpp"],
-                  "xcontour_tpu_torch": ["csrc/*.cu"]},
+                  "xcontour_tpu_torch": ["csrc/*.cu", "csrc/*.cpp"]},
     entry_points={
         "console_scripts": ["xcontour-tpu = xcontour_tpu.cli:main"],
     },

@@ -1,10 +1,11 @@
 """Contour-space core: the conservative-rearrangement engine.
 
-Counterpart of ``xcontour_tpu/core.py`` but its ``Contour2D`` facade:
-contour levels, the conditional integrals (histogram, broadcast and exact
-sort-based paths), the A(Y_eq) lookup tables, the Keff algebra (d/dA,
-Leq^2, normalized Keff), the contour means, and the contour -> coordinate
-interpolation with the contour levels at prescribed coordinates.
+Counterpart of ``xcontour_tpu/core.py``: contour levels, the conditional
+integrals (histogram, broadcast and exact sort-based paths), the A(Y_eq)
+lookup tables, the Keff algebra (d/dA, Leq^2, normalized Keff), the contour
+means, the contour -> coordinate interpolation with the contour levels at
+prescribed coordinates, and the reference-compatible :class:`Contour2D`
+facade over all of them (and over LWA and the contour geometry).
 
 Array conventions: plane fields (..., Ny, Nx) with the equivalent dim at
 axis -2; contour-space tensors (..., N) with the contour index last.
@@ -13,15 +14,21 @@ axis -2; contour-space tensors (..., N) with the contour index last.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Sequence, Union
+
 import numpy as np
 import torch
 
-from .grid import _device
+from .diagnostics import length as _length
+from .diagnostics import lwa as _lwa
+from .grid import Grid, _device, from_metrics, to_numpy
 from .kernels import needs_grad
 from .ops.gradient import gradient_index
 from .ops.histogram import weighted_cdf, weighted_cdf_both
 from .ops.interp import interp1d
 from .ops.sort import exact_conditional_integral
+from .utils.checks import check_monotonic
+from .utils.ncio import Dataset
 
 
 def cal_contours(tracer: torch.Tensor, N: int, *,
@@ -385,3 +392,260 @@ def cal_contours_at(predef, table: Table, tracer, dA, *, increase: bool,
     ctr = cal_contours(tracer, predef.shape[-1], increase=increase)
     area = _INTEGRALS[method](tracer, ctr, dA, lt=lt)
     return interp_to_coords(predef, table.lookup_coordinates(area), ctr)
+
+
+class Contour2D:
+    """The reference's ``Contour2D`` (reference core.py:20-70 and the
+    grid-first form its tests call, tests/test_Keff_atmos.py:37-41): one
+    tracer on one grid, and every analysis as a method.
+
+    ``grid`` carries the metrics; ``trcr`` is (..., Ny, Nx) with the
+    equivalent dimension at axis -2.  ``dims``/``dimEq`` are accepted for
+    the reference's signature and validated against ``grid.dim_names``.
+
+    Inputs given as numpy arrays or lists go to the grid's device in
+    ``dtype``; a tensor must already be on the grid's device (a
+    ``ValueError`` names both devices: nothing is copied silently).  The
+    LWA methods take the port's ``method='auto'``: from
+    ``diagnostics.lwa._FAST_NY_CROSSOVER`` rows on that is 'fast' (the JAX
+    package's 'auto' takes 'lin' there).
+    """
+
+    def __init__(self, grid: Grid, trcr, dims: Optional[dict] = None,
+                 dimEq: Optional[dict] = None, arakawa: str = "A",
+                 increase: bool = True, lt: bool = False,
+                 check_mono: bool = False, dtype=torch.float32):
+        if dimEq is not None and len(dimEq) != 1:
+            raise ValueError('dimEq should be one dimension e.g., {"Y": "lat"}')
+        if dims is not None:
+            if len(dims) != 2:
+                raise ValueError("dims should be a 2D plane")
+            names = set(dims.values())
+            if not names.issuperset(set(grid.dim_names)) and \
+                    not set(grid.dim_names).issuperset(names):
+                raise ValueError(
+                    f"dims {dims} do not match grid dims {grid.dim_names}")
+        if arakawa not in ("A", "C"):
+            # the reference stores this flag without using it in the math
+            # (core.py:60); other grid letters fail loudly here
+            raise ValueError(f"unsupported arakawa grid {arakawa!r}; "
+                             "expected 'A' or 'C'")
+        self.grid = grid
+        self.dtype = dtype
+        self.device = grid.dA.device
+        self.tracer = self._on_grid(trcr, "tracer").to(dtype)
+        self.dA = grid.dA.to(dtype)
+        self.increase = bool(increase)
+        self.lt = bool(lt)
+        self.check_mono = bool(check_mono)
+        self.arakawa = arakawa
+
+    def _on_grid(self, a, name: str = "input") -> torch.Tensor:
+        """``a`` as a tensor on the grid's device: numpy arrays and lists
+        are copied there in the facade's dtype; a tensor elsewhere raises."""
+        if isinstance(a, torch.Tensor):
+            if a.device != self.device:
+                raise ValueError(f"{name} is on {a.device} but the grid is on "
+                                 f"{self.device}; move it with .to()")
+            return a
+        return torch.as_tensor(np.asarray(a), device=self.device).to(
+            self.dtype)
+
+    @classmethod
+    def from_arrays(cls, trcr, dA, ydef, xdef=None, *, latlon: bool = False,
+                    periodic_x: bool = False, increase: bool = True,
+                    lt: bool = False, check_mono: bool = False,
+                    dtype=torch.float32, device=None) -> "Contour2D":
+        """The vendored-generation constructor (reference core.py:20-21): a
+        tracer and an explicit cell-area array, no grid object.  ``ydef``
+        is the equivalent coordinate the xarray version read off the
+        tracer's coords; ``xdef`` defaults to an index coordinate.  The
+        grid is built by :func:`..grid.from_metrics` on ``device``, the
+        card unless told otherwise."""
+        dA = to_numpy(dA)
+        if xdef is None:
+            xdef = np.arange(dA.shape[-1])
+        grid = from_metrics(to_numpy(ydef), to_numpy(xdef), dA, latlon=latlon,
+                            periodic_x=periodic_x, dtype=dtype, device=device)
+        return cls(grid, trcr, increase=increase, lt=lt,
+                   check_mono=check_mono, dtype=dtype)
+
+    # -- contour levels ---------------------------------------------------
+    def cal_contours(self, levels: Union[int, Sequence, torch.Tensor] = 10):
+        """``levels`` equally spaced levels per batch element, or the given
+        levels as a tensor."""
+        if isinstance(levels, int):
+            return cal_contours(self.tracer, levels, increase=self.increase)
+        return self._on_grid(levels, "levels").to(self.dtype)
+
+    # -- tables -----------------------------------------------------------
+    def _ydef(self) -> torch.Tensor:
+        return self.grid.ydef.to(self.dtype)
+
+    def cal_area_eqCoord_table(self, mask) -> Table:
+        tbl = cal_area_eqCoord_table(self._on_grid(mask, "mask").to(self.dtype),
+                                     self._ydef(), self.dA,
+                                     increase=self.increase, lt=self.lt)
+        self._maybe_check_mono(tbl.values)
+        return tbl
+
+    def cal_area_eqCoord_table_hist(self, mask) -> Table:
+        tbl = cal_area_eqCoord_table_hist(
+            self._on_grid(mask, "mask").to(self.dtype), self._ydef(), self.dA,
+            increase=self.increase, lt=self.lt)
+        self._maybe_check_mono(tbl.values)
+        return tbl
+
+    # -- conditional integrals -------------------------------------------
+    def _integral(self, fn, contour, tracer, integrand):
+        out = fn(self.tracer if tracer is None else tracer, contour, self.dA,
+                 integrand, lt=self.lt)
+        self._maybe_check_mono(out)
+        return out
+
+    def cal_integral_within_contours(self, contour, tracer=None,
+                                     integrand=None):
+        return self._integral(cal_integral_within_contours, contour, tracer,
+                              integrand)
+
+    def cal_integral_within_contours_hist(self, contour, tracer=None,
+                                          integrand=None):
+        return self._integral(cal_integral_within_contours_hist, contour,
+                              tracer, integrand)
+
+    def cal_integral_within_contours_exact(self, contour, tracer=None,
+                                           integrand=None):
+        """Sort-based exact conditional integrals (beyond the reference)."""
+        return self._integral(cal_integral_within_contours_exact, contour,
+                              tracer, integrand)
+
+    # -- calculus ---------------------------------------------------------
+    def cal_gradient_wrt_area(self, var, area):
+        return cal_gradient_wrt_area(var, area)
+
+    def cal_contour_weigh_mean(self, contour, integrand, area=None):
+        return cal_contour_weigh_mean(self.tracer, contour, self.dA, integrand,
+                                      area, lt=self.lt)
+
+    def cal_contour_weigh_mean_hist(self, contour, integrand, area=None):
+        return cal_contour_weigh_mean_hist(self.tracer, contour, self.dA,
+                                           integrand, area, lt=self.lt)
+
+    def cal_contour_mean(self, contour, integrand, grdm, area=None):
+        return cal_contour_mean(self.tracer, contour, self.dA, integrand, grdm,
+                                area, lt=self.lt)
+
+    def cal_contour_mean_hist(self, contour, integrand, grdm, area=None):
+        return cal_contour_mean_hist(self.tracer, contour, self.dA, integrand,
+                                     grdm, area, lt=self.lt)
+
+    def cal_sqared_equivalent_length(self, dgrdSdA, dqdA):
+        return cal_sqared_equivalent_length(dgrdSdA, dqdA)
+
+    def cal_normalized_Keff(self, Leq2, Lmin, mask: float = 1e5):
+        return cal_normalized_Keff(Leq2, Lmin, mask)
+
+    # -- LWA family -------------------------------------------------------
+    def _lwa(self, q, Q, mask_idx, part: str, variant2: bool):
+        q, Q = self._on_grid(q, "q"), self._on_grid(Q, "Q")
+        fn = _lwa.local_wave_activity2 if variant2 else \
+            _lwa.local_wave_activity
+        out = fn(q, Q, self.dA, self._ydef(), increase=self.increase,
+                 part=part)
+        if mask_idx is None:
+            return out
+        contours, masks = _lwa.lwa_masks_at(q, Q, self.dA, self._ydef(),
+                                            mask_idx, increase=self.increase,
+                                            variant2=variant2)
+        return (out, [contours[..., i] for i in range(contours.shape[-1])],
+                list(masks.unbind(0)))
+
+    def cal_local_wave_activity(self, q, Q, mask_idx=None, part: str = "all"):
+        """LWA (reference core.py:696-799); with ``mask_idx``, also the
+        contour values and the 3-valued masks at those surfaces, as lists:
+        ``(lwa, contours, masks)``."""
+        return self._lwa(q, Q, mask_idx, part, False)
+
+    def cal_local_wave_activity2(self, q, Q, mask_idx=None, part: str = "all"):
+        """LWA2 (reference core.py:802-905), returned as
+        :meth:`cal_local_wave_activity` returns LWA."""
+        return self._lwa(q, Q, mask_idx, part, True)
+
+    def cal_local_APE(self, q, Q, mask_idx=None, part: str = "all"):
+        """Local APE == LWA (reference core.py:908-942)."""
+        return self.cal_local_wave_activity(q, Q, mask_idx, part)
+
+    # -- geometry ---------------------------------------------------------
+    def cal_contour_lengths(self, contours, tracer=None, latlon: bool = False):
+        if isinstance(contours, (int, list)):
+            contours = self.cal_contours(contours)
+        data = self.tracer if tracer is None else tracer
+        return _length.contour_lengths(data, contours, self._ydef(),
+                                       self.grid.xdef.to(self.dtype),
+                                       latlon=latlon)
+
+    def cal_contour_crossing(self, ctr, stride=1, mode: str = "edge",
+                             quirks: bool = False):
+        return _length.contour_crossing(self.tracer,
+                                        self._on_grid(ctr, "ctr"), self.dA,
+                                        stride, mode=mode, quirks=quirks)
+
+    # -- interpolation ----------------------------------------------------
+    def _contours_at(self, predef, table: Table, method: str):
+        return cal_contours_at(self._on_grid(predef, "predef").to(self.dtype),
+                               table, self.tracer, self.dA,
+                               increase=self.increase, lt=self.lt,
+                               method=method)
+
+    def cal_contours_at(self, predef, table: Table):
+        """Contour levels at the prescribed coordinates ``predef`` by the
+        reference's broadcast integral (reference core.py:269-360)."""
+        return self._contours_at(predef, table, "broadcast")
+
+    def cal_contours_at_hist(self, predef, table: Table):
+        return self._contours_at(predef, table, "hist")
+
+    def cal_contours_at_exact(self, predef, table: Table):
+        """Windowing-free variant (beyond the reference): round-trips
+        cleanly for interior prescribed coordinates."""
+        return self._contours_at(predef, table, "exact")
+
+    def interp_to_coords(self, predef, eq_coords, var, axis: int = -1):
+        """``axis`` mirrors the reference's ``interpDim=`` (core.py:1050)."""
+        return interp_to_coords(self._on_grid(predef, "predef").to(self.dtype),
+                                eq_coords, var, axis=axis)
+
+    def interp_to_dataset(self, predef, eq_coords, vs: dict,
+                          batch_dims: tuple = (), batch_coords: dict = None):
+        """The reference's Dataset merge (core.py:1017-1047): every variable
+        interpolated onto the ``predef`` equivalent coordinates, returned as
+        a labelled :class:`..utils.ncio.Dataset` (``.to_nc3``/``.to_nc4``
+        write it out).  The new coordinate takes the grid's equivalent dim
+        name; ``batch_dims`` names the leading axes (unnamed ones become
+        ``dim{i}_{size}``), ``batch_coords`` attaches 1-D coordinates for
+        them.  Each output is copied to the host once."""
+        pre = self._on_grid(predef, "predef").to(self.dtype)
+        pdim = self.grid.dim_names[0]
+        batch_dims = tuple(batch_dims)
+        ds = Dataset()
+        ds.coords[pdim] = to_numpy(predef)
+        for cname, cvals in (batch_coords or {}).items():
+            ds.coords[cname] = to_numpy(cvals)
+        for name, var in vs.items():
+            a = to_numpy(interp_to_coords(pre, eq_coords, var))
+            lead = tuple(batch_dims[i] if i < len(batch_dims)
+                         else f"dim{i}_{s}"
+                         for i, s in enumerate(a.shape[:-1]))
+            ds.variables[name] = a
+            ds.dims[name] = lead + (pdim,)
+        return ds
+
+    # -- checks -----------------------------------------------------------
+    def _maybe_check_mono(self, var):
+        """Opt-in monotonicity guard (reference core.py:144-145, 1328-1355)
+        through :func:`..utils.checks.check_monotonic`: one boolean read
+        back from the device, raising ``ValueError`` (or recorded inside
+        ``utils.checks.checked``).  ``utils.checks.assert_monotonic_host``
+        gives the offending index."""
+        if self.check_mono:
+            check_monotonic(var, axis=-1, name="contour-axis values")

@@ -2,7 +2,8 @@
 
 Counterpart of ``xcontour_tpu/diagnostics/lwa.py`` for ``local_wave_activity``
 and ``local_wave_activity2`` (the impulse-Casimir variant) with the 'lin',
-'dense' and 'fast' methods.  'lin' runs the K3 (LWA) or K5 (LWA2) wrapper (the
+'dense' and 'fast' methods, and ``lwa_masks_at`` (the masks at chosen
+surfaces, for plotting).  'lin' runs the K3 (LWA) or K5 (LWA2) wrapper (the
 exact mask linearization for part='all': 4 ops per pair, float32 noise
 floor ~5e-5 of the field max); 'dense' runs the K4 wrapper (the
 reference's pairwise 3-valued mask and summation order, ~1e-6, any part).
@@ -243,3 +244,32 @@ def local_wave_activity2(q: torch.Tensor, Q: torch.Tensor, dA: torch.Tensor,
     flipped ``increase`` flag while the part selection keeps the original.
     Arguments as in :func:`local_wave_activity`."""
     return _lwa(q, Q, dA, ydef, increase, part, weight, method, True)
+
+
+def lwa_masks_at(q: torch.Tensor, Q: torch.Tensor, dA: torch.Tensor,
+                 ydef: torch.Tensor, mask_idx, *, increase: bool,
+                 variant2: bool = False):
+    """The reference's 3-valued LWA masks and contour values at the
+    surface indices ``mask_idx``, for plotting (its ``mask_idx`` outputs,
+    core.py:768-770).  Returns (contours (..., K), masks (K, ..., Ny, Nx)).
+
+    ``variant2`` takes LWA2's deviation, row j of q against the whole
+    profile, qe = q(y_j, x) - Q(y), with the direction flipped.  Plain
+    PyTorch, one surface at a time (K is a handful; the masks are
+    K * B * Ny * Nx values).  ``dA`` is unused, as in the JAX package."""
+    del dA
+    idx = [int(j) for j in torch.as_tensor(mask_idx).reshape(-1).tolist()]
+    coord_incre = ydef[-1] > ydef[0]
+    masks = []
+    for j in idx:
+        if variant2:
+            qe = q[..., j, :][..., None, :] - Q[..., :, None]
+            inc = not increase
+        else:
+            qe = q - Q[..., j][..., None, None]
+            inc = increase
+        yj = ydef[j]
+        m = torch.where(coord_incre, ydef >= yj, ydef <= yj)[:, None]
+        masks.append(_kl._mask3(qe, m, inc))
+    contours = Q[..., idx]
+    return contours, torch.stack(masks)

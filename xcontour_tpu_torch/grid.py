@@ -106,6 +106,15 @@ class Grid:
         return torch.nansum(field * self.dA, dim=(-2, -1))
 
 
+def to_numpy(a) -> np.ndarray:
+    """``a`` as a numpy array: a tensor (on any device) is detached and
+    copied to the host once, since ``np.asarray`` of a CUDA tensor raises;
+    anything else goes through ``np.asarray``."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def to_host(grid: Grid) -> Grid:
     """The same grid with every tensor on the CPU: the port's host copy
     (the JAX package's ``to_host`` gives numpy leaves, so that a jitted

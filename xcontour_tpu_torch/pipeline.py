@@ -6,25 +6,28 @@ Counterparts of ``keff_pipeline``, ``lwa_pipeline``, ``keff_lwa_pipeline``,
 sorted-state + local wave activity chain, the combined step that runs both
 from one shared sorted state, the contour-length chain and the
 fractal-dimension chain, over a batch of (..., Ny, Nx) snapshots.  They run eagerly; the JAX versions' static flags
-are plain Python arguments.
+are plain Python arguments.  :func:`flatten_output` and :func:`as_dataset`
+label a step's outputs as a netCDF-ready :class:`.utils.ncio.Dataset`.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import core
 from .diagnostics import lwa as _lwa
 from .diagnostics.fractal import fractal_dimension
 from .diagnostics.length import contour_crossing, contour_lengths
-from .grid import Grid, latitude_lengths_at
+from .grid import Grid, latitude_lengths_at, to_numpy
 from .ops.histogram import weighted_cdf_multi
 from .ops.interp import interp1d
 from .ops.stencil import gradient, squared_gradient
 from .utils.coarsen import coarsen
 from .utils.constants import Rearth as _REARTH
+from .utils.ncio import Dataset
 
 _LMIN = ("analytic", "dxF", "frac")
 
@@ -318,3 +321,133 @@ def fractal_pipeline(tracer: torch.Tensor, grid: Grid, *, N: int = 121,
         out["bclens"] = torch.stack(bc, dim=-1)
         out["D_bc"] = fractal_dimension(out["bclens"], rulers)
     return out
+
+
+# ---------------------------------------------------------------------------
+# labeled outputs: the reference pipelines return coordinate-labeled
+# Datasets (core.py:251-266, interp_to_dataset core.py:1017-1047); this
+# converts the raw pipeline dicts into the same shape, on the host.
+# ---------------------------------------------------------------------------
+_ATTRS = {
+    "levels": dict(long_name="contour level value"),
+    "intArea": dict(long_name="area enclosed by contour", units="m2"),
+    "intgrdS": dict(long_name="integral of |grad q|^2 within contour"),
+    "Yeq": dict(long_name="equivalent coordinate of contour"),
+    "Lmin": dict(long_name="minimum possible contour length", units="m"),
+    "Leq2": dict(long_name="squared equivalent length", units="m2"),
+    "nkeff": dict(long_name="normalized effective diffusivity Keff/Lmin^2"),
+    "Q": dict(long_name="sorted tracer profile on the equivalent coordinate"),
+    "lwa": dict(long_name="local finite-amplitude wave activity"),
+    "lwa2": dict(long_name="local wave activity (impulse-Casimir form)"),
+    "lengths": dict(long_name="contour perimeter length", units="m"),
+    "cmGrd": dict(long_name="contour mean of |grad q|"),
+    "cmInvGrd": dict(long_name="contour mean of 1/|grad q|"),
+    "D": dict(long_name="fractal dimension (marching-squares lengths)"),
+    "D_bc": dict(long_name="fractal dimension (box counting)"),
+    "rulers": dict(long_name="box-counting ruler length", units="m"),
+    "bclens": dict(long_name="box-counting crossing length", units="m"),
+}
+
+
+def flatten_output(out: dict) -> dict:
+    """Flatten a pipeline output dict to plain name -> array.
+
+    Nested sections use the labeled-output naming convention: ``origin``
+    children keep their bare names, ``interp`` children get an ``_at``
+    suffix (the reference's interp_to_dataset variables, core.py:1017-1047),
+    any other section is prefixed.  Leaves without a shape and
+    :class:`~.core.Table` objects are dropped.  This is the input
+    :func:`as_dataset` labels."""
+    flat = {}
+    for k, v in out.items():
+        if isinstance(v, dict):
+            for k2, v2 in v.items():
+                name = k2 if k == "origin" else f"{k2}_at" if k == "interp" \
+                    else f"{k}_{k2}"
+                flat[name] = v2
+        else:
+            flat[k] = v
+    return {k: v for k, v in flat.items()
+            if hasattr(v, "shape") and not hasattr(v, "lookup_coordinates")}
+
+
+def as_dataset(out: dict, grid: Grid, pre_y=None,
+               batch_dims: tuple = ("time",), extra_coords: dict = None,
+               dim_hints: dict = None):
+    """Label a pipeline output dict with coordinates, returning an
+    :class:`xcontour_tpu_torch.utils.ncio.Dataset` ready for ``.to_nc3()``
+    / ``.to_nc4()``.  Every tensor (the outputs, ``grid.ydef``,
+    ``grid.xdef``, ``pre_y``) is copied to the host once.
+
+    Dim inference (documented heuristic): trailing ``grid.shape`` axes are
+    the plane (``grid.dim_names``); a trailing axis matching ``len(pre_y)``
+    on interp-section / ``*_at`` variables is the predefined equivalent
+    coordinate; a trailing axis matching the contour count is ``contour``
+    (coordinate = level index, like the reference core.py:241-249); a
+    trailing axis matching Ny is the equivalent dim (sorted profiles Q);
+    leading axes are ``batch_dims``.  ``dim_hints`` overrides per variable.
+    """
+    ydim, xdim = grid.dim_names
+    Ny, Nx = grid.shape
+    hints = dict(Q=(ydim,))
+    hints.update(dim_hints or {})
+
+    # flatten the keff_pipeline origin/interp sections
+    flat = flatten_output(out)
+
+    N = int(flat["contour"].shape[-1]) if "contour" in flat else None
+    # the 'contour' DIM is the level index (reference core.py:241-249); the
+    # level values themselves are stored as 'levels' so the names don't clash
+    if "contour" in flat:
+        flat["levels"] = flat.pop("contour")
+    if "contour_at" in flat:
+        flat["levels_at"] = flat.pop("contour_at")
+    pre = None if pre_y is None else to_numpy(pre_y)
+    P = None if pre is None else int(pre.shape[0])
+    ydef = to_numpy(grid.ydef)
+
+    ds = Dataset()
+    ds.coords[ydim] = ydef
+    ds.coords[xdim] = to_numpy(grid.xdef)
+    if N is not None:
+        ds.coords["contour"] = np.arange(N, dtype=np.int32)
+    pdim = None
+    if P is not None:
+        # the interp coordinate gets its own dim unless it IS the grid's
+        # equivalent coordinate (never alias two different axes to one name)
+        same = P == Ny and np.array_equal(pre, ydef)
+        pdim = ydim if same else f"{ydim}_interp"
+        ds.coords[pdim] = pre
+    for cname, cvals in (extra_coords or {}).items():
+        ds.coords[cname] = to_numpy(cvals)
+
+    stride_vars = ("lengths", "bclens", "rulers")
+    for name, arr in flat.items():
+        a = to_numpy(arr)
+        tail = list(hints.get(name, ()))
+        if not tail:
+            shape = a.shape
+            if len(shape) >= 2 and shape[-2:] == (Ny, Nx):
+                tail = [ydim, xdim]
+            elif len(shape) >= 2 and N is not None and shape[-2] == N and \
+                    name in stride_vars:
+                # fractal-ladder outputs carry a trailing stride axis
+                tail = ["contour", "stride"]
+                if "stride" not in ds.coords:
+                    ds.coords["stride"] = np.arange(shape[-1])
+            elif shape and pdim is not None and shape[-1] == P and \
+                    (name.endswith("_at") or P != N):
+                tail = [pdim]
+            elif shape and N is not None and shape[-1] == N:
+                tail = ["contour"]
+            elif shape and shape[-1] == Ny:
+                tail = [ydim]
+        lead_shape = a.shape[:a.ndim - len(tail)]
+        lead = [batch_dims[i] if i < len(batch_dims) else f"dim{i}_{s}"
+                for i, s in enumerate(lead_shape)]
+        ds.variables[name] = a
+        ds.dims[name] = tuple(lead + tail)
+        base = name[:-3] if name.endswith("_at") else name
+        if base in _ATTRS:
+            ds.attrs[name] = dict(_ATTRS[base])
+    return ds
