@@ -122,7 +122,30 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      against phase 4's LAPE ``lwa``; the card's facade at 2x91x180 against
      the float64 oracle ``compat``.  Each chain timed (CUDA events, median
      of 5) beside the pipeline it mirrors, with its launches a step and
-     peak memory; the dataset path's host copies, nc3 write and read.
+     peak memory; the dataset path's host copies, nc3 write and read;
+ 10. the runner and the CLI (``python -m xcontour_tpu_torch``) on an
+     ERA5-width archive: pv(time=6, level=15, 721, 1440) float32, latitude
+     stored descending, written as nc3 into a temporary directory.
+     ``keff-lwa -N 241 --batch 15`` in process with --stem and in memory
+     (K1 once, K2 twice and K3 once a chunk), each against
+     keff_lwa_pipeline on the same snapshots by phase 9's comparator, the
+     latitude ascending; end-to-end snapshots/s (host clock around
+     cli.main, the open and the nc3 write included), the runner's rate a
+     chunk, peak memory, the device's busy share from a utils.prof trace of
+     the in-memory run; each stage alone a chunk (the read and byte swap,
+     the pinned copy, the host-to-device copy and its GB/s, the step, the
+     fetch three ways, bit for bit alike, the .npz write) and the step's
+     compute-only rate; the CLI as a subprocess killed with SIGKILL once
+     two chunks exist and resumed in process (the survivors unchanged, the
+     rest computed, the result as the uninterrupted run's); a fault healed
+     by a retry, a skipped chunk's .failed record and NaN fill, a
+     WireRangeError raised at once; the f16 and bf16 wires (the device
+     input bit for bit the host rounding, outputs within the JAX suite's
+     bounds); lwa ('auto' and 'dense'), keff, clength -N 401 and
+     local-length on one time, fractal on the headline grid and lwa
+     'dense' on the tall grid (K6), each with its exact launch counts;
+     --f64 on the card and nc4 without h5py refused with their messages,
+     and info.
 
 The last three lines are the kernels JSON, the card line from nvidia-smi,
 and {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
@@ -132,6 +155,7 @@ result.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -310,6 +334,23 @@ EXTREME_AREA = 1e-4
 MASK_IDX = (120, 360, 600)
 FACADE_SMALL = dict(B=2, nlat=91, nlon=180, N=121)
 DATASET_B = 2
+# phase 10, an archive through the runner and the CLI: ARCHIVE is an
+# ERA5-width pv(time, level, latitude, longitude), float32, each time a
+# make_pv of its own seed (phase 4's below-ground NaN patch), latitude
+# stored descending as ERA5 stores it, written as nc3 into a temporary
+# directory; keff-lwa at N = 241 in chunks of one time's 15 levels, with
+# --stem and in memory, held to keff_lwa_pipeline on the same snapshots on
+# the card by phase 9's comparator and bounds (facade_vs; K2's float
+# atomics differ between runs, so nothing is bit for bit).  The temporary
+# disk must hold CLI_DISK_FACTOR archives at once (the archive, a stem's
+# chunks and an output), else `time` is cut, never the grid.  WIRE_BOUND:
+# the JAX suite's bounds on a step's outputs through each wire, 2e-3 for
+# f16 and 2e-2 for bf16 at unit scale (tests/test_runner_checks.py
+# test_transfer_dtype_f16_bounded_error and test_transfer_dtype_bf16),
+# here relative to the chunk's largest magnitude.
+ARCHIVE = dict(time=6, level=15, nlat=721, nlon=1440, N=241, seed=300)
+CLI_DISK_FACTOR = 4
+WIRE_BOUND = dict(f16=2e-3, bf16=2e-2)
 # no single PyTorch call computes any of K1-K8 (torch.histogram has no CUDA
 # form, torch.histc takes no weights, torch.bincount weighs integer bins
 # that a torch.bucketize must find first and leaves the cumsum; no call
@@ -1851,10 +1892,11 @@ def auto_checks(dev, drive):
             f"launched {n} time{'s' if n != 1 else ''} each)")
 
 
-def facade_vs(label, got, want, keys):
+def facade_vs(label, got, want, keys, what="phase 9 facade",
+              against="the pipeline"):
     """The facade's outputs against the pipeline's on the same CUDA tensors
     (module constants: FACADE_BOUND, CARD_CPU_TOL for amplified keys,
-    EXTREME_AREA for nkeff)."""
+    EXTREME_AREA for nkeff); ``what`` heads the log line."""
     A = want["intArea"]
     top = A.amax(-1, keepdim=True)
     ill = torch.minimum(A, top - A) < EXTREME_AREA * top
@@ -1870,13 +1912,13 @@ def facade_vs(label, got, want, keys):
         tol = CARD_CPU_TOL.get(k, FACADE_BOUND)
         worst.append(f"{k} {rel:.2e}/{tol:g}")
         _expect(rel <= tol, f"{label}: {k} rel {rel:.3e} > {tol:g}")
-    log(f"phase 9 facade {label} against the pipeline: OK ({', '.join(worst)})")
+    log(f"{what} {label} against {against}: OK ({', '.join(worst)})")
 
 
-def field_rel(label, got, want, bound=FACADE_BOUND):
+def field_rel(label, got, want, bound=FACADE_BOUND, what="phase 9"):
     """A field against another, relative to the other's maximum."""
     err, rel = rel_err(got, want)
-    log(f"phase 9 {label}: max_abs_err {err:.6g} rel {rel:.3e} bound "
+    log(f"{what} {label}: max_abs_err {err:.6g} rel {rel:.3e} bound "
         f"{bound:g} {'OK' if rel <= bound else 'FAIL'}")
     _expect(rel <= bound, f"{label} disagrees")
     return rel
@@ -2236,6 +2278,694 @@ def facade_phase(dev, drive, path_counts, era_steps, era_grid, sort_table,
 
     facade_small_oracle(dev)
     return chains, labels, host_rel
+
+
+# -- phase 10: an archive through the runner and the CLI --------------------
+
+def nc3_archive(tmp, name, pv, lat, lon, level, time_axis=True):
+    """Write ``pv`` (time, level, lat, lon) or (level, lat, lon) as classic
+    netCDF with the latitude stored as given; returns the path and MB."""
+    from xcontour_tpu_torch.utils.ncio import save_dataset_nc3
+    dims = (("time",) if time_axis else ()) + ("level", "latitude",
+                                               "longitude")
+    coords = {"level": np.asarray(level, np.int32), "latitude": lat,
+              "longitude": lon}
+    if time_axis:
+        coords["time"] = np.arange(pv.shape[0], dtype=np.int32)
+    path = os.path.join(tmp, f"{name}.nc")
+    save_dataset_nc3(path, {"pv": pv}, {"pv": dims}, coords=coords)
+    return path, os.path.getsize(path) / 2 ** 20
+
+
+def archive_times(tmp):
+    """ARCHIVE['time'], cut (never the grid) where the temporary disk cannot
+    hold the archive and what the phase writes beside it (CLI_DISK_FACTOR
+    archives at once)."""
+    import shutil
+    one = ARCHIVE["level"] * ARCHIVE["nlat"] * ARCHIVE["nlon"] * 4
+    free = shutil.disk_usage(tmp).free
+    T = ARCHIVE["time"]
+    while T > 3 and CLI_DISK_FACTOR * T * one > free:
+        T -= 1
+    if T < ARCHIVE["time"]:
+        log(f"phase 10 disk: {free / 2 ** 30:.2f} GiB free under {tmp}; "
+            f"the archive is cut to {T} times of {ARCHIVE['time']}")
+    _expect(CLI_DISK_FACTOR * T * one <= free,
+            f"phase 10: {free / 2 ** 30:.2f} GiB free under {tmp}, too "
+            "little for three times of the archive")
+    return T, free
+
+
+def run_cli(argv):
+    """cli.main(argv) with its standard output captured; returns (rc, the
+    lines, host seconds)."""
+    import contextlib
+    import io
+    from xcontour_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+RUNNER_LINE = re.compile(r"\[runner\] chunk (\d+)/\d+: \d+ snapshots in "
+                         r"[0-9.]+s \(([0-9.]+)/s\)")
+
+
+def runner_rates(lines):
+    """{chunk: snapshots/s} from the runner's log lines."""
+    return {int(m.group(1)): float(m.group(2))
+            for m in map(RUNNER_LINE.search, lines) if m}
+
+
+def cli_vs(label, got, want, against):
+    """Phase 10's outputs against keff_lwa_pipeline's (or another run's):
+    phase 9's comparator and bounds, the field lwa within
+    CARD_CPU_TOL['lwa'] of its maximum."""
+    keys = [k for k in want if k != "lwa" and k in got]
+    facade_vs(label, got, want, keys, what="phase 10 cli", against=against)
+    if "lwa" in want:
+        field_rel(f"cli {label} lwa against {against}", got["lwa"],
+                  want["lwa"], CARD_CPU_TOL["lwa"], what="phase 10")
+
+
+def nc_tensors(path, dev, names=None):
+    """The float variables of a netCDF file as float32 tensors on ``dev``
+    (the output's 'levels' under the pipeline's name 'contour'), with the
+    Dataset."""
+    from xcontour_tpu_torch.utils.ncio import load_dataset
+    ds = load_dataset(path)
+    out = {}
+    for k in names or ds.variables:
+        a = np.asarray(ds[k])
+        if a.dtype.kind == "f":
+            out["contour" if k == "levels" else k] = torch.as_tensor(
+                a.astype(np.float32)).to(dev)
+    return out, ds
+
+
+def keff_lwa_step(grid, N):
+    """The CLI's keff-lwa chunk step (own table, flattened, no table)."""
+    import xcontour_tpu_torch as xt
+
+    def step(x):
+        flat = xt.flatten_output(xt.keff_lwa_pipeline(x, grid, N=N))
+        flat.pop("table", None)
+        return flat
+    return step
+
+
+def fetch_packed(out, dev):
+    """The JAX runner's packed fetch on the card: each same-(dtype, batch)
+    group concatenated on the device and copied to pinned host memory
+    once, then one synchronize."""
+    groups = {}
+    for k, v in out.items():
+        groups.setdefault((v.dtype, v.shape[0]), []).append(k)
+    held = []
+    for (dtype, B), ks in groups.items():
+        flat = torch.cat([out[k].reshape(B, -1) for k in ks], dim=1)
+        h = torch.empty(flat.shape, dtype=dtype, pin_memory=True)
+        h.copy_(flat, non_blocking=True)
+        held.append((ks, h.numpy()))
+    torch.cuda.current_stream(dev).synchronize()
+    res = {}
+    for ks, packed in held:
+        lo = 0
+        for k in ks:
+            w = out[k][0].numel()
+            res[k] = packed[:, lo:lo + w].reshape(tuple(out[k].shape))
+            lo += w
+    return res
+
+
+def stage_times(tracer, step, dev, tmp):
+    """Each stage of the streamed run alone, chunk by chunk: the read (the
+    memmap slice, the latitude flip and the byte swap of _LazyField), the
+    copy into pinned memory, the host-to-device copy (CUDA events), the step
+    (host clock around it and a synchronize), the fetch three ways (the
+    runner's pinned per-key copies with one synchronize, per-key .cpu(),
+    and the JAX runner's packing), bit for bit alike, and the .npz write."""
+    from xcontour_tpu_torch import runner
+    B = ARCHIVE["level"]
+    rows = []
+    for k in range(tracer.shape[0] // B):
+        r = {}
+        t0 = time.perf_counter()
+        arr = tracer[k * B:(k + 1) * B]
+        r["read_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        host = torch.empty(arr.shape, dtype=torch.float32, pin_memory=True)
+        np.copyto(host.numpy(), arr)
+        r["pin_ms"] = 1e3 * (time.perf_counter() - t0)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        x = host.to(dev, non_blocking=True)
+        stop.record()
+        torch.cuda.synchronize()
+        r["h2d_ms"] = start.elapsed_time(stop)
+        r["h2d_gbps"] = arr.nbytes / 1e6 / r["h2d_ms"]
+        t0 = time.perf_counter()
+        out = step(x)
+        torch.cuda.synchronize()
+        r["step_ms"] = 1e3 * (time.perf_counter() - t0)
+        fetched = {}
+        for name, fn in (("fetch", lambda: runner._fetch(out, dev)),
+                         ("fetch_cpu", lambda: {key: v.cpu().numpy()
+                                                for key, v in out.items()}),
+                         ("fetch_packed", lambda: fetch_packed(out, dev))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fetched[name] = fn()
+            r[f"{name}_ms"] = 1e3 * (time.perf_counter() - t0)
+        for name in ("fetch_cpu", "fetch_packed"):
+            for key, v in fetched["fetch"].items():
+                _expect(np.array_equal(v, fetched[name][key], equal_nan=True)
+                        and v.dtype == fetched[name][key].dtype,
+                        f"phase 10 {name}: {key} differs from the runner's "
+                        "fetch")
+        path = os.path.join(tmp, f"stage_ck{k:05d}.npz")
+        t0 = time.perf_counter()
+        np.savez(path + ".tmp.npz", **fetched["fetch"])
+        os.replace(path + ".tmp.npz", path)
+        r["write_ms"] = 1e3 * (time.perf_counter() - t0)
+        r["npz_mb"] = os.path.getsize(path) / 2 ** 20
+        os.remove(path)
+        rows.append(r)
+    return rows
+
+
+def busy_share(trace_dir):
+    """(kernel busy share, copy busy share, window ms, kernels, {span: ms})
+    over the streamed run in a utils.prof trace: the device's merged kernel
+    (and memcpy) intervals within the CLI's cli.stream range (the runner
+    and, under --stem, load_chunks), and the host ms of each of the CLI's
+    ranges (cli.open, cli.stream, cli.label, cli.write)."""
+    import glob
+    files = glob.glob(os.path.join(trace_dir, "trace_*.json"))
+    _expect(len(files) == 1, f"phase 10: trace files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in events
+             if e.get("cat") == "user_annotation"
+             and e.get("name") == "cli.stream"]
+    _expect(len(spans) == 1, f"phase 10: {len(spans)} cli.stream ranges")
+    lo, hi = min(s for s, _ in spans), max(e for _, e in spans)
+
+    def merged(cat):
+        ivs = sorted((max(float(e["ts"]), lo),
+                      min(float(e["ts"]) + float(e["dur"]), hi))
+                     for e in events if e.get("cat") == cat and "dur" in e
+                     and float(e["ts"]) < hi
+                     and float(e["ts"]) + float(e["dur"]) > lo)
+        total, cur_s, cur_e = 0.0, None, None
+        for s, e in ivs:
+            if cur_e is None or s > cur_e:
+                if cur_e is not None:
+                    total += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        if cur_e is not None:
+            total += cur_e - cur_s
+        return total, len(ivs)
+
+    kern, nk = merged("kernel")
+    copy, _ = merged("gpu_memcpy")
+    _expect(nk > 0, "phase 10: the trace holds no kernel in the run")
+    cli = {}
+    for e in events:
+        name = str(e.get("name", ""))
+        if e.get("cat") == "user_annotation" and name.startswith("cli."):
+            cli[name] = cli.get(name, 0.0) + float(e["dur"]) / 1e3
+    return kern / (hi - lo), copy / (hi - lo), (hi - lo) / 1e3, nk, cli
+
+
+def bf16_round(a):
+    """float32 -> bfloat16 -> float32 on the host, to nearest even (the rule
+    the JAX runner's ml_dtypes cast and the port's wire follow), in numpy."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    r = ((u + np.uint32(0x7FFF) + ((u >> 16) & 1)) >> 16) << 16
+    return np.where(np.isnan(a), np.float32(np.nan),
+                    r.astype(np.uint32).view(np.float32))
+
+
+def kill_and_resume(drive, none, argv, stem, nchunk, root):
+    """SIGKILL ``python -m xcontour_tpu_torch`` once two chunk files exist,
+    rerun in process: the surviving files are unchanged and only the
+    missing chunks are computed.  Returns (survivors, killed, resume
+    seconds)."""
+    import glob
+    import hashlib
+    import signal
+
+    def chunks():
+        return sorted(f for f in glob.glob(f"{stem}_ck*.npz")
+                      if not f.endswith(".tmp.npz"))
+
+    os.makedirs(os.path.dirname(stem), exist_ok=True)
+    err_path = stem + ".stderr"
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "xcontour_tpu_torch", *argv], cwd=root,
+            stdout=subprocess.DEVNULL, stderr=err)
+        killed, deadline = False, time.time() + 600
+        try:
+            while time.time() < deadline and proc.poll() is None:
+                if len(chunks()) >= 2:
+                    proc.send_signal(signal.SIGKILL)
+                    killed = True
+                    break
+                time.sleep(0.002)
+        finally:
+            if proc.poll() is None and not killed:
+                proc.kill()
+            proc.wait(timeout=120)
+    if not killed:
+        with open(err_path) as f:
+            _expect(proc.returncode == 0, f"phase 10 kill: the CLI process "
+                    f"failed (rc {proc.returncode}): {f.read()[-2000:]}")
+        # the process finished first: tear the archive as a kill would
+        for k in (1, nchunk - 1):
+            os.remove(f"{stem}_ck{k:05d}.npz")
+    kept = {}
+    for f in chunks():
+        with open(f, "rb") as fh:
+            kept[f] = (hashlib.sha256(fh.read()).hexdigest(),
+                       os.stat(f).st_mtime_ns)
+    _expect(0 < len(kept) < nchunk,
+            f"phase 10 kill: {len(kept)} of {nchunk} chunks survived")
+    missing = nchunk - len(kept)
+    t0 = time.perf_counter()
+    rc, lines, _ = drive(
+        "cli keff-lwa era5 resume", {}, lambda: run_cli(argv),
+        exact=dict(none, squared_gradient=missing,
+                   weighted_cdf=2 * missing, lwa_lin=missing))
+    seconds = time.perf_counter() - t0
+    _expect(rc == 0, "phase 10 resume: the CLI failed")
+    skipped = sum("exists, skipped" in ln for ln in lines)
+    _expect(skipped == len(kept), f"phase 10 resume: {skipped} chunks "
+            f"skipped, {len(kept)} survived")
+    for f, (digest, mtime) in kept.items():
+        with open(f, "rb") as fh:
+            _expect(hashlib.sha256(fh.read()).hexdigest() == digest
+                    and os.stat(f).st_mtime_ns == mtime,
+                    f"phase 10 resume: surviving {f} changed")
+    _expect(len(chunks()) == nchunk, "phase 10 resume: chunks missing")
+    return len(kept), killed, seconds
+
+
+def fault_checks(dev, tracer, step, ref, tmp):
+    """The runner's failure handling on the card: a step that raises once
+    on chunk 1 heals under retries=1 without a marker; on_error='skip'
+    writes the .failed record and load_chunks(allow_failed=True) NaN-fills
+    it; a chunk the f16 wire cannot carry raises WireRangeError at once."""
+    from xcontour_tpu_torch import runner
+    B = ARCHIVE["level"]
+    nchunk = tracer.shape[0] // B
+    keys = ("intArea", "Yeq", "Leq2", "nkeff", "Q")
+
+    def small(x):       # the real step, but the field-sized lwa left out
+        return {k: v for k, v in step(x).items() if k in keys + ("contour",)}
+
+    calls = []
+
+    def flaky(x):
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError("injected fault on chunk 1")
+        return small(x)
+
+    lines = []
+    stem = os.path.join(tmp, "retry")
+    runner.run_batched(flaky, tracer, batch=B, out_stem=stem, retries=1,
+                       retry_wait=0.0, device=dev, log=lines.append)
+    import glob
+    _expect(not glob.glob(stem + "_ck*.failed"),
+            "phase 10 retry: a .failed marker was left")
+    _expect(len(calls) == nchunk + 1 and
+            sum("attempt 1 failed" in ln for ln in lines) == 1,
+            f"phase 10 retry: {len(calls)} step calls, log {lines}")
+    healed = {k: torch.as_tensor(v).to(dev)
+              for k, v in runner.load_chunks(stem).items()}
+    healed = {k: v.reshape(ref[k].shape) for k, v in healed.items()}
+    cli_vs("retry after an injected fault", healed,
+           {k: ref[k] for k in keys}, "keff_lwa_pipeline")
+
+    def broken(x):
+        calls.append(1)
+        if len(calls) == nchunk + 4:
+            raise RuntimeError("injected fault on chunk 2")
+        return small(x)
+
+    stem = os.path.join(tmp, "skip")
+    runner.run_batched(broken, tracer, batch=B, out_stem=stem,
+                       on_error="skip", device=dev, log=lines.append)
+    with open(stem + "_ck00002.failed") as f:
+        rec = json.load(f)
+    _expect(rec["chunk"] == 2 and rec["nvalid"] == B
+            and "injected fault on chunk 2" in rec["error"],
+            f"phase 10 skip: record {rec}")
+    got = runner.load_chunks(stem, allow_failed=True, expect_chunks=nchunk)
+    _expect(bool(np.isnan(got["Yeq"][2 * B:3 * B]).all()),
+            "phase 10 skip: the failed chunk is not NaN-filled")
+    _expect(bool(np.isfinite(got["intArea"][:2 * B]).all()),
+            "phase 10 skip: the healthy chunks lost values")
+
+    class Scaled:       # a mis-scaled variable: |pv| * 1e9 past f16's max
+        shape, dtype, ndim = tracer.shape, tracer.dtype, 3
+
+        def __getitem__(self, sl):
+            return tracer[sl] * np.float32(1e9)
+
+    steps, lines = [], []
+    try:
+        runner.run_batched(lambda x: steps.append(1) or small(x), Scaled(),
+                           batch=B, retries=3, on_error="skip", device=dev,
+                           transfer_dtype=torch.float16, log=lines.append)
+        raise AssertionError("phase 10 wire: no WireRangeError")
+    except runner.WireRangeError as e:
+        _expect(not steps and not lines, f"phase 10 wire: retried or "
+                f"skipped before raising ({lines})")
+        wire_msg = str(e)
+    log(f"phase 10 faults: a fault on chunk 1 healed under retries=1 with "
+        f"no marker; on_error='skip' wrote {rec} and load_chunks NaN-filled "
+        f"it; the f16 wire raised at once: {wire_msg[:80]}...")
+
+
+def wire_checks(dev, chunk0):
+    """One chunk of 15 through the f16 and bf16 wires: the upcast device
+    input equals the host-rounded array bit for bit (NaN where it is NaN),
+    and the outputs stay within WIRE_BOUND of the chunk's largest magnitude
+    of the float32 run's (the wire's own bound)."""
+    from xcontour_tpu_torch import runner
+    seen = {}
+
+    def cap(x):
+        seen["x"] = x.clone()
+        return {"mean": torch.nanmean(x, dim=(-2, -1)), "double": x * 2}
+
+    quiet = dict(batch=chunk0.shape[0], device=dev, log=lambda s: None)
+    full = runner.run_batched(cap, chunk0, **quiet)
+    scale = float(np.nanmax(np.abs(chunk0)))
+    res = {}
+    for name, wire, host in (
+            ("f16", torch.float16,
+             chunk0.astype(np.float16).astype(np.float32)),
+            ("bf16", torch.bfloat16, bf16_round(chunk0))):
+        out = runner.run_batched(cap, chunk0, transfer_dtype=wire, **quiet)
+        x = seen["x"].cpu().numpy()
+        nan = np.isnan(host)
+        _expect(x.dtype == np.float32 and np.array_equal(np.isnan(x), nan)
+                and np.array_equal(x[~nan].view(np.uint32),
+                                   host[~nan].view(np.uint32)),
+                f"phase 10 wire {name}: the device input differs from the "
+                "host rounding")
+        errs = {k: float(np.nanmax(np.abs(out[k] - full[k])))
+                / (scale * (2 if k == "double" else 1)) for k in out}
+        for k, e in errs.items():
+            _expect(e <= WIRE_BOUND[name], f"phase 10 wire {name}: {k} "
+                    f"{e:.3e} of scale > {WIRE_BOUND[name]:g}")
+        res[name] = errs
+        log(f"phase 10 wire {name}: device input bit for bit the host "
+            f"rounding; outputs against float32 {errs} of scale (bound "
+            f"{WIRE_BOUND[name]:g})")
+    return res
+
+
+def cli_phase(dev, drive, path_counts, peaks, card):
+    """Phase 10: an ERA5-width archive through the runner and the CLI."""
+    import shutil
+    import tempfile
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch import runner
+    from xcontour_tpu_torch.utils import prof
+    none = {n: 0 for n in next(iter(path_counts.values()))}
+    labels, res = [], {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    A, N = ARCHIVE, ARCHIVE["N"]
+    dev_args = ["--device", dev.type]
+
+    def run(label, counts, argv):
+        labels.append(label)
+        rc, lines, secs = drive(label, {k: c for k, c in counts.items() if c},
+                                lambda: run_cli(argv),
+                                exact=dict(none, **counts))
+        _expect(rc == 0, f"phase 10 {label}: rc {rc}")
+        return lines, secs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        T, free = archive_times(tmp)
+        t0 = time.perf_counter()
+        pv = np.empty((T, A["level"], A["nlat"], A["nlon"]), np.float32)
+        for t in range(T):
+            lat, lon, pv[t] = make_pv(A["level"], A["nlat"], A["nlon"],
+                                      A["seed"] + t)
+        from xcontour_tpu_torch.utils.synth import synth_pv
+        level = synth_pv(nlev=A["level"], nlat=2, nlon=2)[0]["level"]
+        path, mb = nc3_archive(tmp, "era5", pv[:, :, ::-1], lat[::-1].copy(),
+                               lon, level)
+        log(f"phase 10 set-up: pv{pv.shape} float32, latitude descending, "
+            f"{mb:.1f} MB nc3 in {time.perf_counter() - t0:.2f} s "
+            f"({free / 2 ** 30:.1f} GiB free)")
+        S = T * A["level"]
+        base = ["keff-lwa", path, "--var", "pv", "-N", str(N), "--batch",
+                str(A["level"]), "--format", "nc3", *dev_args]
+        per_run = {"squared_gradient": T, "weighted_cdf": 2 * T,
+                   "lwa_lin": T}
+
+        # the reference: keff_lwa_pipeline on the same snapshots, on the card
+        grid = xt.from_latlon(lat, lon, device=dev)
+        step = keff_lwa_step(grid, N)
+        ref = [step(torch.as_tensor(pv[t]).to(dev)) for t in range(T)]
+        ref = {k: torch.stack([r[k] for r in ref]) for k in ref[0]}
+
+        # --stem (the production resume path), then in memory
+        stem = os.path.join(tmp, "ck", "era5")
+        out_stem = os.path.join(tmp, "stem.nc")
+        lines, secs = run("cli keff-lwa era5 --stem", per_run,
+                          base + ["--stem", stem, "--out", out_stem])
+        res["stem"] = dict(s=secs, rate=S / secs, chunks=runner_rates(lines),
+                           peak_gib=peaks["cli keff-lwa era5 --stem"])
+        got, ds = nc_tensors(out_stem, dev)
+        _expect(tuple(ds.dims_of("lwa")) == ("time", "level", "latitude",
+                                            "longitude"),
+                f"phase 10: lwa dims {ds.dims_of('lwa')}")
+        _expect(np.array_equal(np.asarray(ds["latitude"]),
+                               lat.astype(np.float32)),
+                "phase 10: latitude is not the ascending coordinate")
+        cli_vs("keff-lwa --stem", got, ref, "keff_lwa_pipeline")
+        os.remove(out_stem)
+        shutil.rmtree(os.path.dirname(stem))
+        out_mem = os.path.join(tmp, "mem.nc")
+        lines, secs = run("cli keff-lwa era5 in memory", per_run,
+                          base + ["--out", out_mem])
+        res["memory"] = dict(s=secs, rate=S / secs,
+                             chunks=runner_rates(lines),
+                             peak_gib=peaks["cli keff-lwa era5 in memory"])
+        mem, _ = nc_tensors(out_mem, dev)
+        os.remove(out_mem)
+        cli_vs("keff-lwa in memory", mem, got, "keff-lwa --stem")
+        for name in ("stem", "memory"):
+            r = res[name]
+            log(f"phase 10 rate keff-lwa era5 {name}: {S} snapshots in "
+                f"{r['s']:.3f} s end to end ({r['rate']:.1f} snapshots/s, "
+                f"open to the nc3 write), runner per chunk "
+                f"{list(r['chunks'].values())} snapshots/s, peak {r['peak_gib']:.3f} GiB ({card})")
+
+        # the in-memory run traced: the device's busy share
+        trace_dir = os.path.join(tmp, "trace")
+        out_tr = os.path.join(tmp, "traced.nc")
+        with prof.trace(trace_dir):
+            rc, _, secs = run_cli(base + ["--out", out_tr])
+        _expect(rc == 0, "phase 10 traced run failed")
+        os.remove(out_tr)
+        kern, copy, window, nk, spans = busy_share(trace_dir)
+        res["busy"] = dict(kernel=kern, copy=copy, window_ms=window,
+                           kernels=nk, traced_s=secs, cli_ms=spans)
+        log(f"phase 10 busy keff-lwa era5 in memory (traced, {secs:.3f} s): "
+            f"kernels {100 * kern:.2f}% and copies {100 * copy:.2f}% of the "
+            f"streamed run's {window:.1f} ms (cli.stream, {nk} kernels); "
+            f"the CLI's stages, host ms: {spans} ({card})")
+
+        # each stage alone, and the compute-only rate on the card
+        tracer = cli_load(path, dev)
+        stages = stage_times(tracer, step, dev, tmp)
+        res["stages"] = stages
+        for key in stages[0]:
+            vals = [r[key] for r in stages]
+            log(f"phase 10 stage {key}: median {statistics.median(vals):.3f}"
+                f" per chunk {[round(v, 3) for v in vals]}")
+        steps_s = sum(r["step_ms"] for r in stages) / 1e3
+        res["compute_rate"] = S / steps_s
+        log(f"phase 10 rate keff-lwa era5 compute only: "
+            f"{res['compute_rate']:.1f} snapshots/s (the CLI's step on "
+            f"chunks already on the card, host clock) ({card})")
+
+        # kill and resume
+        stem2 = os.path.join(tmp, "kill", "era5")
+        out_kill = os.path.join(tmp, "kill.nc")
+        survivors, killed, secs = kill_and_resume(
+            drive, none, base + ["--stem", stem2, "--out", out_kill], stem2,
+            T, root)
+        labels.append("cli keff-lwa era5 resume")
+        back, _ = nc_tensors(out_kill, dev)
+        os.remove(out_kill)
+        shutil.rmtree(os.path.dirname(stem2))
+        cli_vs("keff-lwa killed and resumed", back, got,
+               "the uninterrupted --stem run")
+        res["kill"] = dict(survivors=survivors, killed=killed, resume_s=secs)
+        log(f"phase 10 kill: {'SIGKILL' if killed else 'no kill (finished '
+            'first; chunks removed)'} with {survivors} of {T} chunks "
+            f"written; resumed in process in {secs:.3f} s, the survivors "
+            "unchanged")
+
+        fault_checks(dev, tracer, step, ref, tmp)
+        res["wire"] = wire_checks(dev, tracer[0:A["level"]])
+
+        # --transfer through the CLI on one time
+        one = {k: v[:1] for k, v in got.items()}
+        for mode in ("f16", "bf16"):
+            out_w = os.path.join(tmp, f"wire_{mode}.nc")
+            run(f"cli keff-lwa era5 --transfer {mode}",
+                {"squared_gradient": 1, "weighted_cdf": 2, "lwa_lin": 1},
+                base + ["--isel", "time=0", "--transfer", mode,
+                        "--out", out_w])
+            w, _ = nc_tensors(out_w, dev)
+            os.remove(out_w)
+            A0 = one["intArea"][0]
+            top = A0.amax(-1, keepdim=True)
+            ok = torch.minimum(A0, top - A0) >= EXTREME_AREA * top
+            dy = (w["Yeq"] - one["Yeq"][0]).abs()[ok].max().item()
+            # the JAX suite's bound for the f16 wire through the CLI
+            # (tests/test_runner_checks.py test_cli_transfer_flag)
+            _expect(mode != "f16" or dy <= 1.0, f"phase 10 --transfer "
+                    f"{mode}: Yeq moved {dy:.3f} degrees")
+            log(f"phase 10 --transfer {mode}: Yeq within {dy:.4f} degrees of "
+                "the float32 run off the extreme contours"
+                + (" (bound 1)" if mode == "f16" else ""))
+
+        # the other subcommands on one time (15 levels)
+        one_time = ["--isel", "time=0", "--var", "pv", "--format", "nc3",
+                    *dev_args]
+        shapes = {}
+        for label, cmd, extra, counts, var, shape in (
+                ("lwa", "lwa", [], {"weighted_cdf": 2, "lwa_lin": 1,
+                                    "lwa_lin2": 1}, "lwa2",
+                 (A["level"], A["nlat"], A["nlon"])),
+                ("lwa dense", "lwa", ["--lwa-method", "dense"],
+                 {"weighted_cdf": 2, "lwa_dense": 2}, "lwa",
+                 (A["level"], A["nlat"], A["nlon"])),
+                ("keff", "keff", [], {"squared_gradient": 1,
+                                      "weighted_cdf": 2}, "nkeff",
+                 (A["level"], 121)),
+                ("clength N=401", "clength", ["-N", "401"],
+                 {"weighted_cdf": 2, "contour_lengths": 1}, "lengths",
+                 (A["level"], 401)),
+                ("local-length", "local-length",
+                 ["--window", str(LOCAL["window"]), "--stride",
+                  str(LOCAL["stride"])], {"local_lengths": A["level"]},
+                 "llen", (A["level"],
+                          (A["nlat"] - LOCAL["window"]) // LOCAL["stride"] + 1,
+                          (A["nlon"] - LOCAL["window"]) // LOCAL["stride"]
+                          + 1))):
+            out_c = os.path.join(tmp, "sub.nc")
+            run(f"cli {label} era5", counts,
+                [cmd, path, *extra, *one_time, "--out", out_c])
+            shapes[label] = check_cli_output(out_c, var, shape, label)
+        # the headline grid (fractal) and the tall grid (K6), own files
+        hlat, hlon, hpv = make_pv(HEADLINE["B"], HEADLINE["nlat"],
+                                  HEADLINE["nlon"], 100)
+        hpath, _ = nc3_archive(tmp, "headline", hpv, hlat, hlon,
+                               np.arange(HEADLINE["B"]), time_axis=False)
+        out_c = os.path.join(tmp, "sub.nc")
+        run("cli fractal headline", {"weighted_cdf": 2,
+                                     "contour_lengths":
+                                         len(FRACTAL_STRIDES)},
+            ["fractal", hpath, "--var", "pv", "-N", str(HEADLINE["N"]),
+             "--batch", str(HEADLINE["B"]), "--format", "nc3", *dev_args,
+             "--out", out_c])
+        shapes["fractal"] = check_cli_output(
+            out_c, "D", (HEADLINE["B"], HEADLINE["N"]), "fractal")
+        tlat, tlon, tpv = make_pv(TALL["B"], TALL["nlat"], TALL["nlon"], 200)
+        tpath, _ = nc3_archive(tmp, "tall", tpv, tlat, tlon,
+                               np.arange(TALL["B"]), time_axis=False)
+        run("cli lwa dense tall", {"weighted_cdf": 2, "lwa_dense_tall": 2},
+            ["lwa", tpath, "--var", "pv", "-N", str(TALL["N"]),
+             "--lwa-method", "dense", "--format", "nc3", *dev_args,
+             "--out", out_c])
+        shapes["lwa dense tall"] = check_cli_output(
+            out_c, "lwa", (TALL["B"], TALL["nlat"], TALL["nlon"]),
+            "lwa dense tall")
+        log(f"phase 10 subcommands: outputs {shapes}")
+
+        refusal_checks(path, tmp)
+    return res, labels
+
+
+def check_cli_output(path, var, shape, label):
+    """A CLI output: ``var`` of ``shape`` with finite values, latitude
+    ascending; the file is removed.  Returns the shape."""
+    from xcontour_tpu_torch.utils.ncio import load_dataset
+    ds = load_dataset(path)
+    a = np.asarray(ds[var])
+    _expect(shape is None or a.shape == shape,
+            f"phase 10 {label}: {var} has shape {a.shape}, not {shape}")
+    _expect(bool(np.isfinite(a).any()), f"phase 10 {label}: {var} has no "
+            "finite value")
+    lat = np.asarray(ds["latitude"])
+    _expect(bool((np.diff(lat) > 0).all()), f"phase 10 {label}: latitude "
+            "not ascending")
+    del ds
+    os.remove(path)
+    return a.shape
+
+
+def cli_load(path, dev):
+    """The CLI's streaming view of the archive (a _LazyField over the nc3
+    memmap)."""
+    import argparse
+    from xcontour_tpu_torch import cli
+    args = argparse.Namespace(input=path, var="pv", dims=None, isel=None,
+                              scale_var=None, mask_var=None,
+                              mask_from_nan=False, batch=ARCHIVE["level"],
+                              f64=False, device=dev.type)
+    return cli._load_field(args)[0]
+
+
+def refusal_checks(path, tmp):
+    """What the CLI refuses on the card: --f64 (the kernels take float32)
+    and --format nc4 where h5py is missing, each with its message and
+    before any chunk runs; and `info` lists the file."""
+    import importlib.util
+    from xcontour_tpu_torch import cli
+    out = os.path.join(tmp, "refused.nc")
+    try:
+        run_cli(["keff", path, "--var", "pv", "--f64", "--out", out])
+        raise AssertionError("phase 10: --f64 on the card did not exit")
+    except SystemExit as e:
+        _expect("--device cpu" in str(e), f"phase 10 --f64: {e}")
+        f64_msg = str(e)
+    if importlib.util.find_spec("h5py") is None:
+        try:
+            run_cli(["keff", path, "--var", "pv", "--out", out])
+            raise AssertionError("phase 10: nc4 without h5py did not exit")
+        except SystemExit as e:
+            _expect("--format nc3" in str(e), f"phase 10 nc4: {e}")
+            nc4_msg = str(e)
+    else:
+        nc4_msg = "h5py is installed here: nc4 allowed"
+    _expect(not os.path.exists(out), "phase 10: a refused run wrote output")
+    rc, lines, _ = run_cli(["info", path])
+    _expect(rc == 0 and any(ln.startswith("pv  dims=('time', 'level', "
+                                          "'latitude', 'longitude')")
+                            for ln in lines), f"phase 10 info: {lines}")
+    log(f"phase 10 refusals: --f64 '{f64_msg}'; nc4 '{nc4_msg}'; info: "
+        f"{[ln for ln in lines if ln.startswith('pv ')][0]}")
 
 
 def main() -> int:
@@ -2719,6 +3449,17 @@ def main() -> int:
     log(f"phase 9 json {json.dumps(chains)}")
     log(f"phase 9 facade: OK in {time.perf_counter() - t0:.1f} s")
 
+    # 10. an ERA5-width archive through the runner and the CLI
+    t0 = time.perf_counter()
+    cli_res, cli_labels = cli_phase(dev, drive, path_counts, peaks, card)
+    cli_counts = {r.name: sum(path_counts[label][r.name]
+                              for label in cli_labels) for r in records}
+    log(f"phase 10 launches over the CLI's paths: {cli_counts}")
+    missing = [n for n, c in cli_counts.items() if c == 0]
+    _expect(not missing, f"kernels never launched through the CLI: {missing}")
+    log(f"phase 10 json {json.dumps(cli_res)}")
+    log(f"phase 10 runner and CLI: OK in {time.perf_counter() - t0:.1f} s")
+
     def entry(r, key, err_key, extra=()):
         e = dict(name=r.name, route="cuda", source=r.source,
                  replaces=r.replaces, launches=totals[r.name],
@@ -2727,7 +3468,8 @@ def main() -> int:
                  bound_by=bounds[key][1], library_ms=LIBRARY_MS,
                  backward_ms=grad_times[r.name][1],
                  backward_peak_gib=grad_times[r.name][2],
-                 launches_facade=facade_counts[r.name])
+                 launches_facade=facade_counts[r.name],
+                 launches_cli=cli_counts[r.name])
         for tag, k in extra:
             if k in errs:
                 e[f"max_abs_err_{tag}"] = errs[k]

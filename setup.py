@@ -18,7 +18,8 @@ setup(
     package_data={"xcontour_tpu": ["../csrc/*.cpp"],
                   "xcontour_tpu_torch": ["csrc/*.cu", "csrc/*.cpp"]},
     entry_points={
-        "console_scripts": ["xcontour-tpu = xcontour_tpu.cli:main"],
+        "console_scripts": ["xcontour-tpu = xcontour_tpu.cli:main",
+                            "xcontour-tpu-torch = xcontour_tpu_torch.cli:main"],
     },
     python_requires=">=3.10",
     install_requires=[

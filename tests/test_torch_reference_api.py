@@ -259,11 +259,15 @@ def test_namespace_reexports_and_constants():
 
 
 def test_import_loads_no_optional_module():
-    """Importing the port imports none of h5py, scipy.io, matplotlib,
-    pandas or JAX (a fresh interpreter: this one has them loaded)."""
-    code = ("import sys, xcontour_tpu_torch, xcontour_tpu_torch.xcontour; "
+    """Importing the port, its runner, CLI and profiling helpers imports
+    none of h5py, scipy.io, matplotlib, pandas, ml_dtypes or JAX (a fresh
+    interpreter: this one has them loaded)."""
+    code = ("import sys, xcontour_tpu_torch, xcontour_tpu_torch.xcontour, "
+            "xcontour_tpu_torch.runner, xcontour_tpu_torch.cli, "
+            "xcontour_tpu_torch.utils.prof; "
             "bad = [m for m in ('h5py', 'scipy.io', 'scipy', 'matplotlib', "
-            "'pandas', 'jax', 'xcontour_tpu') if m in sys.modules]; "
+            "'pandas', 'jax', 'ml_dtypes', 'xcontour_tpu') "
+            "if m in sys.modules]; "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)

@@ -21,6 +21,8 @@ No xarray semantics are emulated beyond named dimensions.
 from __future__ import annotations
 
 import os
+import sys
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
@@ -131,7 +133,15 @@ class _Nc3Keepalive:
         self.f = f
 
     def __del__(self):  # pragma: no cover — GC timing
-        import warnings
+        if sys.is_finalizing():
+            # at interpreter exit the warnings machinery is half torn down:
+            # an import fails (sys.meta_path is None), catch_warnings cannot
+            # find its module and a filter no longer holds.  The OS unmaps
+            # the file anyway; dropping netcdf_file's own reference to the
+            # mapped buffer lets its finalizer close the file without the
+            # warning about arrays that still refer to the buffer.
+            self.f._mm_buf = None
+            return
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
             try:
