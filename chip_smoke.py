@@ -145,7 +145,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      local-length on one time, fractal on the headline grid and lwa
      'dense' on the tall grid (K6), each with its exact launch counts;
      --f64 on the card and nc4 without h5py refused with their messages,
-     and info.
+     and info;
+ 11. the sharded path (``xcontour_tpu_torch.parallel``): (a) in this
+     process an NCCL group of one (a FileStore in a temporary directory)
+     and a ('cuda', (1, 1)) mesh at ERA5 width: each sharded function (the
+     halo stencil on K1, the two-channel CDF on K2, the exact sort, LWA on
+     K3, K4 and K5, the halo lengths on K7 at N = 121, the windowed
+     lengths on K8) against its unsharded counterpart on the same card
+     tensors, bit for bit or within KERNEL_BOUNDS; the sharded keff_lwa
+     ('auto', 'dense'), lwa and clength (N = 121) steps and
+     sharded_local_lengths with every launch count from 0, against the
+     unsharded steps by phase 9's comparator; the sharded keff_lwa step
+     timed against keff_lwa_pipeline (CUDA events, in turns); on phase
+     10's archive ``keff-lwa --mesh 1`` and ``--mesh 1x1`` against the run
+     without --mesh, and ``--mesh 2`` refused on one card; (b) which
+     collectives gloo takes on CUDA tensors (two ranks each), then 2 gloo
+     ranks (1x2) and 4 (2x2, 1x4) on the one card, each running the
+     sharded keff_lwa step on its block of 30 ERA5 snapshots and the
+     sharded lengths (K7, K8), joined and held against the unsharded step
+     on the card, with each rank's launch counts and step time (not a
+     scaling figure: the ranks share one card).
 
 The last three lines are the kernels JSON, the card line from nvidia-smi,
 and {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
@@ -351,6 +370,24 @@ DATASET_B = 2
 ARCHIVE = dict(time=6, level=15, nlat=721, nlon=1440, N=241, seed=300)
 CLI_DISK_FACTOR = 4
 WIRE_BOUND = dict(f16=2e-3, bf16=2e-2)
+# phase 11, the sharded path (xcontour_tpu_torch.parallel): (a) in this
+# process, an NCCL group of one on a ('cuda', (1, 1)) mesh at ERA5 width,
+# each sharded function against its unsharded counterpart (bit for bit,
+# else within the kernel's KERNEL_BOUNDS) and each sharded step by phase
+# 9's comparator, the sharded keff_lwa step timed against
+# keff_lwa_pipeline in turns, PAR_REPS each; (b) PAR_MESHES of gloo ranks
+# whose tensors live on the one card (NCCL refuses two ranks on one GPU),
+# PAR_B ERA5 snapshots (two steps), and which collectives gloo takes on
+# CUDA tensors (PAR_COLLECTIVES, 2 ranks each).  A rank that fails, or a
+# wait past PAR_TIMEOUT_S, fails the phase.
+PAR_REPS = 9
+PAR_B = 30
+PAR_MESHES = ("1x2", "2x2", "1x4")
+PAR_COLLECTIVES = ("all_reduce", "broadcast", "all_gather_into_tensor",
+                   "all_gather", "gather", "reduce_scatter_tensor",
+                   "send_recv", "batch_isend_irecv")
+PAR_TIMEOUT_S = 300
+PAR_Q_BOUND = CARD_CPU_TOL["Yeq"]
 # no single PyTorch call computes any of K1-K8 (torch.histogram has no CUDA
 # form, torch.histc takes no weights, torch.bincount weighs integer bins
 # that a torch.bucketize must find first and leaves the cumsum; no call
@@ -2697,8 +2734,10 @@ def wire_checks(dev, chunk0):
     return res
 
 
-def cli_phase(dev, drive, path_counts, peaks, card):
-    """Phase 10: an ERA5-width archive through the runner and the CLI."""
+def cli_phase(dev, drive, path_counts, peaks, card, then=None):
+    """Phase 10: an ERA5-width archive through the runner and the CLI;
+    ``then(path, base argv, the --stem run's outputs, times, tmp)`` runs
+    on the archive before it is removed."""
     import shutil
     import tempfile
     import xcontour_tpu_torch as xt
@@ -2770,6 +2809,8 @@ def cli_phase(dev, drive, path_counts, peaks, card):
         mem, _ = nc_tensors(out_mem, dev)
         os.remove(out_mem)
         cli_vs("keff-lwa in memory", mem, got, "keff-lwa --stem")
+        if then is not None:
+            then(path, base, got, T, tmp)
         for name in ("stem", "memory"):
             r = res[name]
             log(f"phase 10 rate keff-lwa era5 {name}: {S} snapshots in "
@@ -2966,6 +3007,431 @@ def refusal_checks(path, tmp):
                             for ln in lines), f"phase 10 info: {lines}")
     log(f"phase 10 refusals: --f64 '{f64_msg}'; nc4 '{nc4_msg}'; info: "
         f"{[ln for ln in lines if ln.startswith('pv ')][0]}")
+
+
+# -- phase 11: the sharded path (xcontour_tpu_torch.parallel) ---------------
+
+def par_vs(label, got, want, bound):
+    """A sharded function's output against its unsharded counterpart on the
+    same card tensors: bit for bit, or within ``bound`` of the largest
+    magnitude (the NaN patterns equal).  Returns the relative error."""
+    same = torch.equal(torch.nan_to_num(got, nan=0.0),
+                       torch.nan_to_num(want, nan=0.0)) and \
+        torch.equal(torch.isnan(got), torch.isnan(want))
+    _, rel = rel_err(got, want)
+    log(f"phase 11 {label}: " + ("bit for bit" if same else
+                                 f"rel {rel:.3e} bound {bound:g}"))
+    _expect(same or rel <= bound, f"phase 11 {label}: rel {rel:.3e} > "
+            f"{bound:g}")
+    return 0.0 if same else rel
+
+
+def par_step_vs(label, got, want):
+    """A sharded step's outputs against the unsharded step's: phase 9's
+    comparator (K2's float atomics sum in another order each launch, and
+    the x ranks' partial sums add in another order again) for the
+    contour-space keys; the profile Q on the grid, read through the table
+    lookup, at Yeq's bound (PAR_Q_BOUND); the LWA fields at
+    CARD_CPU_TOL['lwa']."""
+    fields = [k for k in ("lwa", "lwa2") if k in want]
+    # clength masks nkeff at 1e5, not at threshold_agree's NKEFF_MASK:
+    # its Leq2 carries the comparison
+    skip = set(fields) | {"Q"} | ({"nkeff"} if "lengths" in want else set())
+    keys = [k for k in want if k not in skip]
+    facade_vs(label, got, want, keys, what="phase 11",
+              against="the unsharded step")
+    if "Q" in want:
+        field_rel(f"{label} Q", got["Q"], want["Q"], PAR_Q_BOUND,
+                  what="phase 11")
+    for k in fields:
+        field_rel(f"{label} {k}", got[k], want[k], CARD_CPU_TOL["lwa"],
+                  what="phase 11")
+
+
+def parallel_inprocess(dev, drive, q, grid, table):
+    """Phase 11(a): an NCCL group of one in this process and a ('cuda',
+    (1, 1)) mesh; each sharded function and step against its unsharded
+    counterpart at ERA5 width, the launch counts, and the sharded
+    composition's cost."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch import parallel as P
+    from xcontour_tpu_torch.ops.histogram import weighted_cdf_multi
+    from xcontour_tpu_torch.ops.sort import exact_conditional_integral
+    from xcontour_tpu_torch.parallel import _comm
+    res, labels, errs = {}, [], {}
+    N = ERA5["N"]
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group(
+            "nccl", store=store, rank=0, world_size=1, device_id=dev,
+            timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+        try:
+            mesh = P.make_mesh(1)
+            _expect(mesh.device_type == "cuda"
+                    and tuple(mesh.shape) == (1, 1), f"phase 11 mesh {mesh}")
+            calls = dict(_comm.CALLS)
+            dA = grid.dA
+            grdS = P.sharded_squared_gradient(q, grid, mesh)
+            errs["squared_gradient"] = par_vs(
+                "sharded_squared_gradient (K1 on the halo slab)", grdS,
+                xt.squared_gradient(q, grid),
+                KERNEL_BOUNDS["squared_gradient"])
+            ctr = xt.cal_contours(q, N)
+            _expect(torch.equal(P.sharded_contours(q, N, mesh), ctr),
+                    "phase 11: the sharded levels differ")
+            w = [dA, grdS * dA]
+            for a, b, name in zip(
+                    P.sharded_weighted_cdf_multi(q, ctr, w, True, mesh),
+                    weighted_cdf_multi(q, ctr, w, True), ("area", "grdS")):
+                errs[f"weighted_cdf_{name}"] = par_vs(
+                    f"sharded_weighted_cdf_multi {name} (K2)", a, b,
+                    KERNEL_BOUNDS["weighted_cdf"])
+            wb = torch.broadcast_to(dA, q.shape)
+            par_vs("sharded_exact_conditional_integral",
+                   P.sharded_exact_conditional_integral(q, ctr, wb, True,
+                                                        mesh),
+                   exact_conditional_integral(q, ctr, wb, True), EXACT_BOUND)
+            Q = xt.keff_lwa_pipeline(q, grid, N=N, table=table)["Q"]
+            for name, fn, sfn, kw, bound in (
+                    ("lwa_lin", xt.local_wave_activity,
+                     P.sharded_local_wave_activity, {}, "lwa_lin"),
+                    ("lwa_dense", xt.local_wave_activity,
+                     P.sharded_local_wave_activity, dict(method="dense"),
+                     "lwa_dense"),
+                    ("lwa_lin2", xt.local_wave_activity2,
+                     P.sharded_local_wave_activity2, {}, "lwa_lin2")):
+                errs[name] = par_vs(
+                    f"sharded LWA {name}", sfn(q, Q, dA, grid.ydef, mesh,
+                                               increase=True, **kw),
+                    fn(q, Q, dA, grid.ydef, increase=True, **kw),
+                    KERNEL_BOUNDS[bound])
+            c121 = xt.cal_contours(q, CLENGTH_N[0])
+            errs["contour_lengths"] = par_vs(
+                "sharded_contour_lengths N=121 (K7 on slab and halo)",
+                P.sharded_contour_lengths(q, c121, grid.ydef, grid.xdef, mesh,
+                                          latlon=True),
+                xt.contour_lengths(q, c121, grid.ydef, grid.xdef,
+                                   latlon=True),
+                KERNEL_BOUNDS["contour_lengths"])
+            errs["local_lengths"] = par_vs(
+                "sharded_local_lengths window 101 stride 10 (K8)",
+                P.sharded_local_lengths(q[0], grid.ydef, grid.xdef, mesh,
+                                        **LOCAL)[0],
+                xt.local_contour_lengths(q[0], grid.ydef, grid.xdef,
+                                         **LOCAL)[0],
+                KERNEL_BOUNDS["local_lengths"])
+
+            # the sharded steps through drive: every launch count from 0
+            kw = dict(N=N, table=table)
+            for label, expect, sfn, fn, extra in (
+                    ("keff_lwa era5 auto", dict(squared_gradient=1,
+                                                weighted_cdf=1, lwa_lin=1),
+                     P.sharded_keff_lwa_pipeline, xt.keff_lwa_pipeline, {}),
+                    ("keff_lwa era5 dense", dict(squared_gradient=1,
+                                                 weighted_cdf=1, lwa_dense=1),
+                     P.sharded_keff_lwa_pipeline, xt.keff_lwa_pipeline,
+                     dict(lwa_method="dense")),
+                    ("lwa era5 auto", dict(weighted_cdf=1, lwa_lin=1,
+                                           lwa_lin2=1),
+                     P.sharded_lwa_pipeline, xt.lwa_pipeline, {}),
+                    ("clength era5 N=121", dict(weighted_cdf=1,
+                                                contour_lengths=1),
+                     P.sharded_clength_pipeline, xt.clength_pipeline,
+                     dict(N=CLENGTH_N[0]))):
+                labels.append(f"parallel {label}")
+                got = drive(f"parallel {label}", expect,
+                            lambda: sfn(q, grid, mesh, **dict(kw, **extra)),
+                            exact=dict(weighted_cdf=1))
+                par_step_vs(label, got, fn(q, grid, **dict(kw, **extra)))
+            labels.append("parallel local era5")
+            drive("parallel local era5", dict(local_lengths=1),
+                  lambda: P.sharded_local_lengths(q[0], grid.ydef, grid.xdef,
+                                                  mesh, **LOCAL),
+                  exact=dict(local_lengths=1))
+            _expect(dict(_comm.CALLS) == calls,
+                    "phase 11: the ring of one ran a collective")
+
+            # the cost of the sharded composition, in turns
+            for method in ("auto", "dense"):
+                sk = dict(kw, lwa_method=method)
+                ts, tu = [], []
+                for i in range(PAR_REPS):
+                    for side in ((ts, tu) if i % 2 == 0 else (tu, ts)):
+                        fn = (lambda: P.sharded_keff_lwa_pipeline(
+                            q, grid, mesh, **sk)) if side is ts else \
+                            (lambda: xt.keff_lwa_pipeline(q, grid, **sk))
+                        side.append(cuda_ms(fn, 1))
+                ms_s, ms_u = statistics.median(ts), statistics.median(tu)
+                # device time a step (torch.profiler), to tell the added
+                # device work from the added host time
+                dev_s = sum(device_split(lambda: P.sharded_keff_lwa_pipeline(
+                    q, grid, mesh, **sk), calls=5).values())
+                dev_u = sum(device_split(lambda: xt.keff_lwa_pipeline(
+                    q, grid, **sk), calls=5).values())
+                res[f"keff_lwa_{method}"] = dict(
+                    sharded_ms=ms_s, unsharded_ms=ms_u, ratio=ms_s / ms_u,
+                    sharded_device_ms=dev_s, unsharded_device_ms=dev_u)
+                log(f"phase 11 time keff_lwa era5 {method}: sharded (1x1 "
+                    f"NCCL mesh) {ms_s:.4f} ms, keff_lwa_pipeline "
+                    f"{ms_u:.4f} ms, ratio {ms_s / ms_u:.4f} (CUDA events, "
+                    f"median of {PAR_REPS} in turns, table reused); device "
+                    f"time a step {dev_s:.4f} / {dev_u:.4f} ms "
+                    "(torch.profiler)")
+        finally:
+            dist.destroy_process_group()
+    res["errs"] = errs
+    return res, labels
+
+
+def parallel_cli(drive, none, path, base, got, T, tmp):
+    """Phase 11(a) through the CLI on phase 10's archive: --mesh 1 and 1x1
+    in process (a group of one) against the run without --mesh, and
+    --mesh 2 refused on one card."""
+    labels = []
+    for spec in ("1", "1x1"):
+        out = os.path.join(tmp, f"mesh{spec}.nc")
+        label = f"parallel cli keff-lwa era5 --mesh {spec}"
+        labels.append(label)
+        counts = {"squared_gradient": T, "weighted_cdf": 2 * T, "lwa_lin": T}
+        rc, _, secs = drive(label, counts, lambda: run_cli(
+            base + ["--mesh", spec, "--out", out]), exact=dict(none, **counts))
+        _expect(rc == 0, f"phase 11 {label}: rc {rc}")
+        mine, _ = nc_tensors(out, got["lwa"].device)
+        os.remove(out)
+        facade_vs(f"cli --mesh {spec}", mine, got,
+                  [k for k in got if k != "lwa"], what="phase 11",
+                  against="the run without --mesh")
+        field_rel(f"cli --mesh {spec} lwa", mine["lwa"], got["lwa"],
+                  CARD_CPU_TOL["lwa"], what="phase 11")
+        log(f"phase 11 cli --mesh {spec}: {secs:.3f} s end to end")
+    try:
+        run_cli(base + ["--mesh", "2", "--out", os.path.join(tmp, "x.nc")])
+        raise AssertionError("phase 11: --mesh 2 on one card did not exit")
+    except SystemExit as e:
+        _expect("2 devices requested, 1 available" in str(e),
+                f"phase 11 --mesh 2: {e}")
+        log(f"phase 11 cli --mesh 2 refused: '{e}'")
+    return labels
+
+
+def collective_rank(workdir, name):
+    """One collective on CUDA tensors of a 2-rank gloo group on one card."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    r, n = dist.get_rank(), dist.get_world_size()
+    t = torch.full((4,), float(r + 1), device=dev)
+    if name == "all_reduce":
+        for op in (dist.ReduceOp.SUM, dist.ReduceOp.MIN, dist.ReduceOp.MAX):
+            dist.all_reduce(t.clone(), op=op)
+    elif name == "broadcast":
+        dist.broadcast(t.clone(), src=0)
+    elif name == "all_gather_into_tensor":
+        dist.all_gather_into_tensor(t.new_empty(4 * n), t)
+    elif name == "all_gather":
+        dist.all_gather([torch.empty_like(t) for _ in range(n)], t)
+    elif name == "gather":
+        dist.gather(t, [torch.empty_like(t) for _ in range(n)]
+                    if r == 0 else None, dst=0)
+    elif name == "reduce_scatter_tensor":
+        dist.reduce_scatter_tensor(t.new_empty(4), t.repeat(n))
+    elif name == "send_recv":
+        if r == 0:
+            dist.send(t, 1)
+        else:
+            dist.recv(torch.empty_like(t), 0)
+    elif name == "batch_isend_irecv":
+        ops = [dist.P2POp(dist.isend, t, (r + 1) % n),
+               dist.P2POp(dist.irecv, torch.empty_like(t), (r - 1) % n)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    torch.cuda.synchronize()
+    with open(os.path.join(workdir, f"ok{r}"), "w") as f:
+        f.write("ok")
+
+
+def collective_support(tmp):
+    """{collective: 'ok' or why not} for gloo on CUDA tensors, each in its
+    own 2-rank launch (an unsupported one may abort its processes)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from xcontour_tpu_torch.parallel.launch import run_ranks
+    me = os.path.abspath(__file__)
+
+    def one(name):
+        d = os.path.join(tmp, f"coll_{name}")
+        try:
+            run_ranks(f"{me}:collective_rank", 2, d, args=[name],
+                      timeout=PAR_TIMEOUT_S)
+            return name, "ok"
+        except (RuntimeError, TimeoutError) as e:
+            lines = [ln for ln in str(e).splitlines() if ln.strip()]
+            why = next((ln for ln in reversed(lines)
+                        if "Error" in ln or "what()" in ln), lines[-1])
+            return name, "no: " + why.strip()[:160]
+    with ThreadPoolExecutor(len(PAR_COLLECTIVES)) as pool:
+        return dict(pool.map(one, PAR_COLLECTIVES))
+
+
+def parallel_rank(workdir, spec):
+    """Phase 11(b) on one rank of a gloo group whose tensors live on the
+    one card: the sharded keff_lwa step on its block of B = PAR_B ERA5
+    snapshots, the sharded lengths (K7) and windowed lengths (K8); saves
+    its blocks, launch counts and times."""
+    import torch.distributed as dist
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch import parallel as P
+    from xcontour_tpu_torch.kernels import _build, hist, length, lwa, stencil
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    lib = _build.BUILD_DIR / \
+        f"libxcontour_{_build._digest(sorted(_build.CSRC_DIR.glob('*.cu')))}.so"
+    _expect(lib.exists(), f"phase 11 rank: {lib.name} is not built")
+    records = [stencil.KERNEL, hist.KERNEL, lwa.KERNEL_LIN, lwa.KERNEL_DENSE,
+               lwa.KERNEL_LIN2, lwa.KERNEL_DENSE_TALL, length.KERNEL_LENGTHS,
+               length.KERNEL_LOCAL_LENGTHS]
+    b, x = (int(v) for v in spec.split("x"))
+    mesh = P.make_mesh(x_size=x)
+    lat, lon, q = par_inputs()
+    grid = xt.from_latlon(lat, lon, device=dev)
+    sh = P.shard_batch_spec(mesh, 3)
+    qb = torch.as_tensor(np.ascontiguousarray(sh.block(q))).to(dev)
+    table = P.replicated_table(xt.cal_area_eqCoord_table_hist(
+        grid.fluid_mask(), grid.ydef, grid.dA, increase=True, lt=True), mesh)
+    for r in records:
+        r.launches = 0
+    out = P.sharded_keff_lwa_pipeline(qb, grid, mesh, N=ERA5["N"],
+                                      table=table)
+    c121 = P.sharded_contours(qb, CLENGTH_N[0], mesh)
+    L = P.sharded_contour_lengths(qb, c121, grid.ydef, grid.xdef, mesh,
+                                  latlon=True)
+    W = P.sharded_local_lengths(qb[0], grid.ydef, grid.xdef, mesh,
+                                **LOCAL)[0]
+    torch.cuda.synchronize()
+    counts = {r.name: r.launches for r in records}
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        P.sharded_keff_lwa_pipeline(qb, grid, mesh, N=ERA5["N"], table=table)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    keep = {k: out[k] for k in ("contour", "intArea", "intgrdS", "Yeq",
+                                "Lmin", "Leq2", "nkeff", "Q", "lwa")}
+    np.savez(os.path.join(workdir, f"out{dist.get_rank()}.npz"),
+             coords=np.array(sh.coords), lengths=L.cpu().numpy(),
+             local=W.cpu().numpy(),
+             **{k: v.cpu().numpy() for k, v in keep.items()})
+    # the rank measures windows (K8) when its block of window rows is not
+    # empty
+    Wy = (ERA5["nlat"] - LOCAL["window"]) // LOCAL["stride"] + 1
+    windows = sh.coords[1] * -(-Wy // x) < Wy
+    with open(os.path.join(workdir, f"rank{dist.get_rank()}.json"), "w") as f:
+        json.dump(dict(counts=counts, step_s=times, windows=windows), f)
+
+
+def par_inputs():
+    """(lat, lon, q): PAR_B ERA5 snapshots, the make_pv steps of seeds 0,
+    1, ... (the phases' era_steps), on the host."""
+    steps = [make_pv(ERA5["B"], ERA5["nlat"], ERA5["nlon"], seed)
+             for seed in range(PAR_B // ERA5["B"])]
+    return steps[0][0], steps[0][1], np.concatenate([s[2] for s in steps])
+
+
+def parallel_ranks(dev, era_q, era_grid, table, tmp):
+    """Phase 11(b): 2 and 4 gloo ranks on the one card; their joined
+    results against the unsharded step on the card; each rank's launch
+    counts and step time (ranks share the card and gloo moves the bytes
+    through the host: not a scaling figure)."""
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch.parallel.launch import run_ranks
+    res = {}
+    q = torch.cat([era_q[i] for i in range(PAR_B // ERA5["B"])])
+    want = xt.keff_lwa_pipeline(q, era_grid, N=ERA5["N"], table=table)
+    c121 = xt.cal_contours(q, CLENGTH_N[0])
+    want_L = xt.contour_lengths(q, c121, era_grid.ydef, era_grid.xdef,
+                                latlon=True)
+    me = os.path.abspath(__file__)
+    for spec in PAR_MESHES:
+        b, x = (int(v) for v in spec.split("x"))
+        d = os.path.join(tmp, f"mesh{spec}")
+        t0 = time.perf_counter()
+        run_ranks(f"{me}:parallel_rank", b * x, d, args=[spec],
+                  timeout=PAR_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        blocks = [dict(np.load(os.path.join(d, f"out{r}.npz")))
+                  for r in range(b * x)]
+        info = [json.load(open(os.path.join(d, f"rank{r}.json")))
+                for r in range(b * x)]
+        at = {tuple(int(c) for c in blk.pop("coords")): blk
+              for blk in blocks}
+        got = {}
+        for k in blocks[0]:
+            if k == "local":
+                continue
+            rows = []
+            for i in range(b):
+                parts = [at[i, j][k] for j in range(x)]
+                if k == "lwa":
+                    rows.append(np.concatenate(parts, axis=-1))
+                else:
+                    for p in parts[1:]:
+                        _expect(np.array_equal(p, parts[0], equal_nan=True),
+                                f"phase 11 {spec}: {k} differs over x")
+                    rows.append(parts[0])
+            got[k] = torch.as_tensor(np.concatenate(rows)).to(dev)
+        lengths = got.pop("lengths")
+        par_step_vs(f"ranks {spec} keff_lwa era5 B={PAR_B}", got,
+                    {k: want[k] for k in got})
+        par_vs(f"ranks {spec} sharded_contour_lengths N=121", lengths,
+               want_L, KERNEL_BOUNDS["contour_lengths"])
+        for i in range(b):
+            s = i * (PAR_B // b)
+            par_vs(f"ranks {spec} sharded_local_lengths snapshot {s}",
+                   torch.as_tensor(at[i, 0]["local"]).to(dev),
+                   xt.local_contour_lengths(q[s], era_grid.ydef,
+                                            era_grid.xdef, **LOCAL)[0],
+                   KERNEL_BOUNDS["local_lengths"])
+        counts = [r["counts"] for r in info]
+        for r, c in enumerate(counts):
+            short = [k for k in ("squared_gradient", "weighted_cdf",
+                                 "lwa_lin", "contour_lengths")
+                     + (("local_lengths",) if info[r]["windows"] else ())
+                     if c[k] == 0]
+            _expect(not short, f"phase 11 {spec} rank {r}: {short} not "
+                    f"launched ({c})")
+        step_ms = [1e3 * statistics.median(r["step_s"]) for r in info]
+        res[spec] = dict(launch_s=secs, counts=counts, step_ms=step_ms)
+        log(f"phase 11 ranks {spec}: {b * x} gloo ranks on one card in "
+            f"{secs:.1f} s; launches per rank {counts}; sharded keff_lwa "
+            f"step per rank {[round(v, 2) for v in step_ms]} ms (host clock, "
+            "ranks share the card and gloo moves the bytes through the "
+            "host: not a scaling figure)")
+    return res
+
+
+def parallel_phase(dev, drive, era_steps, era_grid):
+    """Phase 11: the sharded path on the card, (a) in process and (b) over
+    gloo ranks."""
+    import tempfile
+    import xcontour_tpu_torch as xt
+    table = xt.cal_area_eqCoord_table_hist(
+        era_grid.fluid_mask(), era_grid.ydef, era_grid.dA, increase=True,
+        lt=True)
+    res, labels = parallel_inprocess(dev, drive, era_steps[0], era_grid,
+                                     table)
+    with tempfile.TemporaryDirectory() as tmp:
+        support = collective_support(tmp)
+        res["gloo_cuda"] = support
+        log(f"phase 11 gloo on CUDA tensors (torch {torch.__version__}): "
+            + ", ".join(f"{k} {v}" for k, v in support.items()))
+        used = ("all_reduce", "all_gather_into_tensor", "broadcast")
+        _expect(all(support[k] == "ok" for k in used), f"phase 11: gloo "
+                f"refuses CUDA tensors in one of {used}, which the port's "
+                "collectives use")
+        res["ranks"] = parallel_ranks(dev, era_steps, era_grid, table, tmp)
+    return res, labels
 
 
 def main() -> int:
@@ -3451,7 +3917,14 @@ def main() -> int:
 
     # 10. an ERA5-width archive through the runner and the CLI
     t0 = time.perf_counter()
-    cli_res, cli_labels = cli_phase(dev, drive, path_counts, peaks, card)
+    par_cli_labels = []
+
+    def mesh_cli(path, base, got, T, tmp):
+        # phase 11's CLI checks, on phase 10's archive
+        par_cli_labels.extend(parallel_cli(
+            drive, {r.name: 0 for r in records}, path, base, got, T, tmp))
+    cli_res, cli_labels = cli_phase(dev, drive, path_counts, peaks, card,
+                                    then=mesh_cli)
     cli_counts = {r.name: sum(path_counts[label][r.name]
                               for label in cli_labels) for r in records}
     log(f"phase 10 launches over the CLI's paths: {cli_counts}")
@@ -3459,6 +3932,21 @@ def main() -> int:
     _expect(not missing, f"kernels never launched through the CLI: {missing}")
     log(f"phase 10 json {json.dumps(cli_res)}")
     log(f"phase 10 runner and CLI: OK in {time.perf_counter() - t0:.1f} s")
+
+    # 11. the sharded path: in process on a mesh of one, then gloo ranks
+    t0 = time.perf_counter()
+    par_res, par_labels = parallel_phase(dev, drive, era_steps, era_grid)
+    par_counts = {r.name: sum(path_counts[label][r.name]
+                              for label in par_labels + par_cli_labels)
+                  for r in records}
+    log(f"phase 11 launches over the sharded paths: {par_counts}")
+    missing = [n for n in ("squared_gradient", "weighted_cdf", "lwa_lin",
+                           "lwa_dense", "lwa_lin2", "contour_lengths",
+                           "local_lengths") if par_counts[n] == 0]
+    _expect(not missing, f"kernels never launched by the sharded paths: "
+                         f"{missing}")
+    log(f"phase 11 json {json.dumps(par_res)}")
+    log(f"phase 11 sharded path: OK in {time.perf_counter() - t0:.1f} s")
 
     def entry(r, key, err_key, extra=()):
         e = dict(name=r.name, route="cuda", source=r.source,
@@ -3469,7 +3957,8 @@ def main() -> int:
                  backward_ms=grad_times[r.name][1],
                  backward_peak_gib=grad_times[r.name][2],
                  launches_facade=facade_counts[r.name],
-                 launches_cli=cli_counts[r.name])
+                 launches_cli=cli_counts[r.name],
+                 launches_parallel=par_counts[r.name])
         for tag, k in extra:
             if k in errs:
                 e[f"max_abs_err_{tag}"] = errs[k]

@@ -2,13 +2,14 @@
 
 Drives ``cli.main()`` in-process (and once as a killed and resumed
 subprocess) on small netCDF files written through ``utils.ncio``, both
-HDF5/nc4 and classic nc3.  The tests of ``tests/test_cli.py`` (but the
-multi-device ``--mesh``), the CLI's failure injection, and the port's CLI
+HDF5/nc4 and classic nc3.  The tests of ``tests/test_cli.py`` (its
+``--mesh`` test is tests/test_torch_parallel_cli.py's), the CLI's failure
+injection, and the port's CLI
 held against the JAX CLI on the same files for every subcommand: float64
 within 1e-10 of each variable's largest magnitude with the same NaN
 pattern, float32 within the port suite's float32 tolerances; the same
 variables, dims, coordinates and attributes, and the same resume
-fingerprint (apart from the port's ``device`` and JAX's ``mesh``).
+fingerprint (apart from the port's ``device``).
 Every run passes ``--device cpu``: the CLI's default is the card.
 """
 
@@ -800,8 +801,8 @@ def _same_files(got, want, cmd, dtype):
 def test_cli_matches_the_jax_cli(tmp_path, cmd, fmt, dtype):
     """Each subcommand through both CLIs on the same file (an nc3 input
     streams as a lazy big-endian memmap through each _LazyField): the same
-    file out, and the same resume fingerprint but for the port's 'device'
-    and JAX's 'mesh'."""
+    file out, and the same resume fingerprint but for the port's
+    'device'."""
     if fmt == "nc4":
         pytest.importorskip("h5py")
     path = _archive(tmp_path, fmt)
@@ -816,10 +817,10 @@ def test_cli_matches_the_jax_cli(tmp_path, cmd, fmt, dtype):
         jfp = json.load(f)
     with open(tstem + ".meta.json") as f:
         tfp = json.load(f)
-    assert set(tfp) - {"device"} == set(jfp) - {"mesh"}
+    assert set(tfp) - {"device"} == set(jfp)
     assert tfp["device"] == CPU
     assert {k: v for k, v in tfp.items() if k not in ("device", "input")} \
-        == {k: v for k, v in jfp.items() if k not in ("mesh", "input")}
+        == {k: v for k, v in jfp.items() if k != "input"}
 
 
 def test_lazy_nc3_exit_leaves_stderr_clean(tmp_path):

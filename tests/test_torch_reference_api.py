@@ -259,12 +259,15 @@ def test_namespace_reexports_and_constants():
 
 
 def test_import_loads_no_optional_module():
-    """Importing the port, its runner, CLI and profiling helpers imports
-    none of h5py, scipy.io, matplotlib, pandas, ml_dtypes or JAX (a fresh
-    interpreter: this one has them loaded)."""
+    """Importing the port, its runner, CLI, profiling helpers and sharded
+    package (with its rank-process entry module) imports none of h5py,
+    scipy.io, matplotlib, pandas, ml_dtypes or JAX (a fresh interpreter:
+    this one has them loaded)."""
     code = ("import sys, xcontour_tpu_torch, xcontour_tpu_torch.xcontour, "
             "xcontour_tpu_torch.runner, xcontour_tpu_torch.cli, "
-            "xcontour_tpu_torch.utils.prof; "
+            "xcontour_tpu_torch.utils.prof, xcontour_tpu_torch.parallel, "
+            "xcontour_tpu_torch.parallel.launch, "
+            "xcontour_tpu_torch.parallel.dryrun; "
             "bad = [m for m in ('h5py', 'scipy.io', 'scipy', 'matplotlib', "
             "'pandas', 'jax', 'ml_dtypes', 'xcontour_tpu') "
             "if m in sys.modules]; "

@@ -23,7 +23,9 @@ contour tools (``host``: marching-squares extraction and the wave-breaking
 chain), the float64 oracle ``compat`` and, imported on its own, ``viz``.
 
 Plain PyTorch versions run on CPU tensors; CUDA tensors go through the
-kernels in ``csrc/``, which ``nvcc`` builds at first use.
+kernels in ``csrc/``, which ``nvcc`` builds at first use.  The sharded
+steps over several ranks (one card a rank, torch.distributed) are in
+``parallel``, imported on its own.
 """
 
 __version__ = "0.1.0"

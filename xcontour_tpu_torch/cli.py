@@ -21,13 +21,25 @@ chunks through ``runner.run_batched`` (pinned, overlapped copies; per-chunk
 retry / resume via ``--stem``), and coordinate-labelled output through
 ``pipeline.as_dataset`` -> netCDF-3/4.  Lead dims of the input variable are
 flattened into one batch axis for streaming and restored (with their names)
-on output.  The JAX CLI's ``--mesh`` has no counterpart yet: multi-card
-runs come with the port of ``parallel``.
+on output.
+
+``--mesh N|BxX`` shards each chunk over a ('batch', 'x') mesh of ranks,
+one process a rank (one card a rank), as the JAX CLI's ``--mesh`` shards
+it over devices:
+
+    torchrun --standalone --nproc-per-node 4 -m xcontour_tpu_torch \
+        keff-lwa input.nc --var pv --mesh 2x2 --batch 32
+
+Each rank joins the group (NCCL on ``cuda:LOCAL_RANK``, gloo with
+``--device cpu``), reads its block of each chunk and runs the sharded
+step (``parallel.pipeline``); rank 0 gathers and writes.  Outside
+torchrun ``--mesh 1`` (or ``1x1``) runs in this process as a group of one.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
 import os
@@ -136,70 +148,71 @@ class _LazyField:
         pos = np.unravel_index(t, self.lead_shape)
         return dict(zip(self._lead_names, (int(p) for p in pos)))
 
-    def _read(self, t):
-        lead = self._lead_index(t)
-        idx = tuple(
-            slice(None) if ax >= len(self._vdims) - 2
-            else self._isel.get(d, lead.get(d))
-            for ax, d in enumerate(self._vdims))
-        snap = np.asarray(self.src[idx])
+    def _sel(self, d, lead, cols):
+        """The index of axis ``d``: the lead selection, all of Ny, or the
+        columns ``cols`` of Nx."""
+        if d == self._vdims[-1]:
+            return cols
+        if d == self._vdims[-2]:
+            return slice(None)
+        return self._isel.get(d, lead.get(d))
+
+    def _finish(self, block, lead, cols):
+        """Scale, flip, cast and mask a (..., Ny, Nx_cols) read."""
         if self._scale is not None:
             plane = self._vdims[-2:]
-            sidx = tuple(slice(None) if d in plane
-                         else self._isel.get(d, lead.get(d))
-                         for d in self._sdims)
-            sval = np.asarray(self._scale[sidx])
+            sval = np.asarray(self._scale[tuple(
+                self._sel(d, lead, cols) for d in self._sdims)])
             # align the surviving (plane) dims: each missing plane dim
             # broadcasts as length 1
-            sval = sval.reshape(tuple(
-                self.shape[1 + k] if plane[k] in self._sdims else 1
-                for k in range(2)))
-            snap = snap * sval
+            shp = tuple(block.shape[block.ndim - 2 + k]
+                        if plane[k] in self._sdims else 1 for k in range(2))
+            lead_len = block.shape[:block.ndim - 2]
+            if lead_len:   # a hyperslab: its lead dim, where scale has it
+                d0 = self._lead_names[0]
+                shp = (lead_len[0] if d0 in self._sdims else 1,) + shp
+            block = block * sval.reshape(shp)
         if self._flip_y:
-            snap = snap[::-1]
-        snap = snap.astype(self.dtype, copy=False)
+            block = block[..., ::-1, :]
+        block = block.astype(self.dtype, copy=False)
         if self._mask is not None:
-            snap = np.where(self._mask != 0, snap, np.nan)
-        return snap
+            block = np.where(self._mask[:, cols] != 0, block, np.nan)
+        return block
 
-    def _read_contiguous(self, lo, hi):
+    def _read(self, t, cols):
+        lead = self._lead_index(t)
+        snap = np.asarray(self.src[tuple(
+            self._sel(d, lead, cols) for d in self._vdims)])
+        return self._finish(snap, lead, cols)
+
+    def _read_contiguous(self, lo, hi, cols):
         """Fast path for the common layout (exactly one lead dim): one
         hyperslab read instead of per-snapshot calls -- chunked/compressed
         HDF5 layouts spanning several records would otherwise be re-read
         and re-decompressed once per snapshot."""
-        d0 = self._lead_names[0]
-        idx = tuple(
-            slice(None) if ax >= len(self._vdims) - 2
-            else (slice(lo, hi) if d == d0 else self._isel[d])
-            for ax, d in enumerate(self._vdims))
-        block = np.asarray(self.src[idx])                # (hi-lo, Ny, Nx)
-        if self._scale is not None:
-            plane = self._vdims[-2:]
-            sidx = tuple(
-                slice(None) if d in plane
-                else (slice(lo, hi) if d == d0 else self._isel[d])
-                for d in self._sdims)
-            sval = np.asarray(self._scale[sidx])
-            shp = ((hi - lo if d0 in self._sdims else 1,)
-                   + tuple(self.shape[1 + k] if plane[k] in self._sdims
-                           else 1 for k in range(2)))
-            block = block * sval.reshape(shp)
-        if self._flip_y:
-            block = block[:, ::-1]
-        block = block.astype(self.dtype, copy=False)
-        if self._mask is not None:
-            block = np.where(self._mask != 0, block, np.nan)
-        return block
+        lead = {self._lead_names[0]: slice(lo, hi)}
+        block = np.asarray(self.src[tuple(
+            self._sel(d, lead, cols) for d in self._vdims)])
+        return self._finish(block, lead, cols)               # (hi-lo, Ny, nc)
 
     def __getitem__(self, key):
-        if not isinstance(key, slice):
+        """``field[rows]`` or ``field[rows, :, cols]`` (slices): the
+        snapshots ``rows``, only the columns ``cols`` read from the file."""
+        cols = slice(None)
+        if isinstance(key, tuple):
+            if len(key) != 3 or key[1] != slice(None):
+                raise TypeError("_LazyField takes field[rows] or "
+                                "field[rows, :, cols]")
+            key, _, cols = key
+        if not (isinstance(key, slice) and isinstance(cols, slice)):
             raise TypeError("_LazyField supports slice indexing only")
         idxs = range(*key.indices(self.shape[0]))
         if len(self._lead_names) == 1 and idxs.step == 1:
-            return self._read_contiguous(idxs.start, idxs.stop)
-        out = np.empty((len(idxs),) + self.shape[1:], self.dtype)
+            return self._read_contiguous(idxs.start, idxs.stop, cols)
+        nc = len(range(*cols.indices(self.shape[2])))
+        out = np.empty((len(idxs), self.shape[1], nc), self.dtype)
         for i, t in enumerate(idxs):
-            out[i] = self._read(t)
+            out[i] = self._read(t, cols)
         return out
 
 
@@ -373,9 +386,29 @@ def _check_stem(args, tracer) -> None:
             json.dump(fp, f)
 
 
+def _check_stem_on(args, tracer, sharding) -> None:
+    """:func:`_check_stem` on rank 0 of a mesh, its verdict on every rank
+    (a rank that exits alone would leave the others in a collective)."""
+    if sharding is None:
+        return _check_stem(args, tracer)
+    import torch.distributed as dist
+    msg = [None]
+    if dist.get_rank() == 0:
+        try:
+            _check_stem(args, tracer)
+        except SystemExit as e:
+            msg[0] = str(e)
+    dist.broadcast_object_list(msg, src=0)
+    if msg[0]:
+        raise SystemExit(msg[0])
+
+
 def _run(args, step, grid, tracer, lead_names, lead_shape, lead_coords,
-         pre_y=None, extra_coords=None, dim_hints=None):
-    """Shared output stage: stream, unflatten lead dims, label, write."""
+         pre_y=None, extra_coords=None, dim_hints=None, sharding=None,
+         x_keys=()):
+    """Shared output stage: stream, unflatten lead dims, label, write.  On
+    a mesh, rank 0 labels and writes; the other ranks return after the
+    stream."""
 
     def chunk_step(chunk):
         flat = pipeline.flatten_output(step(chunk))
@@ -401,17 +434,23 @@ def _run(args, step, grid, tracer, lead_names, lead_shape, lead_coords,
     tdt = {"f32": None, "f16": torch.float16,
            "bf16": torch.bfloat16}[getattr(args, "transfer", "f32")]
     kw = dict(batch=args.batch, retries=args.retries, on_error=args.on_error,
-              validate=validate, device=args.device, transfer_dtype=tdt)
+              validate=validate, device=args.device, transfer_dtype=tdt,
+              sharding=sharding, x_keys=x_keys)
+    lead = sharding is None or torch.distributed.get_rank() == 0
     with annotate("cli.stream"):
         if args.stem:
-            _check_stem(args, tracer)
+            _check_stem_on(args, tracer, sharding)
             runner.run_batched(chunk_step, tracer, out_stem=args.stem,
                                resume=True, **kw)
+            if not lead:
+                return 0
             out = runner.load_chunks(args.stem, allow_failed=True,
                                      expect_chunks=-(-tracer.shape[0]
                                                      // args.batch))
         else:
             out = runner.run_batched(chunk_step, tracer, **kw)
+            if not lead:
+                return 0
 
     with annotate("cli.label"):
         out = {k: np.asarray(v).reshape(lead_shape + np.asarray(v).shape[1:])
@@ -482,6 +521,13 @@ def _add_common(p: argparse.ArgumentParser, contours: bool = True):
                         "device (compute precision unchanged, INPUT rounded "
                         "to ~5e-4 / ~4e-3 relative) — for when the link, "
                         "not the card, is the bottleneck")
+    p.add_argument("--mesh", metavar="N|BxX",
+                   help="shard each chunk over an N-rank ('batch','x') mesh, "
+                        "one process a rank under torchrun (one card a rank; "
+                        "gloo with --device cpu); BxX pins the split, e.g. "
+                        "2x2 = 2-way batch x 2-way spatial, N alone takes "
+                        "x = 2 when N is even.  Outside torchrun only "
+                        "--mesh 1 runs, in process")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the steps run (default cuda: the card, with "
                         "no fall-back to the CPU)")
@@ -519,6 +565,93 @@ def _check_run_options(args) -> None:
     if args.format == "nc4" and importlib.util.find_spec("h5py") is None:
         raise SystemExit("--format nc4 (the default) writes through h5py, "
                          "which is not installed: pass --format nc3")
+
+
+_TORCHRUN = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+# how long a rank waits in a collective before the group gives up on a
+# rank that failed or hung
+_GROUP_TIMEOUT_S = 600
+
+
+def _parse_mesh(args):
+    """(ranks, x shards, under torchrun) of ``--mesh N|BxX``, refused with
+    the JAX CLI's messages.  Under torchrun the mesh must span WORLD_SIZE
+    and, on the card, each of a node's ranks needs a card of its own;
+    outside torchrun only a mesh of one runs (in this process)."""
+    spec = args.mesh.lower()
+    try:
+        if "x" in spec:
+            b, x = (int(v) for v in spec.split("x"))
+            n = b * x
+        else:
+            n, x = int(spec), None
+    except ValueError:
+        raise SystemExit(f"--mesh {args.mesh!r}: expected a device count N "
+                         "or BxX (batch x spatial)") from None
+    if n < 1 or (x is not None and x < 1):
+        raise SystemExit(f"--mesh {args.mesh!r}: counts must be >= 1")
+    torchrun = all(k in os.environ for k in _TORCHRUN)
+    if torchrun:
+        world = int(os.environ["WORLD_SIZE"])
+        if n != world:
+            raise SystemExit(f"--mesh {args.mesh}: {n} devices requested, "
+                             f"{world} available (torchrun's WORLD_SIZE)")
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        cards = torch.cuda.device_count()
+        if args.device == "cuda" and local > cards:
+            raise SystemExit(f"--mesh {args.mesh}: {n} devices requested, "
+                             f"{cards} available ({local} ranks on this "
+                             "node, one card a rank)")
+    elif n > 1:
+        raise SystemExit(
+            f"--mesh {args.mesh}: {n} devices requested, 1 available: a "
+            f"mesh of {n} ranks runs under torchrun, one process a rank "
+            f"(torchrun --standalone --nproc-per-node {n} -m "
+            "xcontour_tpu_torch ...)")
+    if x is None:
+        x = 2 if n % 2 == 0 and n >= 2 else 1
+    return n, x, torchrun
+
+
+def _join_mesh(args, n: int, x: int, torchrun: bool, Nx: int):
+    """(the mesh, its chunks' block spec, a cleanup leaving the group):
+    refuses a batch or grid the mesh does not divide, then joins the
+    process group (NCCL on the card, gloo on the CPU; outside torchrun a
+    group of one through a file store in a temporary directory)."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+    from .parallel import make_mesh, shard_batch_spec
+
+    bsz = n // x
+    if args.batch % bsz:
+        raise SystemExit(f"--mesh {args.mesh}: --batch {args.batch} not "
+                         f"divisible by the {bsz}-way batch axis")
+    if Nx % x:
+        raise SystemExit(f"--mesh {args.mesh}: grid Nx {Nx} not "
+                         f"divisible by the {x}-way spatial axis")
+    backend = "nccl" if args.device == "cuda" else "gloo"
+    timeout = datetime.timedelta(seconds=_GROUP_TIMEOUT_S)
+    tmp = None
+    if torchrun:
+        dist.init_process_group(backend, timeout=timeout)
+    else:
+        tmp = tempfile.TemporaryDirectory()
+        store = dist.FileStore(os.path.join(tmp.name, "store"), 1)
+        dist.init_process_group(backend, store=store, rank=0, world_size=1,
+                                timeout=timeout)
+
+    def cleanup():
+        dist.destroy_process_group()
+        if tmp is not None:
+            tmp.cleanup()
+    try:
+        mesh = make_mesh(n, x_size=x)
+    except BaseException:
+        cleanup()
+        raise
+    return mesh, shard_batch_spec(mesh, 3), cleanup
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -593,7 +726,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="minimum finite cells for a window to count")
 
     pf = sub.add_parser("fractal", help="fractal dimension by coarsening "
-                        "ladder (+ box counting)")
+                        "ladder (+ box counting); on a mesh with an x axis "
+                        "over 1 the x slabs are gathered in the x group and "
+                        "the step runs whole on each x rank (as GSPMD "
+                        "replicates it)")
     _add_common(pf)
     pf.add_argument("--strides", default="1,2,4,8,16,32",
                     help="coarsening strides; each must divide Ny and Nx")
@@ -627,8 +763,39 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
 
     _check_run_options(args)
+    mesh_req = _parse_mesh(args) if args.mesh else None
+    if mesh_req and mesh_req[2] and args.device == "cuda":
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
     with annotate("cli.open"):
         tracer, grid, lead_names, lead_shape, lead_coords = _load_field(args)
+    if mesh_req is None:
+        return _steps(args, tracer, grid, lead_names, lead_shape,
+                      lead_coords)
+    mesh, sharding, cleanup = _join_mesh(args, *mesh_req, grid.shape[-1])
+    try:
+        return _steps(args, tracer, grid, lead_names, lead_shape,
+                      lead_coords, mesh, sharding)
+    finally:
+        cleanup()
+
+
+def _steps(args, tracer, grid, lead_names, lead_shape, lead_coords,
+           mesh=None, sharding=None) -> int:
+    """Build the subcommand's step (its sharded step on a mesh) and run
+    it through :func:`_run`."""
+    if mesh is None:
+        keff, lwa = pipeline.keff_pipeline, pipeline.lwa_pipeline
+        keff_lwa, clength = pipeline.keff_lwa_pipeline, \
+            pipeline.clength_pipeline
+        x_keys = ()
+    else:
+        from .parallel import pipeline as sp
+        keff = functools.partial(sp.sharded_keff_pipeline, mesh=mesh)
+        lwa = functools.partial(sp.sharded_lwa_pipeline, mesh=mesh)
+        keff_lwa = functools.partial(sp.sharded_keff_lwa_pipeline, mesh=mesh)
+        clength = functools.partial(sp.sharded_clength_pipeline, mesh=mesh)
+        x_keys = sp.X_SHARDED
+    streamed = dict(sharding=sharding, x_keys=x_keys)
     inc = not getattr(args, "decrease", False)
     lt = not getattr(args, "gt", False)
     pre_y = (to_numpy(grid.ydef)
@@ -637,19 +804,19 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if args.cmd == "keff":
         def step(t):
-            return pipeline.keff_pipeline(t, grid, pre_y=pre_y_t, N=args.N,
+            return keff(t, grid, pre_y=pre_y_t, N=args.N,
                                           increase=inc, lt=lt,
                                           hist=not args.no_hist,
                                           lmin=args.lmin)
     elif args.cmd == "lwa":
         def step(t):
-            return pipeline.lwa_pipeline(t, grid, N=args.N, increase=inc,
+            return lwa(t, grid, N=args.N, increase=inc,
                                          lt=lt, part=args.part,
                                          metric=args.metric,
                                          lwa_method=args.lwa_method)
     elif args.cmd == "keff-lwa":
         def step(t):
-            return pipeline.keff_lwa_pipeline(t, grid, pre_y=pre_y_t,
+            return keff_lwa(t, grid, pre_y=pre_y_t,
                                               N=args.N, increase=inc, lt=lt,
                                               lmin=args.lmin,
                                               with_lwa2=args.with_lwa2,
@@ -657,11 +824,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                                               lwa_method=args.lwa_method)
     elif args.cmd == "clength":
         def step(t):
-            return pipeline.clength_pipeline(t, grid, N=args.N,
-                                             increase=inc, lt=lt)
+            return clength(t, grid, N=args.N, increase=inc, lt=lt)
     elif args.cmd == "local-length":
         from .diagnostics.local_length import (_window_centers,
                                                local_contour_lengths)
+        from .parallel.local_length import sharded_local_lengths
 
         Ny, Nx = grid.shape
         if not 2 <= args.window <= min(Ny, Nx):
@@ -671,11 +838,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             raise SystemExit(f"--stride must be >= 1, got {args.stride}")
 
         def one(s):
-            L, _, _ = local_contour_lengths(
-                s, grid.ydef, grid.xdef, window=args.window,
-                stride=args.stride, latlon=grid.latlon,
-                min_count=args.min_count)
-            return L
+            kw = dict(window=args.window, stride=args.stride,
+                      latlon=grid.latlon, min_count=args.min_count)
+            if mesh is None:
+                return local_contour_lengths(s, grid.ydef, grid.xdef, **kw)[0]
+            return sharded_local_lengths(s, grid.ydef, grid.xdef, mesh,
+                                         **kw)[0]
 
         def step(t):  # K8 once a snapshot
             return {"llen": torch.stack([one(s) for s in t])}
@@ -689,7 +857,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _run(args, step, grid, tracer, lead_names, lead_shape,
                     lead_coords,
                     extra_coords={"y_window": wy, "x_window": wx},
-                    dim_hints={"llen": ("y_window", "x_window")})
+                    dim_hints={"llen": ("y_window", "x_window")},
+                    sharding=sharding)
     elif args.cmd == "fractal":
         strides = tuple(int(s) for s in args.strides.split(","))
         Ny, Nx = grid.shape
@@ -699,6 +868,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                              f"{(Ny, Nx)}")
 
         def step(t):
+            if mesh is not None and mesh.shape[1] > 1:
+                # the step whole on every x rank, as GSPMD replicates it
+                from .parallel import _comm
+                t = _comm.all_gather(t, mesh.get_group("x"), dim=-1)
             return pipeline.fractal_pipeline(
                 t, grid, N=args.N, strides=strides, increase=inc, lt=lt,
                 box_counting=not args.no_box_counting)
@@ -706,7 +879,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise SystemExit(f"unknown command {args.cmd!r}")
 
     return _run(args, step, grid, tracer, lead_names, lead_shape,
-                lead_coords, pre_y=pre_y)
+                lead_coords, pre_y=pre_y, **streamed)
 
 
 if __name__ == "__main__":  # pragma: no cover

@@ -37,19 +37,34 @@ def cal_contours(tracer: torch.Tensor, N: int, *,
     min and max, min->max if ``increase`` else max->min.  The last level is
     pinned to the extremum (np.linspace semantics), so the extreme cell is
     never dropped from a >=-CDF; an all-NaN element gives NaN levels."""
+    return levels_from_extrema(*masked_extrema(tracer), N, increase=increase)
+
+
+def masked_extrema(tracer: torch.Tensor):
+    """(min, max) of each batch element over its plane with NaN cells
+    skipped: +inf and -inf where every cell is NaN.  The sharded levels
+    reduce these over the x axis before :func:`levels_from_extrema` maps
+    the infinities to NaN, so an all-NaN slab does not poison the
+    reduction."""
     isn = torch.isnan(tracer)
     inf = torch.tensor(float("inf"), dtype=tracer.dtype, device=tracer.device)
-    nan = torch.tensor(float("nan"), dtype=tracer.dtype, device=tracer.device)
-    mmin = torch.where(isn, inf, tracer).amin(dim=(-2, -1))
-    mmax = torch.where(isn, -inf, tracer).amax(dim=(-2, -1))
+    return (torch.where(isn, inf, tracer).amin(dim=(-2, -1)),
+            torch.where(isn, -inf, tracer).amax(dim=(-2, -1)))
+
+
+def levels_from_extrema(mmin: torch.Tensor, mmax: torch.Tensor, N: int, *,
+                        increase: bool = True) -> torch.Tensor:
+    """:func:`cal_contours`' levels from :func:`masked_extrema`."""
+    inf = torch.tensor(float("inf"), dtype=mmin.dtype, device=mmin.device)
+    nan = torch.tensor(float("nan"), dtype=mmin.dtype, device=mmin.device)
     mmin = torch.where(mmin == inf, nan, mmin)
     mmax = torch.where(mmax == -inf, nan, mmax)
     start, end = (mmin, mmax) if increase else (mmax, mmin)
     # a true division on every device: CUDA divides by a Python scalar
     # through its reciprocal, an ulp away from the CPU's (and XLA's) levels
     steps = (end - start) / torch.full_like(end, N - 1.0)
-    levels = (steps[..., None] * torch.arange(N, dtype=tracer.dtype,
-                                              device=tracer.device)
+    levels = (steps[..., None] * torch.arange(N, dtype=mmin.dtype,
+                                              device=mmin.device)
               + start[..., None])
     levels[..., -1] = end
     return levels

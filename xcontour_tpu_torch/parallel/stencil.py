@@ -1,0 +1,80 @@
+"""Halo exchange for the finite differences of an x-sharded grid.
+
+Counterpart of ``xcontour_tpu/parallel/stencil.py``.  The centred
+difference at a slab's edge needs each neighbour's edge column: one ring
+shift a direction (the JAX module's ``lax.ppermute``) of a single
+(B, Ny, 1) column.  The slab, extended by the columns it received, then
+takes the unsharded stencil with non-periodic x: the interior of a
+non-periodic difference is the periodic formula, operation for
+operation, and where the global grid is not periodic the first and last
+rank add no halo on their outer side, so their edge columns get the
+one-sided difference of the global edges.  :func:`sharded_squared_gradient`
+runs K1 on the extended slab (on the card; its plain version on the CPU),
+so each cell gets the same bits as the unsharded K1; :func:`sharded_gradient`
+(for ``clength``) the plain differences of ``ops.stencil.gradient``.  The
+y boundary is the grid's ``bc_y``, as unsharded.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+
+from ..grid import Grid
+from ..kernels import stencil as _k1
+from ..kernels.stencil import _centered_x, _centered_y
+from ..ops.stencil import _spacing
+from . import _comm
+from ._grad import no_grad_inputs
+from .mesh import X, axis_size
+
+
+def _halo(q: torch.Tensor, grid: Grid, mesh: DeviceMesh):
+    """(the slab extended by its neighbours' edge columns, the global
+    columns it spans, the slice of the slab's own columns in it)."""
+    nsh, idx = axis_size(mesh, X), mesh.get_local_rank(X)
+    nxl = q.shape[-1]
+    if not grid.periodic_x and nxl < 2:
+        raise ValueError(
+            f"non-periodic sharded stencil needs >= 2 columns per shard; "
+            f"Nx={nxl * nsh} over {nsh} shards gives {nxl}")
+    group = mesh.get_group(X)
+    # every rank takes part in both shifts, whether or not it keeps a halo
+    from_left = _comm.shift(q[..., -1:], group, 1)
+    from_right = _comm.shift(q[..., :1], group, -1)
+    left = grid.periodic_x or idx > 0
+    right = grid.periodic_x or idx < nsh - 1
+    parts = ([from_left] if left else []) + [q] + \
+        ([from_right] if right else [])
+    x0 = idx * nxl - int(left)
+    cols = torch.arange(x0, x0 + nxl + int(left) + int(right),
+                        device=q.device) % (nxl * nsh)
+    return torch.cat(parts, dim=-1), cols, slice(int(left), int(left) + nxl)
+
+
+def sharded_squared_gradient(q: torch.Tensor, grid: Grid,
+                             mesh: DeviceMesh) -> torch.Tensor:
+    """|grad q|^2 of the rank's (B_local, Ny, Nx_local) block, equal to
+    :func:`..ops.stencil.squared_gradient` of the whole grid on these
+    columns.  Each shard must hold at least 2 columns where x is not
+    periodic."""
+    no_grad_inputs("sharded_squared_gradient", q)
+    ext, cols, own = _halo(q, grid, mesh)
+    dy, dx = _spacing(grid, q.dtype)
+    Ny = q.shape[-2]
+    rdx = (1.0 / dx)[:, cols].contiguous()
+    rdy = (1.0 / dy).contiguous()
+    out = _k1.squared_gradient(ext.reshape(-1, Ny, ext.shape[-1]).contiguous(),
+                               rdx, rdy, periodic_x=False, bc_y=grid.bc_y)
+    return out[..., own].reshape(q.shape)
+
+
+def sharded_gradient(q: torch.Tensor, grid: Grid, mesh: DeviceMesh):
+    """(dq/dy, dq/dx) of the rank's block, equal to
+    :func:`..ops.stencil.gradient` of the whole grid on these columns."""
+    no_grad_inputs("sharded_gradient", q)
+    ext, cols, own = _halo(q, grid, mesh)
+    dy, dx = _spacing(grid, q.dtype)
+    qx = _centered_x(ext, False)[..., own] / dx[:, cols[own]]
+    qy = _centered_y(q, grid.bc_y) / dy[:, None]
+    return qy, qx

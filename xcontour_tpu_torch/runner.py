@@ -25,6 +25,12 @@ the whole archive.  This runner provides:
 
 The chunk files and ``.failed`` records are those of the JAX runner: a stem
 written by either loads in either ``load_chunks``.
+
+With ``sharding=`` (what ``parallel.shard_batch_spec`` returns) the runner
+runs on every rank of a ('batch', 'x') mesh: each rank reads its own block
+of each chunk, the step runs sharded, and rank 0 gathers the outputs
+through the process group and writes or returns them.  A run on one
+process goes through the same stages, each status its own.
 """
 
 from __future__ import annotations
@@ -159,6 +165,118 @@ def _fetch(out: Dict[str, object], dev: torch.device) -> Dict[str, np.ndarray]:
     return {k: res[k] for k in out}
 
 
+_OK, _FAIL, _WIRE = 0, 1, 2
+
+
+def _silent(msg: str) -> None:
+    pass
+
+
+class _Solo:
+    """A run on one process: its chunk is the whole chunk, and every status
+    it agrees on is its own."""
+
+    lead = True
+
+    def __init__(self, batch: int):
+        self.batch = batch
+
+    def read(self, src, lo: int, T: int) -> np.ndarray:
+        return np.asarray(src[lo:min(lo + self.batch, T)])
+
+    def agree(self, code: int) -> int:
+        return code
+
+    def agree_done(self, flags) -> list:
+        return list(flags)
+
+    def errors(self, err):
+        return err
+
+    def gather(self, out, x_keys):
+        return out
+
+
+class _Sharded:
+    """A rank's part in a sharded :func:`run_batched`: its block of each
+    chunk and the agreements over the process group."""
+
+    def __init__(self, spec, batch: int, shape, dev: torch.device):
+        import torch.distributed as dist
+        from .parallel import _comm
+        self.dist, self.comm, self.spec = dist, _comm, spec
+        (nb, nx), (ib, ix) = spec.sizes, spec.coords
+        if batch % nb:
+            raise ValueError(f"batch {batch} not divisible by the {nb}-way "
+                             "batch axis")
+        Nx = shape[-1]
+        if Nx % nx:
+            raise ValueError(f"grid Nx {Nx} not divisible by the {nx}-way "
+                             "spatial axis")
+        self.rows = batch // nb
+        self.r0 = ib * self.rows
+        self.cols = slice(ix * (Nx // nx), (ix + 1) * (Nx // nx))
+        self.x0 = ix == 0
+        self.lead = (ib, ix) == (0, 0)   # rank 0 of a mesh from make_mesh
+        # NCCL reduces CUDA tensors only; gloo takes the CPU's
+        self.flag_dev = dev if dist.get_backend() == "nccl" \
+            else torch.device("cpu")
+
+    def read(self, src, lo: int, T: int) -> np.ndarray:
+        """This rank's block of the chunk from snapshot ``lo``: its rows
+        (past the archive's end, its last snapshot again) and columns, the
+        only part of the chunk it reads."""
+        a = min(lo + self.r0, T - 1)
+        b = max(a + 1, min(lo + self.r0 + self.rows, T))
+        arr = np.asarray(src[a:b, :, self.cols])
+        if arr.shape[0] < self.rows:
+            arr = np.concatenate(
+                [arr, np.repeat(arr[-1:], self.rows - arr.shape[0], 0)])
+        return np.ascontiguousarray(arr)
+
+    def _max(self, values):
+        t = torch.tensor(values, dtype=torch.int32, device=self.flag_dev)
+        return self.comm.max_(t, self.dist.group.WORLD).tolist()
+
+    def agree(self, code: int) -> int:
+        """The worst status over the group."""
+        return self._max([code])[0]
+
+    def agree_done(self, flags) -> list:
+        """The lead's ``flags`` on every rank."""
+        if not flags:
+            return []
+        return [bool(v) for v in
+                self._max([int(f) if self.lead else 0 for f in flags])]
+
+    def errors(self, err) -> RuntimeError:
+        """One error naming each rank's failure (every rank calls it)."""
+        msgs = [None] * self.dist.get_world_size()
+        self.dist.all_gather_object(msgs, None if err is None else repr(err))
+        return RuntimeError("; ".join(f"rank {r}: {m}"
+                                      for r, m in enumerate(msgs) if m))
+
+    def gather(self, out: Dict[str, torch.Tensor], x_keys):
+        """The whole outputs on the lead, None elsewhere: each x-sharded
+        key's blocks gathered from every rank, each replicated key's from
+        the ranks of x index 0 only."""
+        rows = self.spec.mesh.mesh.tolist()       # global ranks, (nb, nx)
+        world = self.dist.group.WORLD
+        whole = {}
+        for k, v in out.items():
+            if k in x_keys:
+                parts = self.comm.gather(v, world, rows[0][0])
+                if parts is not None:
+                    whole[k] = torch.cat([torch.cat([parts[r] for r in row],
+                                                    dim=-1) for row in rows])
+            elif self.x0:
+                parts = self.comm.gather(
+                    v, self.spec.mesh.get_group("batch"), rows[0][0])
+                if parts is not None:
+                    whole[k] = torch.cat(parts)
+        return whole if self.lead else None
+
+
 def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
                 snapshots, batch: int = 32,
                 out_stem: Optional[str] = None,
@@ -167,7 +285,8 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
                 retry_wait: float = 0.25,
                 validate: Optional[Callable[[Dict[str, np.ndarray]], None]]
                 = None, device=None,
-                transfer_dtype=None) -> Optional[Dict[str, np.ndarray]]:
+                transfer_dtype=None, sharding=None,
+                x_keys=()) -> Optional[Dict[str, np.ndarray]]:
     """Run ``step`` over ``snapshots`` (T, Ny, Nx) in chunks of ``batch``.
 
     With ``out_stem`` set, results are written per chunk and already-written
@@ -185,9 +304,29 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
     without one), ``'cpu'`` the CPU.  On the card each chunk is read into
     pinned host memory, copied on a dedicated stream, and ``step`` is
     called on this thread's current stream once the copy has landed; so
-    the kernels the step launches run here, on that stream.  (The JAX
-    runner's ``sharding=`` has no counterpart yet: multi-card runs come
-    with the port of ``parallel``.)
+    the kernels the step launches run here, on that stream.
+
+    ``sharding`` (a ``parallel.mesh.BlockSpec``, from
+    ``parallel.shard_batch_spec(mesh, 3)``) runs the chunks over a mesh.
+    Every rank of the process group calls ``run_batched`` with the same
+    arguments, on its own ``device``: it reads only its (batch, x) block
+    of each chunk (``snapshots[rows, :, cols]``, which an ndarray, a
+    memmap, an h5py dataset and the CLI's ``_LazyField`` take) into pinned
+    memory and copies it on the copy stream, and ``step`` gets that block
+    and returns the rank's blocks of its outputs: the keys in ``x_keys``
+    sharded over 'x' along their last axis, every other key replicated
+    over 'x'.  The tail chunk is padded to ``batch`` with its last
+    snapshot (as the JAX runner pads every tail), so each batch rank holds
+    ``batch / batch shards`` snapshots.  The lead (rank 0, at the mesh's
+    (0, 0)) gathers the outputs through the group (an x-sharded key from
+    every rank, a replicated key from the ranks of x index 0), fetches,
+    validates and writes or returns them; the other ranks return None.
+    Resume (the lead's chunk files), retries, ``on_error`` and
+    ``validate`` reach the same decision on every rank: each stage's
+    status is all-reduced over the group before anyone writes, retries or
+    skips, and a failure's text names the rank it came from.  A rank that
+    raises inside a collective of the step leaves the others waiting there
+    until the group's timeout (give ``init_process_group`` one).
 
     ``transfer_dtype`` (``torch.float16``, ``torch.bfloat16``, or a numpy
     ``float16``) narrows the host-to-device payload: chunks are rounded on
@@ -233,6 +372,10 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
     collected: List[Optional[Dict[str, np.ndarray]]] = []
     nvalids: List[int] = []
     failures: List[int] = []
+    mesh = _Solo(batch) if sharding is None else \
+        _Sharded(sharding, batch, snapshots.shape, dev)
+    if not mesh.lead:
+        log = _silent  # the lead logs for the mesh
 
     # two-stage prefetch pipeline (read || copy || compute): the host read
     # (+ wire cast) of chunk k+2 runs on its own thread WHILE the copy of
@@ -242,9 +385,7 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
         copy into a (pinned) host tensor -- ALL host-side work.  Pinned
         blocks come from torch's caching host allocator, which reuses one
         only after the copy that read it has completed."""
-        lo = k * batch
-        hi = min(lo + batch, T)
-        arr = np.asarray(snapshots[lo:hi])
+        arr = mesh.read(snapshots, k * batch, T)
         if wire is not None:
             _check_wire_range(arr, wire)
             host = torch.empty(arr.shape, dtype=torch.int16, pin_memory=cuda)
@@ -253,19 +394,19 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
             host = torch.empty(arr.shape, dtype=_torch_dtype(arr.dtype),
                                pin_memory=cuda)
             np.copyto(host.numpy(), arr)
-        return host, hi - lo
+        return host
 
     def ship(read_fut):
         """Stage 2 (copy thread): host to device on the copy stream; returns
         the device tensor and the event its copy records."""
-        host, nvalid = read_fut.result()
+        host = read_fut.result()
         if not cuda:
-            return host, None, nvalid
+            return host, None
         with torch.cuda.device(dev), torch.cuda.stream(copy_stream):
             x = host.to(dev, non_blocking=True)
             ev = torch.cuda.Event()
             ev.record(copy_stream)
-        return x, ev, nvalid
+        return x, ev
 
     def chunk_array(k):
         """Composed read+ship, for the retry re-read path (runs on the copy
@@ -277,18 +418,18 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
         """On this thread: wait (on the device) for the chunk's copy, keep
         its memory from reuse until this stream is done with it, and undo
         the wire narrowing."""
-        x, ev, nvalid = shipped
+        x, ev = shipped
         if ev is not None:
             cur = torch.cuda.current_stream(dev)
             cur.wait_event(ev)
             x.record_stream(cur)
         if wire is not None:
             x = x.view(wire).to(full)
-        return x, nvalid
+        return x
 
-    def attempt(x, nvalid):
-        # named ranges of this thread's stages (a profiler records the
-        # thread it was started on)
+    def compute(x):
+        """The step on the chunk (a rank's block of it), its outputs
+        checked for a snapshot axis."""
         with annotate("runner.step"):
             out = step(x)
         bad = [key for key, v in out.items() if getattr(v, "ndim", 1) == 0]
@@ -298,8 +439,12 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
                 f"outputs {bad} cannot be trimmed to the valid tail-chunk "
                 "snapshots -- return per-snapshot values and reduce after "
                 "load")
-        with annotate("runner.fetch"):
-            out_np = {key: v[:nvalid] for key, v in _fetch(out, dev).items()}
+        return out
+
+    def finish(whole, nvalid):
+        """On the lead: the outputs on the host, trimmed to the valid
+        snapshots, validated."""
+        out_np = {key: v[:nvalid] for key, v in _fetch(whole, dev).items()}
         if validate is not None:
             validate(out_np)
         return out_np
@@ -307,17 +452,70 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
     def nvalid_of(k):
         return min((k + 1) * batch, T) - k * batch
 
-    def skippable(k):
+    def exists(k):
         return (out_stem is not None and resume
                 and os.path.exists(f"{out_stem}_ck{k:05d}.npz"))
+
+    # the lead's chunk files decide for every rank
+    done = mesh.agree_done([exists(k) for k in range(nchunk)])
 
     # a resumed archive must not be re-read/re-copied just to skip:
     # prefetch targets the NEXT chunk that will actually compute
     def next_todo(k0):
         for k in range(k0, nchunk):
-            if not skippable(k):
+            if not done[k]:
                 return k
         return None
+
+    def run_chunk(k, shipped, wire_err):
+        """(ok, outputs on the lead, error) of chunk k: each stage's status
+        is agreed over the mesh before any rank goes on, so all ranks
+        retry, skip or raise together."""
+        nvalid, last_err = nvalid_of(k), None
+        for a in range(retries + 1):
+            err, code, out_np = wire_err, _WIRE if wire_err else _OK, None
+            wire_err = None
+            if code == _OK:
+                try:
+                    if shipped is None:  # prefetch (or a prior re-read)
+                        # failed; go through the pools: the source must
+                        # only ever be touched by one thread
+                        shipped = ship_pool.submit(chunk_array, k).result()
+                    x = land(shipped)
+                except Exception as e:  # noqa: BLE001 -- agreed below
+                    err = e
+                    code = _WIRE if isinstance(e, WireRangeError) else _FAIL
+                    shipped = None
+            code = mesh.agree(code)
+            if code == _OK:
+                try:
+                    out = compute(x)
+                except Exception as e:  # noqa: BLE001 -- agreed below
+                    err, code = e, _FAIL
+                code = mesh.agree(code)
+            if code == _OK:
+                with annotate("runner.fetch"):
+                    whole = mesh.gather(out, x_keys)
+                    if mesh.lead:
+                        try:
+                            out_np = finish(whole, nvalid)
+                        except Exception as e:  # noqa: BLE001
+                            err, code = e, _FAIL
+                code = mesh.agree(code)
+            if code == _OK:
+                return True, out_np, None
+            last_err = mesh.errors(err)
+            if code == _WIRE:
+                # a config error: retrying or skipping cannot heal it
+                if isinstance(last_err, WireRangeError):
+                    raise last_err
+                raise WireRangeError(str(last_err))
+            if a < retries:
+                wait = retry_wait * (2 ** a)
+                log(f"[runner] chunk {k + 1}/{nchunk}: attempt {a + 1} "
+                    f"failed ({last_err}); retrying in {wait:.2f}s")
+                time.sleep(wait)
+        return False, None, last_err
 
     # one single-worker pool per pipeline stage: each source/resource is
     # only ever touched by ONE thread (h5py is not thread-safe for
@@ -345,11 +543,11 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
             # a prefetch-thread read failure (transient disk/HDF5 error on
             # lazy inputs) flows through the SAME retries + on_error
             # machinery as a compute failure
-            shipped = None
+            shipped, wire_err = None, None
             try:
                 shipped = pending_ship[1].result()
-            except WireRangeError:
-                raise  # config error: deterministic, never heals (see class)
+            except WireRangeError as e:
+                wire_err = e  # every rank hears of it before it raises
             except Exception as e:  # noqa: BLE001 -- re-read under retries
                 log(f"[runner] chunk {k + 1}/{nchunk}: prefetch read "
                     f"failed ({e}); re-reading under the retry policy")
@@ -365,32 +563,17 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
                 pending_ship = (None, None)
 
             t0 = time.perf_counter()
-            out_np, last_err, nvalid = None, None, nvalid_of(k)
-            for a in range(retries + 1):
-                try:
-                    if shipped is None:  # prefetch (or a prior re-read)
-                        # failed; go through the pools: the source must
-                        # only ever be touched by one thread
-                        shipped = ship_pool.submit(chunk_array, k).result()
-                    x, nvalid = land(shipped)
-                    out_np = attempt(x, nvalid)
-                    break
-                except WireRangeError:
-                    raise  # config error: retrying/skipping cannot heal it
-                except Exception as e:  # noqa: BLE001 -- isolate any failure
-                    last_err = e
-                    if a < retries:
-                        wait = retry_wait * (2 ** a)
-                        log(f"[runner] chunk {k + 1}/{nchunk}: attempt "
-                            f"{a + 1} failed ({e}); retrying in {wait:.2f}s")
-                        time.sleep(wait)
+            nvalid = nvalid_of(k)
+            ok, out_np, last_err = run_chunk(k, shipped, wire_err)
 
-            if out_np is None:
+            if not ok:
                 if on_error == "raise":
                     raise last_err
                 failures.append(k)
                 log(f"[runner] chunk {k + 1}/{nchunk}: FAILED after "
                     f"{retries + 1} attempts: {last_err}")
+                if not mesh.lead:
+                    continue
                 if path:
                     rec = {"chunk": k, "nvalid": nvalid,
                            "error": repr(last_err)}
@@ -402,6 +585,8 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
                     collected.append(None)
                 continue
 
+            if not mesh.lead:
+                continue
             dt = time.perf_counter() - t0
             log(f"[runner] chunk {k + 1}/{nchunk}: {nvalid} snapshots "
                 f"in {dt:.3f}s ({nvalid / dt:.1f}/s)")
@@ -426,7 +611,7 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
 
     if failures:
         log(f"[runner] {len(failures)}/{nchunk} chunks failed: {failures}")
-    if out_stem:
+    if out_stem or not mesh.lead:
         return None
     good = next((c for c in collected if c is not None), None)
     if good is None:
