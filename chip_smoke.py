@@ -165,6 +165,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      sharded lengths (K7, K8), joined and held against the unsharded step
      on the card, with each rank's launch counts and step time (not a
      scaling figure: the ranks share one card).
+ 12. the structure probes P1-P4 (``kernels.probes``, twins of K3, K2's
+     first pass, K7 and K1 without their output machinery): each against
+     its plain version on the same CUDA tensors at the ERA5 step (N = 241;
+     P3 at the clength cells' N = 121 and 401) and at the headline shape
+     (N = 121): P1 within K3's bound, P2 (also with values below the first
+     edge, at and above the top one and a NaN weight) and P3 against the
+     float64 plain version and two runs bit for bit, P4 bit for bit; then
+     ``utils.roofline.kernel_rooflines`` through the port at ERA5 (batch
+     15, N = 241) and at the headline (batch 32, N = 121), each a path with
+     its launch counts: K1 beside P4 and ``torch.mul`` on a stack of at
+     least 256 MB, K2 beside P2, K3 beside P1, K7 beside P3, one line a
+     kernel with the card.  The kernels JSON gains P1-P4, and K1, K2, K3
+     and K7 their share of their structure ceiling.
 
 The last three lines are the kernels JSON, the card line from nvidia-smi,
 and {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
@@ -183,6 +196,11 @@ import time
 
 import numpy as np
 import torch
+
+from xcontour_tpu_torch.utils.roofline import (
+    CLASSIFY_INSTR, SEGMENT_INSTR, bound_ms, cdf_work, corner_ranges,
+    k7_crossed_pairs, k7_work, kernel_rooflines, lwa_work, nvidia_smi_line,
+    stencil_work)
 
 ERA5 = dict(B=15, nlat=721, nlon=1440, N=241)
 HEADLINE = dict(B=32, nlat=256, nlon=512, N=121)
@@ -223,12 +241,23 @@ K2_SHAPES = ("table", "clength5", "noise")
 #       taken for a wrong one): float32 sums of ~10^5 segment lengths, each
 #       within a few ulps; at ERA5 an H100 measured 1.5e-7 (K7) and 1.3e-7
 #       (K8), the float32 plain versions 1.1e-7 and 6.0e-7
+#   P1: K3's bound against its float32 plain version (the same sums of
+#       721 rows a surface, without K3's cancellation); at ERA5 an H100
+#       measured 2.3e-6
+#   P2, P3: against the plain version run in float64, as K7's: float32
+#       sums of ~10^6 cells (P2) or ~10^7 segment lengths (P3) in another
+#       order, in registers, then in fixed-order folds; at ERA5 an H100
+#       measured 5.9e-8 (P2) and 1.1e-7 (P3, N = 121 and 401); P3 takes
+#       K7's bound
+#   P4: bit for bit (one float32 product a cell)
 KERNEL_BOUNDS = dict(squared_gradient=1e-6, weighted_cdf=1e-5,
                      lwa_lin=1.5e-4, lwa_dense=5e-6, lwa_dense_v2=5e-6,
                      lwa_dense_upper=5e-6,
                      lwa_lin2=1.5e-4, lwa_dense_tall=1e-5,
                      lwa_dense_tall_v2=1e-5, contour_lengths=2e-6,
-                     local_lengths=2e-6)
+                     local_lengths=2e-6, lwa_structure_probe=1.5e-4,
+                     hist_structure_probe=1e-6, length_structure_probe=2e-6,
+                     copy_probe=0.0)
 # card (kernels) against CPU (plain versions), float32, relative to each
 # output's largest magnitude: summation order for the sorted state (2e-5);
 # Yeq and Lmin come from a table lookup of float32 areas, where near the
@@ -253,26 +282,14 @@ CARD_CPU_TOL = dict(Yeq=1e-4, latEq=1e-4, Lmin=1e-4, Leq2=1e-4, nkeff=2e-3,
 CARD_CPU_TOL_DEFAULT = 2e-5
 NKEFF_MASK = 2e7
 
-# the bound of a kernel: the larger of its bytes (each input read once,
-# each output written once) over the HBM rate and its FP32 instructions
-# over the instruction rate (67 TFLOP/s with an FMA counted twice: 33.5 T
-# instructions/s), the H100 SXM's published peaks at 700 W
-HBM_BYTES_PER_S = 3.35e12
-FP32_INSTR_PER_S = 33.5e12
-# K7's and K8's FP32 instructions: 6 to classify a cell (its corners' min
-# and max), and for each crossed (cell, level) pair its segment as
-# csrc/length.cu's crossing_length writes it: two edge points of 5 each (a
-# difference, the zero test, a difference, the division, the scaling) and
-# the segment, 22 on the sphere (two differences, two halvings, two sinf,
-# two sums and two cosf, four products and a sum, the clamp's two, sqrtf,
-# asinf, the doubling) or 3 in the plane (two differences, hypotf).  A
-# math-library call or an IEEE division counts as one instruction and a
-# saddle's second segment not at all, so the counts stay lower bounds.
-# K8 classifies each field cell that a window covers once, and tests each
-# (window, lattice block it covers) pair with two compares (its level
-# against the block's [min, max)): the least work of a pretested design.
-CLASSIFY_INSTR = 6
-SEGMENT_INSTR = {True: 32, False: 13}
+# the bound of a kernel (xcontour_tpu_torch.utils.roofline.bound_ms): the
+# larger of its bytes (each input read once, each output written once) over
+# the HBM rate and its FP32 instructions over the instruction rate, the H100
+# SXM's published peaks at 700 W; the work models of K1, K2, K3-K6 and K7
+# live there too.  K8 classifies each field cell that a window covers once
+# (CLASSIFY_INSTR), and tests each (window, lattice block it covers) pair
+# with two compares (its level against the block's [min, max)): the least
+# work of a pretested design.
 PRETEST_INSTR = 2
 # K8's windows beyond the path's 101 / 10 (phase 3 against the float64
 # plain version, phase 6 timed): window - 1 not a multiple of the stride
@@ -388,25 +405,20 @@ PAR_COLLECTIVES = ("all_reduce", "broadcast", "all_gather_into_tensor",
                    "send_recv", "batch_isend_irecv")
 PAR_TIMEOUT_S = 300
 PAR_Q_BOUND = CARD_CPU_TOL["Yeq"]
+# phase 12, the structure probes P1-P4: the roofline keys of
+# utils.roofline.kernel_rooflines, each with its kernel and its probe
+ROOFLINE_KEYS = ("stencil", "hist_cdf2", "lwa", "length")
+
 # no single PyTorch call computes any of K1-K8 (torch.histogram has no CUDA
 # form, torch.histc takes no weights, torch.bincount weighs integer bins
 # that a torch.bucketize must find first and leaves the cumsum; no call
 # computes LWA, |grad q|^2 with metric factors or contour lengths), so
-# every library_ms is null
+# every library_ms of K1-K8 is null (P4's is torch.mul's)
 LIBRARY_MS = None
 
 
 def log(*args):
     print(*args, flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
 
 
 def make_pv(B, nlat, nlon, seed):
@@ -527,28 +539,11 @@ def clock_under_load(fn, seconds=2.0):
             ms)
 
 
-def lwa_work(B, Ny, Nx, pairs=None):
-    """(bytes, FP32 instructions) of an LWA kernel: q, W, Q in, the field
-    out; 3 instructions (sub, min/max, FMA) per (surface, cell) pair, every
-    pair unless a part selection keeps fewer."""
-    pairs = B * Ny * Ny * Nx if pairs is None else pairs
-    return 4 * (2 * B * Ny * Nx + Ny * Nx + B * Ny), 3 * pairs
-
-
-def bound_ms(work):
-    """(bound ms, what bounds it) of (bytes, instructions)."""
-    nbytes, ops = work
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_INSTR_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def kernel_cases(q, grid, N):
     """name -> (kernel call, plain call, (bytes, instructions)) for K1-K5
     (K4 in both variants and part='upper'), at the shapes the main path
     gives them: the inputs are what keff_lwa_pipeline computes on the
-    way.  K1 counts 6 instructions a cell (two differences, their scaling,
-    the square sum), K2 one add per (cell, channel)."""
+    way (work: utils.roofline's stencil_work, cdf_work, lwa_work)."""
     import xcontour_tpu_torch as xt
     from xcontour_tpu_torch.diagnostics.lwa import nanmax
     from xcontour_tpu_torch.kernels import hist, lwa, stencil
@@ -566,7 +561,6 @@ def kernel_cases(q, grid, N):
                       (grdS * dA).reshape(B, -1)], 1).contiguous()
     Q = xt.keff_lwa_pipeline(q, grid, N=N)["Q"].contiguous()
     W = (dA / nanmax(dA) * dA).contiguous()
-    cells = B * Ny * Nx
     lwa_all = lwa_work(B, Ny, Nx)
     return {
         "squared_gradient": (
@@ -574,13 +568,11 @@ def kernel_cases(q, grid, N):
                                              periodic_x=grid.periodic_x),
             lambda: stencil.squared_gradient_plain(
                 q, rdx, rdy, periodic_x=grid.periodic_x),
-            (4 * (2 * cells + rdx.numel() + rdy.numel()), 6 * cells)),
+            stencil_work(B, Ny, Nx)),
         "weighted_cdf": (
             lambda: hist.weighted_cdf(vf, edges.contiguous(), wf),
             lambda: hist.weighted_cdf_plain(vf, edges, wf),
-            (4 * (vf.numel() + wf.numel() + edges.numel()
-                  + wf.shape[0] * wf.shape[1] * (edges.shape[-1] - 1)),
-             wf.numel())),
+            cdf_work(B, Ny * Nx, edges.shape[-1] - 1, wf.shape[1])),
         "lwa_lin": (
             lambda: lwa.lwa_lin(q, Q, W, increase=True),
             lambda: lwa.lwa_lin_plain(q, Q, W, increase=True), lwa_all),
@@ -641,9 +633,7 @@ def k2_cases(q, grid, N):
     cases = {}
     for tag in K2_SHAPES:
         v, e, w = (t.contiguous() for t in ins[tag])
-        work = (4 * (v.numel() + w.numel() + e.numel()
-                     + w.shape[0] * w.shape[1] * (e.shape[-1] - 1)),
-                w.numel())
+        work = cdf_work(*v.shape, e.shape[-1] - 1, w.shape[1])
         cases[f"weighted_cdf_{tag}"] = (
             lambda v=v, e=e, w=w: hist.weighted_cdf(v, e, w),
             lambda v=v, e=e, w=w: hist.weighted_cdf_plain(v, e, w), work)
@@ -712,29 +702,6 @@ def variant_cases(q, grid):
     return cases
 
 
-def corner_ranges(q):
-    """[lo, hi) of each cell's corners, (..., Ny - 1, Nx - 1): a level
-    crosses a cell exactly when lo <= level < hi; (inf, -inf) for a cell
-    with a NaN corner."""
-    c = torch.stack([q[..., :-1, :-1], q[..., :-1, 1:], q[..., 1:, :-1],
-                     q[..., 1:, 1:]])
-    bad = torch.isnan(c).any(0)
-    inf = torch.full_like(c[0], float("inf"))
-    return (torch.where(bad, inf, c.amin(0)),
-            torch.where(bad, -inf, c.amax(0)))
-
-
-def k7_crossed_pairs(q, levels):
-    """Crossed (cell, level) pairs of data (B, Ny, Nx) at levels (B, N):
-    each cell's count of sorted levels in its [lo, hi) by searchsorted."""
-    lo, hi = corner_ranges(q)
-    B = q.shape[0]
-    srt = torch.sort(levels, dim=-1).values.contiguous()      # NaN last
-    a = torch.searchsorted(srt, lo.reshape(B, -1).contiguous())
-    e = torch.searchsorted(srt, hi.reshape(B, -1).contiguous())
-    return int((e - a).clamp(min=0).sum())
-
-
 def k8_crossed_cells(q0, lv, window, stride):
     """Crossed cells of all windows of q0 (Ny, Nx) at their levels
     lv (Wy, Wx), a row of windows at a time."""
@@ -786,9 +753,7 @@ def length_cases(era_q, era_grid, head_q):
                 lambda: length.contour_lengths_plain(d(q), d(ctr), d(yc),
                                                      d(xc), latlon=latlon,
                                                      chunk=2),
-                (4 * (q.numel() + 2 * ctr.numel() + yc.numel() + xc.numel()),
-                 CLASSIFY_INSTR * q.numel() + SEGMENT_INSTR[latlon] * pairs),
-                pairs)
+                k7_work(q, ctr, yc, xc, latlon, pairs), pairs)
     yc = torch.deg2rad(era_grid.ydef).contiguous()
     xc = torch.deg2rad(era_grid.xdef).contiguous()
     cases = {f"contour_lengths_n{N}": k7(era_q, xt.cal_contours(era_q, N),
@@ -3286,8 +3251,7 @@ def parallel_rank(workdir, spec):
     from xcontour_tpu_torch.kernels import _build, hist, length, lwa, stencil
     torch.cuda.set_device(0)
     dev = torch.device("cuda", 0)
-    lib = _build.BUILD_DIR / \
-        f"libxcontour_{_build._digest(sorted(_build.CSRC_DIR.glob('*.cu')))}.so"
+    lib = _build.library_path()
     _expect(lib.exists(), f"phase 11 rank: {lib.name} is not built")
     records = [stencil.KERNEL, hist.KERNEL, lwa.KERNEL_LIN, lwa.KERNEL_DENSE,
                lwa.KERNEL_LIN2, lwa.KERNEL_DENSE_TALL, length.KERNEL_LENGTHS,
@@ -3432,6 +3396,217 @@ def parallel_phase(dev, drive, era_steps, era_grid):
                 "collectives use")
         res["ranks"] = parallel_ranks(dev, era_steps, era_grid, table, tmp)
     return res, labels
+
+
+# -- phase 12: the structure probes behind kernel_rooflines ----------------
+
+def same_bits(a, b):
+    """Equal bits, NaN for NaN (whatever its payload)."""
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    return torch.equal(torch.where(nan, zero, a).view(torch.int32),
+                       torch.where(nan, zero, b).view(torch.int32))
+
+
+def probe_against(name, label, got, want, what):
+    """Hold got against want within KERNEL_BOUNDS[name] of want's largest
+    magnitude; returns the max abs error."""
+    err, rel = rel_err(got, want)
+    bound = KERNEL_BOUNDS[name]
+    ok = rel <= bound
+    log(f"phase 12 check {name} {label} {what}: max_abs_err {err:.6g} "
+        f"rel {rel:.3e} bound {bound:g} {'OK' if ok else 'FAIL'}")
+    _expect(ok, f"{name} {label} {what}: disagrees with its plain version")
+    return err
+
+
+def run_twice(name, label, fn):
+    """fn's output, which a second run must repeat bit for bit."""
+    got = fn()
+    _expect(same_bits(fn(), got), f"{name} {label}: two runs differ")
+    return got
+
+
+def probe_checks(label, q, grid, N, n_lengths):
+    """P1-P4 against their plain versions on the same CUDA tensors, at the
+    inputs their kernels get on the main path: K3's (q, keff_lwa_pipeline's
+    Q, the composed weight), K2's (q, the edges of N levels, dA and
+    |grad q|^2 dA, NaN weights zeroed), also with values below the first
+    edge, at and above the top one and a NaN weight (q's NaN patch gives
+    NaN values), K7's
+    (lat-lon, levels at each count of n_lengths) and K1's q.  P1 within
+    its bound of the float32 plain version; P2 and P3 of the float64 one,
+    two runs bit for bit; P4 bit for bit.  Returns {name: max abs error}
+    (P3's at n_lengths[0])."""
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch.diagnostics.lwa import nanmax
+    from xcontour_tpu_torch.kernels import probes, stencil
+    from xcontour_tpu_torch.ops import histogram, stencil as ops_stencil
+
+    B = q.shape[0]
+    errs = {}
+
+    def f64(*ts):
+        return [t.double() for t in ts]
+
+    def against(name, got, want, what):
+        return probe_against(name, label, got, want, what)
+
+    def twice(name, fn):
+        return run_twice(name, label, fn)
+
+    Q = xt.keff_lwa_pipeline(q, grid, N=N)["Q"].contiguous()
+    W = (grid.dA / nanmax(grid.dA) * grid.dA).contiguous()
+    name = probes.KERNEL_LWA.name
+    errs[name] = against(name, probes.lwa_structure(q, Q, W),
+                         probes.lwa_structure_plain(q, Q, W),
+                         f"{tuple(q.shape)} against float32 plain")
+
+    dy, dx = ops_stencil._spacing(grid, q.dtype)
+    grdS = stencil.squared_gradient_plain(q, (1.0 / dx).contiguous(),
+                                          (1.0 / dy).contiguous(),
+                                          periodic_x=grid.periodic_x)
+    e = histogram._edges(xt.cal_contours(q, N))[1].contiguous()
+    v = q.reshape(B, -1).contiguous()
+    # K2 adds no NaN weight (|grad q|^2 is NaN around q's NaN patch); P2
+    # would carry one to its whole batch element, so they are zeroed here
+    w = torch.nan_to_num(torch.stack(
+        [torch.broadcast_to(grid.dA, q.shape).reshape(B, -1),
+         (grdS * grid.dA).reshape(B, -1)], 1), nan=0.0).contiguous()
+    v2, w2 = v.clone(), w.clone()
+    v2[0, :1000] = e[0, 0] - 1.0
+    v2[0, 1000:2000] = e[0, -1]
+    v2[0, 2000:3000] = e[0, -1] + 1.0
+    w2[1, 0, 5] = float("nan")
+    name = probes.KERNEL_HIST.name
+    for what, vv, ww in (("", v, w), (" edge cases", v2, w2)):
+        got = twice(name, lambda: probes.hist_structure(vv, e, ww))
+        err = against(name, got, probes.hist_structure_plain(*f64(vv, e, ww)),
+                      f"N={N}{what} against float64 plain")
+        errs.setdefault(name, err)
+    _expect(bool(torch.isnan(got[1])) and not bool(torch.isnan(got[0])),
+            f"{name} {label}: the NaN weight did not propagate to its "
+            "element alone")
+
+    yc = torch.deg2rad(grid.ydef).contiguous()
+    xc = torch.deg2rad(grid.xdef).contiguous()
+    name = probes.KERNEL_LENGTH.name
+    for n in n_lengths:
+        lev = xt.cal_contours(q, n).contiguous()
+        got = twice(name, lambda: probes.length_structure(q, lev, yc, xc))
+        err = against(name, got, probes.length_structure_plain(
+            *f64(q, lev, yc, xc), chunk=2), f"N={n} against float64 plain")
+        errs.setdefault(name, err)
+
+    name = probes.KERNEL_COPY.name
+    ok = same_bits(probes.scaled_copy(q), probes.scaled_copy_plain(q))
+    log(f"phase 12 probe {name} {label} {tuple(q.shape)}: bit for bit "
+        f"{'OK' if ok else 'FAIL'}")
+    _expect(ok, f"{name} {label}: differs from q * {probes.SCALE}")
+    errs[name] = 0.0
+    return errs
+
+
+def timed_checks(label, x, N):
+    """The calls kernel_rooflines times, each held against its plain
+    version on the inputs it times them on (utils.roofline.roofline_inputs
+    ``x``): K1 within its bound and P4 bit for bit on the stack past the
+    L2; K2 and K3 within their bounds of their float32 plain versions, P1
+    of its own; K7 (within its bound), P2 and P3 of their float64 plain
+    versions, two runs bit for bit."""
+    from xcontour_tpu_torch.kernels import hist, length, lwa, probes, stencil
+
+    def f64(*ts):
+        return [t.double() for t in ts]
+
+    qs, rdx, rdy = x["qs"], x["rdx"], x["rdy"]
+    q, Q, W = x["q"], x["Q"], x["W"]
+    v, e, w = x["vals"], x["edges"], x["wts"]
+    lev, yc, xc = x["levels"], x["yc"], x["xc"]
+    stack = f"{tuple(qs.shape)} stack"
+    probe_against("squared_gradient", label,
+                  stencil.squared_gradient(qs, rdx, rdy, periodic_x=True),
+                  stencil.squared_gradient_plain(qs, rdx, rdy,
+                                                 periodic_x=True), stack)
+    name = probes.KERNEL_COPY.name
+    ok = same_bits(probes.scaled_copy(qs), probes.scaled_copy_plain(qs))
+    log(f"phase 12 check {name} {label} {stack}: bit for bit "
+        f"{'OK' if ok else 'FAIL'}")
+    _expect(ok, f"{name} {label}: differs from q * {probes.SCALE}")
+    probe_against("weighted_cdf", label, hist.weighted_cdf(v, e, w),
+                  hist.weighted_cdf_plain(v, e, w), f"N={N}")
+    name = probes.KERNEL_HIST.name
+    probe_against(name, label,
+                  run_twice(name, label,
+                            lambda: probes.hist_structure(v, e, w)),
+                  probes.hist_structure_plain(*f64(v, e, w)),
+                  f"N={N} against float64 plain")
+    probe_against("lwa_lin", label, lwa.lwa_lin(q, Q, W, increase=True),
+                  lwa.lwa_lin_plain(q, Q, W, increase=True),
+                  f"{tuple(q.shape)}")
+    name = probes.KERNEL_LWA.name
+    probe_against(name, label, probes.lwa_structure(q, Q, W),
+                  probes.lwa_structure_plain(q, Q, W), f"{tuple(q.shape)}")
+    probe_against("contour_lengths", label,
+                  run_twice("contour_lengths", label,
+                            lambda: length.contour_lengths(q, lev, yc, xc,
+                                                           latlon=True)),
+                  length.contour_lengths_plain(*f64(q, lev, yc, xc),
+                                               latlon=True, chunk=2),
+                  f"N={N} against float64 plain")
+    name = probes.KERNEL_LENGTH.name
+    probe_against(name, label,
+                  run_twice(name, label,
+                            lambda: probes.length_structure(q, lev, yc, xc)),
+                  probes.length_structure_plain(*f64(q, lev, yc, xc),
+                                                chunk=2),
+                  f"N={N} against float64 plain")
+
+
+def roofline_phase(dev, drive, card, runs):
+    """kernel_rooflines through the port at each (label, shape, q, grid)
+    of ``runs``, on the last level of q (no NaN patch) on the grid's
+    coordinates: first every call it times against its plain version on
+    the same inputs (timed_checks), then kernel_rooflines as a path of its
+    own (every launch count at 0 before it): K1, K2, K3, K7 and P1-P4
+    launched; one line per kernel with the card.  Returns {label:
+    kernel_rooflines' dict}."""
+    from xcontour_tpu_torch.kernels import hist, length, lwa, probes, stencil
+    from xcontour_tpu_torch.utils.roofline import roofline_inputs
+    pairs = dict(zip(ROOFLINE_KEYS, (
+        (stencil.KERNEL, probes.KERNEL_COPY), (hist.KERNEL, probes.KERNEL_HIST),
+        (lwa.KERNEL_LIN, probes.KERNEL_LWA),
+        (length.KERNEL_LENGTHS, probes.KERNEL_LENGTH))))
+    expect = {r.name: 1 for pair in pairs.values() for r in pair}
+    roof = {}
+    for label, shape, q, grid in runs:
+        lat, lon = grid.ydef.cpu().numpy(), grid.xdef.cpu().numpy()
+        vor = q[-1].cpu().numpy()
+        timed_checks(label, roofline_inputs(lat, lon, vor, shape["B"],
+                                            shape["N"], device=dev),
+                     shape["N"])
+        roof[label] = res = drive(
+            f"kernel_rooflines {label}", expect,
+            lambda: kernel_rooflines(lat, lon, vor, batch=shape["B"],
+                                     N=shape["N"], device=dev))
+        _expect(res["device"] == torch.cuda.get_device_name(0),
+                f"kernel_rooflines ran on {res['device']}")
+        for key, (kern, probe) in pairs.items():
+            r = res[key]
+            lib = (f", torch.mul {r['library_ms']:.4f} ms"
+                   if "library_ms" in r else "")
+            log(f"phase 12 roofline {label} {key} {res['shape']} N={res['N']}"
+                f": {kern.name} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+                f"ms ({r['bound_by']}), {r['pct_of_bound']:.2f}% of bound; "
+                f"{probe.name} {r['probe_ms']:.4f} ms, bound "
+                f"{r['probe_bound_ms']:.4f} ms ({r['probe_bound_by']}), "
+                f"{r['probe_pct_of_bound']:.2f}% of bound{lib}; kernel at "
+                f"{r['pct_of_structure_ceiling']:.2f}% of its structure "
+                f"ceiling | {card}")
+    log(f"phase 12 roofline json {json.dumps(roof)}")
+    return roof
 
 
 def main() -> int:
@@ -3948,6 +4123,21 @@ def main() -> int:
     log(f"phase 11 json {json.dumps(par_res)}")
     log(f"phase 11 sharded path: OK in {time.perf_counter() - t0:.1f} s")
 
+    # 12. the structure probes P1-P4 against their plain versions, then
+    # kernel_rooflines (K1, K2, K3, K7 beside them) at ERA5 and headline
+    from xcontour_tpu_torch.kernels import probes
+    t0 = time.perf_counter()
+    records.extend(probes.PROBES)
+    totals.update({r.name: 0 for r in probes.PROBES})
+    probe_errs = probe_checks("era5", era_steps[0], era_grid, ERA5["N"],
+                              CLENGTH_N)
+    probe_checks("headline", head_q, head_grid, HEADLINE["N"],
+                 (HEADLINE["N"],))
+    roof = roofline_phase(dev, drive, card, (
+        ("era5", ERA5, era_steps[0], era_grid),
+        ("headline", HEADLINE, head_q, head_grid)))
+    log(f"phase 12 probes: OK in {time.perf_counter() - t0:.1f} s")
+
     def entry(r, key, err_key, extra=()):
         e = dict(name=r.name, route="cuda", source=r.source,
                  replaces=r.replaces, launches=totals[r.name],
@@ -3959,6 +4149,13 @@ def main() -> int:
                  launches_facade=facade_counts[r.name],
                  launches_cli=cli_counts[r.name],
                  launches_parallel=par_counts[r.name])
+        if r.name in structure:
+            key12 = structure[r.name]
+            e.update(pct_of_structure_ceiling=roof["era5"][key12][
+                "pct_of_structure_ceiling"],
+                pct_of_structure_ceiling_headline=roof["headline"][key12][
+                    "pct_of_structure_ceiling"],
+                roofline_ms=roof["era5"][key12]["ms"])
         for tag, k in extra:
             if k in errs:
                 e[f"max_abs_err_{tag}"] = errs[k]
@@ -3968,6 +4165,20 @@ def main() -> int:
             if tk in bounds:
                 e[f"bound_ms_{tag}"] = bounds[tk][0]
         return e
+    structure = {roof["era5"][key]["kernel"]: key for key in ROOFLINE_KEYS}
+
+    def probe_entry(key):
+        r, head = roof["era5"][key], roof["headline"][key]
+        p = next(p for p in probes.PROBES if p.name == r["probe"])
+        return dict(name=p.name, route="cuda", source=p.source,
+                    replaces=p.replaces, launches=totals[p.name],
+                    max_abs_err=probe_errs[p.name], ms=r["probe_ms"],
+                    plain_ms=r["probe_plain_ms"], bound_ms=r["probe_bound_ms"],
+                    bound_by=r["probe_bound_by"],
+                    library_ms=r.get("library_ms"),
+                    pct_of_bound=r["probe_pct_of_bound"],
+                    ms_headline=head["probe_ms"],
+                    bound_ms_headline=head["probe_bound_ms"])
     k2_extra = tuple((tag, f"weighted_cdf_{tag}") for tag in K2_SHAPES)
     kernels_line = {"kernels": [
         entry(r, key, key[1] if isinstance(key, tuple) else key,
@@ -3981,7 +4192,9 @@ def main() -> int:
         entry(length.KERNEL_LENGTHS, k7_main, k7_main,
               tuple((tag, f"contour_lengths_{tag}")
                     for tag in (f"n{CLENGTH_N[1]}", "cartesian"))),
-        entry(length.KERNEL_LOCAL_LENGTHS, "local_lengths", "local_lengths")]}
+        entry(length.KERNEL_LOCAL_LENGTHS, "local_lengths", "local_lengths")]
+        + [probe_entry(key) for key in ("lwa", "hist_cdf2", "length",
+                                        "stencil")]}
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

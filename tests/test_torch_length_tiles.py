@@ -4,7 +4,7 @@ emulated on the CPU.
 The CUDA kernels run only on the card, but the way they cut the work can be
 checked here, in float64 with the kernels' own formulas (vertices as
 offsets from a cell's corner, one edge fraction an endpoint, the segment
-table ``kSegTable`` read from the source).
+table ``kSegTable`` read from the sources).
 
 K7: tiles of ``kernels.length.TILE`` cells, each thread's 8 cells of one
 column; the tile's range [n0, n1) of sorted levels; chunks of
@@ -41,7 +41,10 @@ from xcontour_tpu_torch.utils.synth import synth_pv
 
 F64_RTOL = 1e-12
 THREADS = 256
-_SRC = (_build.CSRC_DIR / "length.cu").read_text()
+# K7's tile constants and the segment table sit in length.cuh (shared with
+# the probe P3), K8's in length.cu
+_SRC = "".join((_build.CSRC_DIR / f).read_text()
+               for f in ("length.cuh", "length.cu"))
 
 
 def _const(name):

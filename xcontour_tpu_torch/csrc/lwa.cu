@@ -109,43 +109,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "lwa.cuh"
+
 namespace {
 
-constexpr int kTX = 32;           // columns per block (one warp)
-constexpr int kJG = 8;            // surface groups per block (threadIdx.y)
+using namespace xc_lwa;
+
 constexpr int kJPT = 8;           // K5's surfaces per thread
 constexpr int kTJ = kJG * kJPT;   // K5's surfaces per block
-constexpr int kJ = 16;            // K3's and K4's surfaces per thread
-constexpr int kYP = 32;           // rows per staged panel of K3 and K5
 constexpr int kCH = 32;           // rows per chunk of K3's E prep
-
-// min/max that return NaN when an operand is NaN (jnp.minimum/maximum
-// semantics; plain fminf/fmaxf would drop the NaN)
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-// 4-byte asynchronous copy global -> shared; zero-fills when !in (the
-// source address is then not read)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool in) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(in ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // K3: the profile centered on c, invalid rows 0 (the t-term's Qt)
 __device__ __forceinline__ float centered_or_zero(float v, float c) {
@@ -196,19 +168,6 @@ __global__ void lwa_lin_prep_kernel(const float* __restrict__ q,
   t[Nx] = L;
 }
 
-// K3: one staged row (qk, Wv) against a thread's kJ surfaces
-template <bool kInc>
-__device__ __forceinline__ void lin_row(float (&acc)[kJ],
-                                        const float (&Qj)[kJ], float qv,
-                                        float wv) {
-#pragma unroll
-  for (int k = 0; k < kJ; ++k) {
-    const float qe = qv - Qj[k];
-    const float ext = kInc ? min_nan(qe, 0.0f) : max_nan(qe, 0.0f);
-    acc[k] = fmaf(ext, wv, acc[k]);
-  }
-}
-
 // K3 surface kernel: kJ surfaces per thread; panels of q and W staged with
 // cp.async, then centered and sanitized in place by the thread that copied
 // them.
@@ -239,40 +198,14 @@ lwa_lin_kernel(const float* __restrict__ q, const float* __restrict__ W,
     acc[k] = 0.0f;
   }
 
-  auto stage = [&](int p, int buf) {
-    for (int r = ty; r < kYP; r += kJG) {
-      const int yy = p * kYP + r;
-      const bool in = yy < Ny && x < Nx;
-      const long long o = in ? (long long)yy * Nx + x : 0;
-      cp_async4(&sq[buf][r][tx], qb + o, in);
-      cp_async4(&sw[buf][r][tx], W + o, in);
-    }
-    cp_async_commit();
-  };
-
-  const int np = (Ny + kYP - 1) / kYP;
-  stage(0, 0);
-  for (int p = 0, buf = 0; p < np; ++p, buf ^= 1) {
-    cp_async_wait_all();
+  lin_panels<kInc>(acc, Qj, sq, sw, qb, W, Ny, Nx, x, [&](int buf) {
     for (int r = ty; r < kYP; r += kJG) {
       const float qv = sq[buf][r][tx], wv = sw[buf][r][tx];
       const bool valid = isfinite(qv) && isfinite(wv);
       sq[buf][r][tx] = valid ? qv - c : sent;
       sw[buf][r][tx] = valid ? wv : 0.0f;
     }
-    __syncthreads();
-    if (p + 1 < np) stage(p + 1, buf ^ 1);
-    const int rows = min(kYP, Ny - p * kYP);
-    if (rows == kYP) {
-#pragma unroll
-      for (int r = 0; r < kYP; ++r)
-        lin_row<kInc>(acc, Qj, sq[buf][r][tx], sw[buf][r][tx]);
-    } else {
-#pragma unroll 1
-      for (int r = 0; r < rows; ++r)
-        lin_row<kInc>(acc, Qj, sq[buf][r][tx], sw[buf][r][tx]);
-    }
-  }
+  });
 
   if (x >= Nx || j0 >= Ny) return;
   // E's carry-in for this thread's chunk: e_in = E[s - 1] and P0_in, the

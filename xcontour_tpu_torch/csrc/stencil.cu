@@ -28,34 +28,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "stencil.cuh"
+
 namespace {
+
+using namespace xc_stencil;
 
 enum BcY { kExtend = 0, kFill = 1, kReflect = 2 };
 
-constexpr int kWarpsY = 4;    // strips a block
-constexpr int kStrip = 16;    // rows a lane marches
-constexpr int kAhead = 2;     // rows loaded before they are used
 constexpr unsigned kFull = 0xffffffffu;
-
-// V consecutive floats (16-byte aligned for V = 4)
-template <int V>
-__device__ __forceinline__ void load_vec(const float* p, float (&a)[V]) {
-  if constexpr (V == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    a[0] = t.x; a[1] = t.y; a[2] = t.z; a[3] = t.w;
-  } else {
-    a[0] = __ldg(p);
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_vec(float* p, const float (&a)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
-  } else {
-    *p = a[0];
-  }
-}
 
 // V columns a lane
 template <int V>

@@ -3,7 +3,8 @@
 At first use, one ``nvcc`` per ``xcontour_tpu_torch/csrc/*.cu``, all started
 together, compiles the sources, and a last one links them into
 ``build/xcontour_tpu_torch/libxcontour_<hash>.so`` beside the package (the
-hash covers the sources and flags, so an edit rebuilds).  The library has a
+hash covers the sources, the ``*.cuh`` headers they share with the probes
+of ``probes.cu``, and the flags, so an edit rebuilds).  The library has a
 plain C interface: pointers and the stream are ``void*``, sizes ``int``,
 and every entry point returns the launch's ``cudaGetLastError()``.
 """
@@ -46,6 +47,16 @@ SIGNATURES = {
     # data, levels, y, x, acc, out, Ny, Nx, Wy, Wx, window, stride, nby, nbx,
     # nbw, latlon, stream
     "xc_local_lengths": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+    # the structure probes (csrc/probes.cu)
+    # q, W, Q, out, B, Ny, Nx, stream
+    "xc_lwa_structure": [P, P, P, P, I, I, I, P],
+    # values, edges, weights, partial, out, B, G, N, nblk, wchunk, stream
+    "xc_hist_structure": [P, P, P, P, P, I, I, I, I, I, P],
+    # data, levels, y, x, partial, out, B, Ny, Nx, N, n_rb, n_cb,
+    # y_batched, x_batched, stream
+    "xc_length_structure": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    # q, out, B, Ny, Nx, stream
+    "xc_scaled_copy": [P, P, I, I, I, P],
 }
 
 _LIB = None
@@ -72,13 +83,19 @@ def _digest(srcs) -> str:
     return h.hexdigest()[:16]
 
 
+def library_path() -> Path:
+    """The library the current sources, headers and flags build to."""
+    srcs = sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+    return BUILD_DIR / f"libxcontour_{_digest(srcs)}.so"
+
+
 def build() -> Path:
     """Compile the library if this exact source set has not been built;
     return its path.  The compilers' output (``-Xptxas -v``: registers,
     shared memory, spills per kernel) is kept beside it, see
     :func:`build_log`."""
     srcs = sorted(CSRC_DIR.glob("*.cu"))
-    out = BUILD_DIR / f"libxcontour_{_digest(srcs)}.so"
+    out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
