@@ -839,16 +839,19 @@ def queue3_checks(dev):
 
 
 def odd_shape_checks(dev):
-    """The kernel builds no path above reaches: K1 at one column a lane (a
-    row length of 182, 2 mod 4; 361, odd; and 360 read through a view one
-    float off 16-byte alignment), all six modes, bit for bit; K2 with nine
+    """The kernel paths no pipeline shape reaches: K1 and its copy probe
+    P4 at one column a lane (a row length of 182, 2 mod 4; 361, odd; and
+    360 read through a view one float off 16-byte alignment) and on rows
+    longer than ERA5's (8192 columns at four a lane, 8190 and a view off
+    alignment at one), K1 in all six modes, bit for bit; K2 with nine
     channels (a group of 8 and one of 1) on uneven edges, with values below
     e[0], on interior edges and on the top edge, NaN values and NaN
     weights, within its bound and the NaN pattern."""
-    from xcontour_tpu_torch.kernels import hist, stencil
+    from xcontour_tpu_torch.kernels import hist, probes, stencil
     rng = np.random.default_rng(9)
     T = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
-    for Nx, offset in ((182, 0), (361, 0), (360, 1)):
+    for Nx, offset in ((182, 0), (361, 0), (360, 1), (8192, 0), (8190, 0),
+                       (8192, 1)):
         Ny = 45
         q = rng.standard_normal((3, Ny, Nx)).cumsum(-1).cumsum(-2)
         q[0, 1, Nx // 2] = np.nan      # the 'reflect' walls read row 1
@@ -866,8 +869,13 @@ def odd_shape_checks(dev):
                                                                 **kw))
                 _expect(err == 0.0, f"squared_gradient Nx={Nx} offset "
                         f"{offset} {kw}: max_abs_err {err:.3e}, not exact")
+        _expect(same_bits(probes.scaled_copy(qv), probes.scaled_copy_plain(qv)),
+                f"{probes.KERNEL_COPY.name} Nx={Nx} offset {offset}: differs "
+                f"from q * {probes.SCALE}")
+        lanes = 4 if Nx % 4 == 0 and qv.data_ptr() % 16 == 0 else 1
         log(f"phase 3 odd shapes squared_gradient 3x{Ny}x{Nx} offset "
-            f"{offset}: six modes bit for bit OK")
+            f"{offset} ({lanes} column(s) a lane): six modes bit for bit OK; "
+            f"{probes.KERNEL_COPY.name} bit for bit OK")
     B, G, N, C = 3, 50 * 97, 17, 9
     v = rng.standard_normal((B, G))
     e = np.sort(rng.standard_normal((B, N + 1)), -1)
@@ -895,6 +903,7 @@ def check_length_kernel(name, bound_key, kern, plain, plain64):
     got, p32, want = kern(), plain(), plain64()
     torch.cuda.synchronize()
     _expect(torch.equal(kern(), got), f"{name}: two runs differ")
+    log(f"phase 3 kernel {name}: two runs bit for bit OK")
     for label, x in (("kernel", got), ("float32 plain version", p32)):
         _expect(torch.equal(x == 0, want == 0),
                 f"{name}: the {label}'s empty contours differ from the "

@@ -3,8 +3,9 @@
 
     python3 scripts/length_variants.py [--parent DIR] [--out DIR]
 
-Each option is this checkout's ``xcontour_tpu_torch/csrc/length.cu`` with
-one change made by text substitution, in a copy of the package under
+Each option is this checkout's K7 and K8 sources
+(``xcontour_tpu_torch/csrc/length.cu`` and ``length.cuh``) with one change
+made by text substitution, in a copy of the package under
 ``build/length_variants/<option>`` that builds its own kernels; each runs
 in its own process, which times the K7 and K8 cases of this checkout's
 ``chip_smoke.length_cases`` (ERA5 at N = 121 and 401, the headline
@@ -30,11 +31,9 @@ time of each CUDA kernel from torch.profiler.  The options:
                     K8: a lane holds 1 or 4 steps of cells, not 2
 
 With ``--parent DIR`` (a checkout of the parent commit) it also times the
-parent's kernels, and the parent's with the crossing's arithmetic replaced
-by a constant: the share of the parent's time that the serialized
-crossings took.  Every option's outputs must equal the final design's bit
-for bit (integer sums); the parent's (float sums) agree within K7's and
-K8's bound.  It exits non-zero if a run fails.
+parent's kernels.  Every option's outputs must equal the final design's
+bit for bit (integer sums); the parent's agree within K7's and K8's
+bound.  It exits non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -45,7 +44,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SRC = "xcontour_tpu_torch/csrc/length.cu"
+SRCS = ("xcontour_tpu_torch/csrc/length.cu",
+        "xcontour_tpu_torch/csrc/length.cuh")
 
 # a warp's block coordinates into shared memory, for a stride of at most 64
 STAGE = """\
@@ -62,8 +62,8 @@ STAGE = """\
 
 OPTIONS = {
     "final": [],
-    "one_copy": [("    const int ncopy = min(32, kAccWords / cnt);",
-                  "    const int ncopy = 1;")],
+    "one_copy": [("        ncopy = min(32, kAccWords / cnt);",
+                  "        ncopy = 1;")],
     "k7_thread_search": [
         ("    const int a0 = warp_count_below(lb, N, tlo);\n"
          "    const int a1 = max(a0, warp_count_below(lb, N, thi));",
@@ -98,13 +98,7 @@ OPTIONS = {
     "k8_steps_4": [("constexpr int kCellSteps = 2;",
                     "constexpr int kCellSteps = 4;")],
 }
-PARENT_OPTIONS = {
-    "parent": [],
-    "parent_constant": [
-        ("  return crossing_length<kLatlon>(lev, v00, v01, v10, v11, y0, dy, "
-         "dx, code);",
-         "  return 1e-3f;")],
-}
+PARENT_OPTIONS = {"parent": []}
 
 # run from a variant's root: argv[1] this checkout's chip_smoke.py, argv[2]
 # the option's name, argv[3] where to save its outputs
@@ -140,13 +134,15 @@ def variant(name: str, src_root: Path, subs, base: Path) -> Path:
         shutil.rmtree(dst)
     shutil.copytree(src_root / "xcontour_tpu_torch", dst / "xcontour_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    path = dst / SRC
-    text = path.read_text()
+    texts = {src: (dst / src).read_text() for src in SRCS}
     for old, new in subs:
-        if text.count(old) < 1:
-            raise SystemExit(f"{name}: {old!r} not in {path}")
-        text = text.replace(old, new)
-    path.write_text(text)
+        holders = [src for src, text in texts.items() if old in text]
+        if not holders:
+            raise SystemExit(f"{name}: {old!r} not in {', '.join(SRCS)}")
+        for src in holders:
+            texts[src] = texts[src].replace(old, new)
+    for src, text in texts.items():
+        (dst / src).write_text(text)
     return dst
 
 
@@ -186,9 +182,7 @@ def main() -> int:
     final = outs["final"]
     for name, got in outs.items():
         for case, want in final.items():
-            if name.startswith("parent"):
-                if name == "parent_constant":
-                    continue
+            if name == "parent":
                 err = (got[case].double() - want.double()).abs().max()
                 rel = (err / want.double().abs().max()).item()
                 ok = rel <= 4e-6   # each within 2e-6 of the float64 plain

@@ -21,8 +21,10 @@ ERA5 level in windows of 101 / 10 and ``K8_WINDOWS``), which an older
 calls, and the device time of the kernels from torch.profiler (in all,
 and per CUDA kernel); and the geometry steps (ERA5 ``local`` and
 ``clength`` at N = 121 and 401, the headline ``fractal``): median wall
-time and the profiler's device time, with the largest kernels.  It exits
-non-zero if a run fails.
+time and the profiler's device time, with the largest kernels.  K7's
+totals at the length cases are kept from every run (``run<i>_k7.pt`` in
+DIR) and compared: the script prints whether every run gave the same
+bits, base against new.  It exits non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -95,7 +97,8 @@ for name, kern in cases.items():
 
 
 # run from a checkout's root with this checkout's chip_smoke.py as argv[1]:
-# its K7 and K8 inputs, that checkout's wrappers
+# its K7 and K8 inputs, that checkout's wrappers; K7's totals saved to
+# argv[2]
 PROBE_LENGTH = r"""
 import importlib.util, sys, torch
 spec = importlib.util.spec_from_file_location("smoke", sys.argv[1])
@@ -108,8 +111,11 @@ q = torch.as_tensor(pv).to("cuda")
 _, _, hpv = cs.make_pv(cs.HEADLINE["B"], cs.HEADLINE["nlat"],
                        cs.HEADLINE["nlon"], 100)
 hq = torch.as_tensor(hpv).to("cuda")
+totals = {}
 for name, case in cs.length_cases(q, grid, hq).items():
     kern = case[1]
+    if name.startswith("contour_lengths"):
+        totals[name] = kern().cpu()
     print(f"phase 6 probe {name} wrapper: {cs.cuda_ms(kern, 50):.4f} ms a "
           f"call back to back")
     split = cs.device_split(kern, 20)
@@ -117,6 +123,7 @@ for name, case in cs.length_cases(q, grid, hq).items():
           f"device kernels a call")
     for k, ms in split.items():
         print(f"phase 6 probe {name} device {k}: {ms:.4f} ms a call")
+torch.save(totals, sys.argv[2])
 """
 
 
@@ -220,9 +227,10 @@ def main() -> int:
             return 1
         probes = ""
         smoke = [str(ROOT / "chip_smoke.py")]
+        k7 = str(out / f"run{i}_k7.pt")
         for kind, code, args in (("lape", PROBE, []),
                                  ("k2", PROBE_K2, smoke),
-                                 ("length", PROBE_LENGTH, smoke),
+                                 ("length", PROBE_LENGTH, smoke + [k7]),
                                  ("steps", PROBE_STEPS, smoke)):
             probe = subprocess.run([sys.executable, "-c", code, *args],
                                    cwd=root, capture_output=True, text=True)
@@ -241,7 +249,26 @@ def main() -> int:
     for k in keys:
         print(f"{k} | " + " | ".join(
             "-" if k not in found else f"{found[k]:.4f}" for _, found in runs))
-    return 0
+    return k7_bits(out, runs)
+
+
+def k7_bits(out: Path, runs) -> int:
+    """Print whether every run's K7 totals have the same bits as run 0's
+    (NaN for NaN); 1 if not."""
+    import torch
+    totals = [torch.load(out / f"run{i}_k7.pt") for i in range(len(runs))]
+    same = True
+    for name in totals[0]:
+        ref = totals[0][name]
+        for i, t in enumerate(totals[1:], 1):
+            got = t[name]
+            eq = torch.equal(torch.isnan(got), torch.isnan(ref)) \
+                and torch.equal(torch.nan_to_num(got).view(torch.int32),
+                                torch.nan_to_num(ref).view(torch.int32))
+            same = same and eq
+            print(f"K7 totals {name}: run{i} {runs[i][0]} against run0 "
+                  f"{runs[0][0]}: {'bit for bit' if eq else 'DIFFER'}")
+    return 0 if same else 1
 
 
 if __name__ == "__main__":
