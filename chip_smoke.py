@@ -405,6 +405,18 @@ PAR_COLLECTIVES = ("all_reduce", "broadcast", "all_gather_into_tensor",
                    "send_recv", "batch_isend_irecv")
 PAR_TIMEOUT_S = 300
 PAR_Q_BOUND = CARD_CPU_TOL["Yeq"]
+# phase 11's gradients: the sharded keff_lwa 'auto' and clength adjoints
+# (phase 7's losses, a replicated output counted once per mesh) at ERA5
+# with GRAD_ERA5_B snapshots, on the mesh of one against phase 7's
+# unsharded adjoints, forward and backward timed in turns PAR_GRAD_REPS
+# times each after a warm-up; then the keff_lwa adjoint and the windowed
+# lengths' (LOCAL on the headline's first snapshot) on PAR_GRAD_MESHES of
+# gloo ranks, joined.  Every gradient is held to the unsharded card
+# gradient on the same inputs by phase 7's card-against-CPU bound
+# (GRAD_CARD_CPU): K2's float atomics add in another order each launch,
+# and the x ranks' partial sums in another order again.
+PAR_GRAD_REPS = 5
+PAR_GRAD_MESHES = ("1x2", "2x2")
 # phase 12, the structure probes P1-P4: the roofline keys of
 # utils.roofline.kernel_rooflines, each with its kernel and its probe
 ROOFLINE_KEYS = ("stencil", "hist_cdf2", "lwa", "length")
@@ -1453,6 +1465,11 @@ def time_backward(name, fn, inputs, seed, reps=3):
     return fwd, bwd, peak
 
 
+def finite_sum(x):
+    return torch.nansum(torch.where(torch.isfinite(x), x,
+                                    torch.zeros_like(x)))
+
+
 def grad_losses(grid, table, local_window):
     """label -> loss of a (B, Ny, Nx) tracer: the JAX bench's adjoint loss
     nansum(lwa^2) + nansum(nkeff) of keff_lwa_pipeline(lmin='analytic'),
@@ -1461,10 +1478,6 @@ def grad_losses(grid, table, local_window):
     the finite Leq2; K2, K7); local_contour_lengths at ``local_window`` on
     each snapshot (nansum of the lengths; K8)."""
     import xcontour_tpu_torch as xt
-
-    def finite_sum(x):
-        return torch.nansum(torch.where(torch.isfinite(x), x,
-                                        torch.zeros_like(x)))
 
     def keff_lwa(method, lwa2=False):
         def loss(t, N):
@@ -1501,6 +1514,33 @@ def near_nan(q, cells=2):
     return torch.nn.functional.max_pool2d(m, k, 1, cells)[:, 0] > 0
 
 
+def adjoint_ms(loss, q, N):
+    """(forward ms, backward ms, gradient) of one step of ``loss`` on a
+    copy of q, by the host clock between synchronizations (phase 7's
+    adjoint steps, phase 11's sharded ones)."""
+    t = q.detach().clone().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value = loss(t, N)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    g, = torch.autograd.grad(value, t)
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3, g
+
+
+def kernel_records():
+    """K1-K8's launch records."""
+    from xcontour_tpu_torch.kernels import hist, length, lwa, stencil
+    return (stencil.KERNEL, hist.KERNEL, lwa.KERNEL_LIN, lwa.KERNEL_DENSE,
+            lwa.KERNEL_LIN2, lwa.KERNEL_DENSE_TALL, length.KERNEL_LENGTHS,
+            length.KERNEL_LOCAL_LENGTHS)
+
+
+def kernel_counts():
+    return {r.name: r.launches for r in kernel_records()}
+
+
 def adjoint_step(label, loss, kernels, q, N, records, reps=3):
     """forward + backward steps of ``loss`` on q: (median forward ms,
     median backward ms, peak GiB, launches a step, gradient).  The launch
@@ -1517,21 +1557,13 @@ def adjoint_step(label, loss, kernels, q, N, records, reps=3):
     plain_counts = counts()
     fwd, bwd = [], []
     for i in range(reps + 1):
-        t = q.detach().clone().requires_grad_()
         for r in records:
             r.launches = 0
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        value = loss(t, N)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        g, = torch.autograd.grad(value, t)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        f, b, g = adjoint_ms(loss, q, N)
         if i:                                   # the first is a warm-up
-            fwd.append((t1 - t0) * 1e3)
-            bwd.append((t2 - t1) * 1e3)
+            fwd.append(f)
+            bwd.append(b)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     step = counts()
     _expect(step == plain_counts, f"{label}: a gradient step launches "
@@ -1554,18 +1586,14 @@ def adjoint_step(label, loss, kernels, q, N, records, reps=3):
     return f_ms, b_ms, peak, step, g
 
 
-def grad_card_vs_cpu(label, loss_gpu, loss_cpu, q, N):
-    """A loss's gradient on the card (float32) against the port's CPU
-    float32 gradient: the same non-finite pattern, and GRAD_CARD_CPU[1] of
-    the finite cells within GRAD_CARD_CPU[0] of the largest |gradient|;
-    the worst cell printed."""
-    grads = []
-    for loss, dev in ((loss_gpu, q.device), (loss_cpu, "cpu")):
-        t = q.detach().to(dev).clone().requires_grad_()
-        grads.append(torch.autograd.grad(loss(t, N), t)[0].cpu())
-    got, want = grads
+def grad_agree(what, got, want, sides=("card", "CPU")):
+    """A gradient against another of the same loss: the same non-finite
+    pattern, and GRAD_CARD_CPU[1] of the finite cells within
+    GRAD_CARD_CPU[0] of the largest |gradient|; the worst cell printed.
+    Returns (share within, worst difference over max |g|)."""
+    got, want = got.detach().cpu(), want.detach().cpu()
     _expect(torch.equal(torch.isfinite(got), torch.isfinite(want)),
-            f"grad card vs CPU {label}: non-finite patterns differ")
+            f"{what}: non-finite patterns differ")
     m = torch.isfinite(want)
     scale = want[m].abs().max().item()
     diff = torch.where(m, (got - want).abs(), torch.zeros_like(got))
@@ -1573,13 +1601,25 @@ def grad_card_vs_cpu(label, loss_gpu, loss_cpu, q, N):
     share = (diff[m] <= tol * scale).double().mean().item()
     worst = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
     ok = share >= share_min and scale > 0
-    log(f"phase 7 grad card vs CPU {label} {tuple(q.shape)}: {100 * share:.4f}% "
+    log(f"{what} {tuple(got.shape)}: {100 * share:.4f}% "
         f"of cells within {tol:g} of max |g| {scale:.6g} (need "
         f"{100 * share_min:g}%), worst cell {tuple(int(i) for i in worst)} "
-        f"diff {diff[worst].item() / scale:.3e} of max (card "
-        f"{got[worst].item():.6g}, CPU {want[worst].item():.6g}); non-finite "
-        f"cells {int((~m).sum())} on both {'OK' if ok else 'FAIL'}")
-    _expect(ok, f"grad card vs CPU {label}: gradients differ")
+        f"diff {diff[worst].item() / scale:.3e} of max ({sides[0]} "
+        f"{got[worst].item():.6g}, {sides[1]} {want[worst].item():.6g}); "
+        f"non-finite cells {int((~m).sum())} on both "
+        f"{'OK' if ok else 'FAIL'}")
+    _expect(ok, f"{what}: gradients differ")
+    return share, diff[worst].item() / scale
+
+
+def grad_card_vs_cpu(label, loss_gpu, loss_cpu, q, N):
+    """A loss's gradient on the card (float32) against the port's CPU
+    float32 gradient (:func:`grad_agree`)."""
+    grads = []
+    for loss, dev in ((loss_gpu, q.device), (loss_cpu, "cpu")):
+        t = q.detach().to(dev).clone().requires_grad_()
+        grads.append(torch.autograd.grad(loss(t, N), t)[0].cpu())
+    grad_agree(f"phase 7 grad card vs CPU {label}", *grads)
 
 
 def wrapper_grad_limits(dev):
@@ -3022,11 +3062,84 @@ def par_step_vs(label, got, want):
                   what="phase 11")
 
 
+def sharded_grad_losses(grid, table, mesh):
+    """Phase 7's 'keff_lwa auto' and 'clength' losses (grad_losses) of the
+    sharded steps on a rank's block, each output replicated over 'x'
+    counted once per mesh (parallel.once_per_mesh): the ranks' losses add
+    up to phase 7's loss of the whole batch."""
+    from xcontour_tpu_torch import parallel as P
+
+    def keff_lwa(t, N):
+        o = P.sharded_keff_lwa_pipeline(t, grid, mesh, N=N, lmin="analytic",
+                                        table=table)
+        return (torch.nansum(o["lwa"] * o["lwa"])
+                + torch.nansum(P.once_per_mesh(o["nkeff"], mesh)))
+
+    def clength(t, N):
+        o = P.sharded_clength_pipeline(t, grid, mesh, N=CLENGTH_N[0],
+                                       table=table)
+        return (torch.nansum(P.once_per_mesh(o["lengths"], mesh))
+                + finite_sum(P.once_per_mesh(o["Leq2"], mesh)))
+    return {"keff_lwa auto": keff_lwa, "clength": clength}
+
+
+def parallel_adjoints(drive, q, grid, table, mesh):
+    """Phase 11(a)'s gradients on the mesh of one: each sharded adjoint
+    (sharded_grad_losses) against phase 7's unsharded adjoint on the same
+    snapshots, its launches a step equal to the unsharded step's, forward
+    and backward ms of both in turns.  Returns ({label: numbers}, the
+    sharded paths' drive labels, the unsharded keff_lwa gradient)."""
+    res, labels, grads = {}, [], {}
+    unsharded = grad_losses(grid, table, LOCAL)
+    N = ERA5["N"]
+    for label, sloss in sharded_grad_losses(grid, table, mesh).items():
+        uloss, kernels = unsharded[label]
+        expect = {k: 1 for k in kernels}
+        g, counts = {}, {}
+        for side, loss in (("unsharded", uloss), ("sharded", sloss)):
+            path = f"{'parallel ' if side == 'sharded' else ''}adjoint " \
+                f"{label} era5 B={GRAD_ERA5_B}"
+            g[side] = drive(path, expect, lambda: adjoint_ms(loss, q, N)[2])
+            counts[side] = kernel_counts()
+        labels.append(f"parallel adjoint {label} era5 B={GRAD_ERA5_B}")
+        _expect(counts["sharded"] == counts["unsharded"],
+                f"phase 11 adjoint {label}: the sharded step launches "
+                f"{counts['sharded']}, the unsharded {counts['unsharded']}")
+        share, worst = grad_agree(
+            f"phase 11 adjoint {label} era5 sharded (1x1 NCCL mesh) vs "
+            "unsharded", g["sharded"], g["unsharded"],
+            sides=("sharded", "unsharded"))
+        ms = {side: ([], []) for side in g}
+        for i in range(PAR_GRAD_REPS + 1):      # the first is a warm-up
+            turn = (("unsharded", uloss), ("sharded", sloss))
+            for side, loss in (turn if i % 2 == 0 else turn[::-1]):
+                f, b, _ = adjoint_ms(loss, q, N)
+                if i:
+                    ms[side][0].append(f)
+                    ms[side][1].append(b)
+        med = {side: [statistics.median(v) for v in ms[side]] for side in ms}
+        res[label] = dict(
+            fwd_ms=med["sharded"][0], bwd_ms=med["sharded"][1],
+            unsharded_fwd_ms=med["unsharded"][0],
+            unsharded_bwd_ms=med["unsharded"][1], share_within=share,
+            worst_rel=worst, launches=counts["sharded"])
+        log(f"phase 11 time adjoint {label} era5 {tuple(q.shape)}: sharded "
+            f"(1x1 NCCL mesh) forward {med['sharded'][0]:.2f} ms, backward "
+            f"{med['sharded'][1]:.2f} ms; unsharded forward "
+            f"{med['unsharded'][0]:.2f} ms, backward "
+            f"{med['unsharded'][1]:.2f} ms (host clock, median of "
+            f"{PAR_GRAD_REPS} in turns); launches a step {counts['sharded']}")
+        grads[label] = g["unsharded"]
+    return res, labels, grads["keff_lwa auto"]
+
+
 def parallel_inprocess(dev, drive, q, grid, table):
     """Phase 11(a): an NCCL group of one in this process and a ('cuda',
     (1, 1)) mesh; each sharded function and step against its unsharded
-    counterpart at ERA5 width, the launch counts, and the sharded
-    composition's cost."""
+    counterpart at ERA5 width, the launch counts, the sharded adjoints
+    (parallel_adjoints) and the sharded composition's cost.  Returns
+    (numbers, the forward paths' drive labels, the adjoints', the
+    unsharded keff_lwa adjoint's gradient)."""
     import datetime
     import tempfile
     import torch.distributed as dist
@@ -3125,6 +3238,9 @@ def parallel_inprocess(dev, drive, q, grid, table):
                   lambda: P.sharded_local_lengths(q[0], grid.ydef, grid.xdef,
                                                   mesh, **LOCAL),
                   exact=dict(local_lengths=1))
+            # the sharded adjoints against phase 7's
+            res["adjoint"], grad_labels, adj_grad = parallel_adjoints(
+                drive, q[:GRAD_ERA5_B].contiguous(), grid, table, mesh)
             _expect(dict(_comm.CALLS) == calls,
                     "phase 11: the ring of one ran a collective")
 
@@ -3157,7 +3273,7 @@ def parallel_inprocess(dev, drive, q, grid, table):
         finally:
             dist.destroy_process_group()
     res["errs"] = errs
-    return res, labels
+    return res, labels, grad_labels, adj_grad
 
 
 def parallel_cli(drive, none, path, base, got, T, tmp):
@@ -3257,14 +3373,12 @@ def parallel_rank(workdir, spec):
     import torch.distributed as dist
     import xcontour_tpu_torch as xt
     from xcontour_tpu_torch import parallel as P
-    from xcontour_tpu_torch.kernels import _build, hist, length, lwa, stencil
+    from xcontour_tpu_torch.kernels import _build
     torch.cuda.set_device(0)
     dev = torch.device("cuda", 0)
     lib = _build.library_path()
     _expect(lib.exists(), f"phase 11 rank: {lib.name} is not built")
-    records = [stencil.KERNEL, hist.KERNEL, lwa.KERNEL_LIN, lwa.KERNEL_DENSE,
-               lwa.KERNEL_LIN2, lwa.KERNEL_DENSE_TALL, length.KERNEL_LENGTHS,
-               length.KERNEL_LOCAL_LENGTHS]
+    records = kernel_records()
     b, x = (int(v) for v in spec.split("x"))
     mesh = P.make_mesh(x_size=x)
     lat, lon, q = par_inputs()
@@ -3292,16 +3406,65 @@ def parallel_rank(workdir, spec):
         times.append(time.perf_counter() - t0)
     keep = {k: out[k] for k in ("contour", "intArea", "intgrdS", "Yeq",
                                 "Lmin", "Leq2", "nkeff", "Q", "lwa")}
+    grads = parallel_rank_grads(mesh, q, grid, table) \
+        if spec in PAR_GRAD_MESHES else {}
     np.savez(os.path.join(workdir, f"out{dist.get_rank()}.npz"),
              coords=np.array(sh.coords), lengths=L.cpu().numpy(),
              local=W.cpu().numpy(),
-             **{k: v.cpu().numpy() for k, v in keep.items()})
+             **{k: v.cpu().numpy() for k, v in keep.items()},
+             **{k: v for k, v in grads.items() if k.startswith("grad_")})
     # the rank measures windows (K8) when its block of window rows is not
     # empty
     Wy = (ERA5["nlat"] - LOCAL["window"]) // LOCAL["stride"] + 1
     windows = sh.coords[1] * -(-Wy // x) < Wy
     with open(os.path.join(workdir, f"rank{dist.get_rank()}.json"), "w") as f:
-        json.dump(dict(counts=counts, step_s=times, windows=windows), f)
+        json.dump(dict(counts=counts, step_s=times, windows=windows,
+                       adjoint={k: v for k, v in grads.items()
+                                if not k.startswith("grad_")}), f)
+
+
+def headline_field():
+    """(lat, lon, the headline's first snapshot), on the host."""
+    lat, lon, pv = make_pv(HEADLINE["B"], HEADLINE["nlat"], HEADLINE["nlon"],
+                           100)
+    return lat, lon, np.ascontiguousarray(pv[0])
+
+
+def parallel_rank_grads(mesh, q, grid, table):
+    """Phase 11(b)'s gradients on one rank: the sharded keff_lwa adjoint
+    on the rank's block of the first GRAD_ERA5_B snapshots (launch counts
+    of one step, forward and backward ms of PAR_GRAD_REPS after a warm-up)
+    and the windowed lengths' on its columns of the headline snapshot.
+    Returns {'grad_keff_lwa', 'grad_local': the blocks' gradients, and the
+    counts and times}."""
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch import parallel as P
+    dev = torch.device("cuda", 0)
+    sh = P.shard_batch_spec(mesh, 3)
+    qb = torch.as_tensor(np.ascontiguousarray(
+        sh.block(q[:GRAD_ERA5_B]))).to(dev)
+    loss = sharded_grad_losses(grid, table, mesh)["keff_lwa auto"]
+    for r in kernel_records():
+        r.launches = 0
+    fwd, bwd = [], []
+    for i in range(PAR_GRAD_REPS + 1):          # the first is a warm-up
+        f, b, g = adjoint_ms(loss, qb, ERA5["N"])
+        if i == 0:
+            counts = kernel_counts()
+        else:
+            fwd.append(f)
+            bwd.append(b)
+    hlat, hlon, hq = headline_field()
+    hgrid = xt.from_latlon(hlat, hlon, device=dev)
+    fb = torch.as_tensor(np.ascontiguousarray(
+        P.shard_batch_spec(mesh, 2).block(hq))).to(dev).requires_grad_()
+    before = kernel_counts()["local_lengths"]
+    L = P.sharded_local_lengths(fb, hgrid.ydef, hgrid.xdef, mesh, **LOCAL)[0]
+    gl, = torch.autograd.grad(torch.nansum(P.once_per_mesh(L, mesh)), fb)
+    torch.cuda.synchronize()
+    return dict(grad_keff_lwa=g.cpu().numpy(), grad_local=gl.cpu().numpy(),
+                counts=counts, fwd_ms=fwd, bwd_ms=bwd,
+                local_launches=kernel_counts()["local_lengths"] - before)
 
 
 def par_inputs():
@@ -3312,11 +3475,14 @@ def par_inputs():
     return steps[0][0], steps[0][1], np.concatenate([s[2] for s in steps])
 
 
-def parallel_ranks(dev, era_q, era_grid, table, tmp):
+def parallel_ranks(dev, era_q, era_grid, table, tmp, adj_grad):
     """Phase 11(b): 2 and 4 gloo ranks on the one card; their joined
     results against the unsharded step on the card; each rank's launch
     counts and step time (ranks share the card and gloo moves the bytes
-    through the host: not a scaling figure)."""
+    through the host: not a scaling figure); on PAR_GRAD_MESHES the joined
+    keff_lwa adjoint's gradient against ``adj_grad`` (the unsharded one on
+    the same snapshots) and the windowed lengths' against the unsharded
+    one."""
     import xcontour_tpu_torch as xt
     from xcontour_tpu_torch.parallel.launch import run_ranks
     res = {}
@@ -3341,7 +3507,7 @@ def parallel_ranks(dev, era_q, era_grid, table, tmp):
               for blk in blocks}
         got = {}
         for k in blocks[0]:
-            if k == "local":
+            if k == "local" or k.startswith("grad_"):
                 continue
             rows = []
             for i in range(b):
@@ -3376,6 +3542,9 @@ def parallel_ranks(dev, era_q, era_grid, table, tmp):
                     f"launched ({c})")
         step_ms = [1e3 * statistics.median(r["step_s"]) for r in info]
         res[spec] = dict(launch_s=secs, counts=counts, step_ms=step_ms)
+        if spec in PAR_GRAD_MESHES:
+            res[spec]["adjoint"] = rank_grads_vs(spec, at, info, b, x,
+                                                 adj_grad, dev)
         log(f"phase 11 ranks {spec}: {b * x} gloo ranks on one card in "
             f"{secs:.1f} s; launches per rank {counts}; sharded keff_lwa "
             f"step per rank {[round(v, 2) for v in step_ms]} ms (host clock, "
@@ -3384,16 +3553,62 @@ def parallel_ranks(dev, era_q, era_grid, table, tmp):
     return res
 
 
+def rank_grads_vs(spec, at, info, b, x, adj_grad, dev):
+    """Phase 11(b)'s joined gradients against the unsharded card
+    gradients (grad_agree); the ranks' launches and times logged."""
+    import xcontour_tpu_torch as xt
+    got = np.concatenate([np.concatenate([at[i, j]["grad_keff_lwa"]
+                                          for j in range(x)], axis=-1)
+                          for i in range(b)])
+    share, worst = grad_agree(
+        f"phase 11 ranks {spec} adjoint keff_lwa auto era5 joined vs "
+        "unsharded", torch.as_tensor(got), adj_grad,
+        sides=("sharded", "unsharded"))
+    hlat, hlon, hq = headline_field()
+    hgrid = xt.from_latlon(hlat, hlon, device=dev)
+    f = torch.as_tensor(hq).to(dev).requires_grad_()
+    L = xt.local_contour_lengths(f, hgrid.ydef, hgrid.xdef, **LOCAL)[0]
+    want, = torch.autograd.grad(torch.nansum(L), f)
+    for i in range(b):                  # each batch row: the whole field
+        gl = np.concatenate([at[i, j]["grad_local"] for j in range(x)],
+                            axis=-1)
+        local = grad_agree(
+            f"phase 11 ranks {spec} windowed lengths headline batch row {i} "
+            "joined vs unsharded", torch.as_tensor(gl), want,
+            sides=("sharded", "unsharded"))
+    adj = [r["adjoint"] for r in info]
+    for r, a in enumerate(adj):
+        short = [k for k in ("squared_gradient", "weighted_cdf", "lwa_lin")
+                 if a["counts"][k] == 0]
+        _expect(not short, f"phase 11 {spec} rank {r} adjoint: {short} not "
+                f"launched ({a['counts']})")
+    _expect(sum(a["local_launches"] for a in adj) > 0,
+            f"phase 11 {spec}: no rank launched K8 for the windowed lengths")
+    fwd = [statistics.median(a["fwd_ms"]) for a in adj]
+    bwd = [statistics.median(a["bwd_ms"]) for a in adj]
+    log(f"phase 11 time ranks {spec} adjoint keff_lwa auto era5 "
+        f"B={GRAD_ERA5_B}: forward per rank {[round(v, 2) for v in fwd]} ms, "
+        f"backward {[round(v, 2) for v in bwd]} ms (host clock, median of "
+        f"{PAR_GRAD_REPS}; ranks share the card and gloo moves the bytes "
+        f"through the host); launches a step per rank "
+        f"{[a['counts'] for a in adj]}; K8 launches for the windowed "
+        f"lengths {[a['local_launches'] for a in adj]}")
+    return dict(share_within=share, worst_rel=worst,
+                local_share_within=local[0], local_worst_rel=local[1],
+                fwd_ms=fwd, bwd_ms=bwd)
+
+
 def parallel_phase(dev, drive, era_steps, era_grid):
     """Phase 11: the sharded path on the card, (a) in process and (b) over
-    gloo ranks."""
+    gloo ranks, forward and gradients.  Returns (numbers, the forward
+    paths' drive labels, the sharded adjoints')."""
     import tempfile
     import xcontour_tpu_torch as xt
     table = xt.cal_area_eqCoord_table_hist(
         era_grid.fluid_mask(), era_grid.ydef, era_grid.dA, increase=True,
         lt=True)
-    res, labels = parallel_inprocess(dev, drive, era_steps[0], era_grid,
-                                     table)
+    res, labels, grad_labels, adj_grad = parallel_inprocess(
+        dev, drive, era_steps[0], era_grid, table)
     with tempfile.TemporaryDirectory() as tmp:
         support = collective_support(tmp)
         res["gloo_cuda"] = support
@@ -3403,8 +3618,9 @@ def parallel_phase(dev, drive, era_steps, era_grid):
         _expect(all(support[k] == "ok" for k in used), f"phase 11: gloo "
                 f"refuses CUDA tensors in one of {used}, which the port's "
                 "collectives use")
-        res["ranks"] = parallel_ranks(dev, era_steps, era_grid, table, tmp)
-    return res, labels
+        res["ranks"] = parallel_ranks(dev, era_steps, era_grid, table, tmp,
+                                      adj_grad)
+    return res, labels, grad_labels
 
 
 # -- phase 12: the structure probes behind kernel_rooflines ----------------
@@ -3628,9 +3844,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    records = [stencil.KERNEL, hist.KERNEL, lwa.KERNEL_LIN, lwa.KERNEL_DENSE,
-               lwa.KERNEL_LIN2, lwa.KERNEL_DENSE_TALL, length.KERNEL_LENGTHS,
-               length.KERNEL_LOCAL_LENGTHS]
+    records = list(kernel_records())
 
     # 1. the card
     card = nvidia_smi_line()
@@ -4119,11 +4333,16 @@ def main() -> int:
 
     # 11. the sharded path: in process on a mesh of one, then gloo ranks
     t0 = time.perf_counter()
-    par_res, par_labels = parallel_phase(dev, drive, era_steps, era_grid)
+    par_res, par_labels, par_grad_labels = parallel_phase(
+        dev, drive, era_steps, era_grid)
     par_counts = {r.name: sum(path_counts[label][r.name]
                               for label in par_labels + par_cli_labels)
                   for r in records}
-    log(f"phase 11 launches over the sharded paths: {par_counts}")
+    par_grad_counts = {r.name: sum(path_counts[label][r.name]
+                                   for label in par_grad_labels)
+                       for r in records}
+    log(f"phase 11 launches over the sharded paths: {par_counts}; over the "
+        f"sharded adjoints: {par_grad_counts}")
     missing = [n for n in ("squared_gradient", "weighted_cdf", "lwa_lin",
                            "lwa_dense", "lwa_lin2", "contour_lengths",
                            "local_lengths") if par_counts[n] == 0]
@@ -4157,7 +4376,8 @@ def main() -> int:
                  backward_peak_gib=grad_times[r.name][2],
                  launches_facade=facade_counts[r.name],
                  launches_cli=cli_counts[r.name],
-                 launches_parallel=par_counts[r.name])
+                 launches_parallel=par_counts[r.name],
+                 launches_parallel_grad=par_grad_counts[r.name])
         if r.name in structure:
             key12 = structure[r.name]
             e.update(pct_of_structure_ceiling=roof["era5"][key12][

@@ -7,6 +7,9 @@ and few (N ~ 10^2).  A sum all-reduce over the 'x' axis moves N floats a
 snapshot and channel, and the finish (the lt/gt flip and the re-pairing
 of decreasing bins) runs replicated.  The finish is linear, so this is
 JAX's local bincount, ``psum``, ``cdf_from_hist`` in the same order.
+Where a weight needs a gradient, the launch goes through the K2 Function
+(:class:`..ops.histogram._WeightedCDF`), whose (B, N) channels are summed
+in one all-reduce.
 """
 
 from __future__ import annotations
@@ -18,7 +21,6 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops.histogram import _ascending_cdf, _finish
 from . import _comm
-from ._grad import no_grad_inputs
 from .mesh import X
 
 
@@ -30,8 +32,9 @@ def sharded_weighted_cdf_multi(values: torch.Tensor, bins: torch.Tensor,
 
     values : the rank's (..., Ny, Nx_local) block; bins : (N,) or (..., N),
     replicated over 'x'; each weight broadcastable to the local block.
-    Returns a list of (..., N) tensors, replicated over 'x'."""
-    no_grad_inputs("sharded_weighted_cdf", values, bins, *weights_list)
+    Returns a list of (..., N) tensors, replicated over 'x'.  A weight's
+    gradient is its cotangent on the rank's cells (JAX's ``psum`` of the
+    local CDF, transposed); values and bins get none."""
     asc, bincrease, batch_shape = _ascending_cdf(values, bins, weights_list)
     asc = _comm.sum_(asc, mesh.get_group(X))
     return [c.reshape(batch_shape + (c.shape[-1],))

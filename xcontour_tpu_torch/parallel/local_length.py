@@ -10,7 +10,10 @@ the window list padded with NaN rows to a multiple of the axis (as JAX
 pads it with NaN levels); a second gather joins the blocks, so every rank
 returns the whole (Wy, Wx) lengths, as JAX's global output is.  The
 window means (the levels) come from the integral images, replicated:
-recomputing them everywhere is cheaper than sending them.
+recomputing them everywhere is cheaper than sending them.  Where an input
+needs a gradient, K8 runs through its autograd Function
+(:class:`..diagnostics.local_length._LocalLengths`), and the gathers'
+backwards return each rank its columns' share of the field's cotangent.
 """
 
 from __future__ import annotations
@@ -20,11 +23,12 @@ from typing import Optional
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..diagnostics.local_length import _window_centers, rolling_mean
+from ..diagnostics.local_length import (_LocalLengths, _window_centers,
+                                        rolling_mean)
 from ..kernels import length as _k8
+from ..kernels import needs_grad
 from ..utils.constants import Rearth as _REARTH
 from . import _comm
-from ._grad import no_grad_inputs
 from .mesh import X, axis_size
 
 
@@ -40,8 +44,10 @@ def sharded_local_lengths(data: torch.Tensor, ydef: torch.Tensor,
     data : the rank's (Ny, Nx_local) block of the snapshot; ydef/xdef :
     the whole coordinates.  Returns (lengths (Wy, Wx), window-centre y, x),
     the same on every rank and equal to
-    :func:`..diagnostics.local_length.local_contour_lengths`."""
-    no_grad_inputs("sharded_local_lengths", data, levels)
+    :func:`..diagnostics.local_length.local_contour_lengths`.  The lengths
+    are replicated over 'x', so a loss on them counts once per mesh
+    (:func:`.mesh.once_per_mesh`); ``levels``' gradient on a rank is its
+    share (the shares add up over 'x')."""
     group = mesh.get_group(X)
     nsh, idx = axis_size(mesh, X), mesh.get_local_rank(X)
     d = _comm.all_gather(data, group, dim=1).contiguous()     # (Ny, Nx)
@@ -58,10 +64,16 @@ def sharded_local_lengths(data: torch.Tensor, ydef: torch.Tensor,
     mine = levels.new_full((rows, Wx), float("nan"))
     if r1 > r0:
         span = slice(r0 * stride, (r1 - 1) * stride + window)
-        mine[:r1 - r0] = _k8.local_lengths(
-            d[span].contiguous(), levels[r0:r1].contiguous(),
-            yc[span].contiguous(), xc, window=window, stride=stride,
-            latlon=latlon)
+        args = (d[span].contiguous(), levels[r0:r1].contiguous(),
+                yc[span].contiguous(), xc)
+        kw = dict(window=window, stride=stride, latlon=latlon)
+        if needs_grad(*args):
+            mine[:r1 - r0] = _LocalLengths.apply(*args, kw)
+        else:
+            mine[:r1 - r0] = _k8.local_lengths(*args, **kw)
+    else:
+        # no windows here, but both gathers' backwards run here too
+        mine = _comm.keep(mine, group, d, levels)
     totals = _comm.all_gather(mine, group, dim=0)[:Wy]
     lengths = torch.where(torch.isnan(levels) | (totals == 0),
                           torch.full_like(totals, float("nan")), totals)

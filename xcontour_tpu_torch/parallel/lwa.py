@@ -8,7 +8,10 @@ replicated (O(Ny)).  The weight's normalization needs the GLOBAL area
 maximum, wei = dA / nanmax(dA) (reference core.py:723-724), so the weight
 is composed from the whole dA before each rank takes its columns.  On the
 card the local call launches K3 ('auto'/'lin'), K5 (LWA2 'lin') or K4
-('dense' and part selections) on the slab.
+('dense' and part selections) on the slab, through their autograd
+Function where an input needs a gradient.  The gradient of a replicated
+input (Q, dA, a weight) on a rank is its slab's share: the shares add up
+over 'x' to ``jax.grad``'s, as the pipelines' collectives add them.
 """
 
 from __future__ import annotations
@@ -19,12 +22,10 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..diagnostics import lwa as _lwa
-from ._grad import no_grad_inputs
 from .mesh import x_block
 
 
 def _sharded(q, Q, dA, ydef, mesh, increase, part, weight, method, variant2):
-    no_grad_inputs("sharded_local_wave_activity", q, Q, dA, weight)
     if weight is None:
         weight = dA / _lwa.nanmax(dA) * dA
     nxl = q.shape[-1]

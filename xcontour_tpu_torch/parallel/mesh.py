@@ -149,6 +149,16 @@ def axis_size(mesh: DeviceMesh, name: str) -> int:
     return mesh.shape[mesh.mesh_dim_names.index(name)]
 
 
+def once_per_mesh(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """``t``, an output replicated over 'x', weighted by 1 / size('x') for
+    a rank's loss: the x ranks' losses then add up to the loss of the
+    whole arrays that ``jax.grad`` differentiates, which counts a
+    replicated output once.  An x-sharded block is summed into the loss
+    as it is."""
+    n = axis_size(mesh, X)
+    return t if n == 1 else t / n
+
+
 def x_block(mesh: DeviceMesh, a, nxl: int):
     """This rank's ``nxl`` columns of a replicated (..., Nx) array."""
     i = mesh.get_local_rank(X)

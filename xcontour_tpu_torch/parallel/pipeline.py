@@ -26,7 +26,17 @@ unsharded twin in ``..pipeline``, and runs:
 
 Outputs in :data:`X_SHARDED` are the rank's x block of a plane field;
 every other output is replicated over 'x'.  Masks passed in are whole
-(Ny, Nx).  Gradients are not carried through (forward only).
+(Ny, Nx).
+
+Gradients go through every step as ``jax.grad`` goes through the
+unsharded one: the halo stencil (K1's Function, the halo's cotangent
+shifted back), the levels (the min/max's cotangent split over the tied
+cells of every rank), the conditional integrals (K2's Function, the
+cotangents summed over 'x'), the replicated tail, and LWA on each slab
+(the LWA kernels' Function).  A supplied ``grdS`` that requires grad is
+differentiated too.  Each rank differentiates a loss on its own outputs,
+counting a replicated output once per mesh (:func:`.mesh.once_per_mesh`);
+its ``.backward()`` then yields its block of the tracer's gradient.
 """
 
 from __future__ import annotations
@@ -39,8 +49,8 @@ from torch.distributed.device_mesh import DeviceMesh
 from .. import core
 from .. import pipeline as _p
 from ..grid import Grid
+from ..kernels import needs_grad
 from . import _comm
-from ._grad import no_grad_inputs
 from .histogram import sharded_weighted_cdf_multi
 from .length import sharded_contour_lengths
 from .lwa import sharded_local_wave_activity, sharded_local_wave_activity2
@@ -54,11 +64,18 @@ X_SHARDED = frozenset({"lwa", "lwa2"})
 def sharded_contours(tracer: torch.Tensor, N: int, mesh: DeviceMesh, *,
                      increase: bool = True):
     """:func:`..core.cal_contours` of the whole snapshots from the rank's
-    block: the local extrema reduced over 'x'."""
+    block: the local extrema reduced over 'x'.  An extremum's cotangent is
+    split equally over the cells that attain it, on every rank (JAX's
+    min/max split between ties)."""
     group = mesh.get_group(X)
     mmin, mmax = core.masked_extrema(tracer)
-    return core.levels_from_extrema(_comm.min_(mmin, group),
-                                    _comm.max_(mmax, group), N,
+    ties = [None, None]
+    if _comm.size(group) > 1 and needs_grad(tracer):
+        # the cells each local extremum stands for
+        ties = [(tracer == m[..., None, None]).sum(dim=(-2, -1))
+                for m in (mmin, mmax)]
+    return core.levels_from_extrema(_comm.min_(mmin, group, ties[0]),
+                                    _comm.max_(mmax, group, ties[1]), N,
                                     increase=increase)
 
 
@@ -104,7 +121,6 @@ def sharded_keff_pipeline(tracer: torch.Tensor, grid: Grid, mesh: DeviceMesh,
     the block's, ``mask`` whole.  hist=False sums the broadcast integrals
     of each slab over 'x' (the table from the whole grid)."""
     _p._check_modes(lmin=lmin)
-    no_grad_inputs("sharded_keff_pipeline", tracer, grdS)
     ydef, dA, dA_l, mask = _setup(tracer, grid, mesh, mask)
     if grdS is None:
         grdS = sharded_squared_gradient(tracer, grid, mesh)
@@ -145,7 +161,6 @@ def sharded_lwa_pipeline(tracer: torch.Tensor, grid: Grid, mesh: DeviceMesh,
     """:func:`..pipeline.lwa_pipeline` on the rank's block: LWA (K3) and
     LWA2 (K5) on each slab for 'auto'."""
     _p._check_modes(metric=metric)
-    no_grad_inputs("sharded_lwa_pipeline", tracer)
     ydef, dA, dA_l, mask = _setup(tracer, grid, mesh, mask)
     weight = _p._lwa_weight(metric, grid, dA)
     if table is None:
@@ -175,7 +190,6 @@ def sharded_keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
     path: K1 on the halo-extended slab, K2 once for the table (unless
     given) and once for the two integrals, K3 (or K4) on the slab."""
     _p._check_modes(lmin=lmin, metric=metric)
-    no_grad_inputs("sharded_keff_lwa_pipeline", tracer, grdS)
     ydef, dA, dA_l, mask = _setup(tracer, grid, mesh, mask)
     if grdS is None:
         grdS = sharded_squared_gradient(tracer, grid, mesh)
@@ -214,7 +228,6 @@ def sharded_clength_pipeline(tracer: torch.Tensor, grid: Grid,
     integrals in one K2 launch and one sum over 'x', the perimeters by
     :func:`.length.sharded_contour_lengths` (K7 on each slab plus its
     halo column)."""
-    no_grad_inputs("sharded_clength_pipeline", tracer)
     ydef, dA, dA_l, mask = _setup(tracer, grid, mesh, mask)
     qy, qx = sharded_gradient(tracer, grid, mesh)
     grdS = qx * qx + qy * qy

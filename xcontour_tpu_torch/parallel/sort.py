@@ -19,7 +19,6 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops.sort import exact_conditional_integral
 from . import _comm
-from ._grad import no_grad_inputs
 from .mesh import X
 
 
@@ -31,7 +30,5 @@ def sharded_exact_conditional_integral(
     values : the rank's (B_local, Ny, Nx_local) block; weights : its block
     or broadcastable to it; bins : (N,) replicated or (B_local, N).
     Returns (B_local, N), replicated over 'x'."""
-    no_grad_inputs("sharded_exact_conditional_integral", values, bins,
-                   weights)
     part = exact_conditional_integral(values, bins, weights, lt)
     return _comm.sum_(part, mesh.get_group(X))

@@ -10,9 +10,12 @@ operation, and where the global grid is not periodic the first and last
 rank add no halo on their outer side, so their edge columns get the
 one-sided difference of the global edges.  :func:`sharded_squared_gradient`
 runs K1 on the extended slab (on the card; its plain version on the CPU),
-so each cell gets the same bits as the unsharded K1; :func:`sharded_gradient`
-(for ``clength``) the plain differences of ``ops.stencil.gradient``.  The
-y boundary is the grid's ``bc_y``, as unsharded.
+so each cell gets the same bits as the unsharded K1, through K1's
+autograd Function (:class:`..ops.stencil._SquaredGradient`) where ``q``
+needs a gradient; :func:`sharded_gradient` (for ``clength``) the plain
+differences of ``ops.stencil.gradient``.  The y boundary is the grid's
+``bc_y``, as unsharded.  A halo column's cotangent goes back to the
+neighbour that sent it through the shift's backward.
 """
 
 from __future__ import annotations
@@ -21,11 +24,11 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..grid import Grid
+from ..kernels import needs_grad
 from ..kernels import stencil as _k1
 from ..kernels.stencil import _centered_x, _centered_y
-from ..ops.stencil import _spacing
+from ..ops.stencil import _SquaredGradient, _spacing
 from . import _comm
-from ._grad import no_grad_inputs
 from .mesh import X, axis_size
 
 
@@ -49,7 +52,11 @@ def _halo(q: torch.Tensor, grid: Grid, mesh: DeviceMesh):
     x0 = idx * nxl - int(left)
     cols = torch.arange(x0, x0 + nxl + int(left) + int(right),
                         device=q.device) % (nxl * nsh)
-    return torch.cat(parts, dim=-1), cols, slice(int(left), int(left) + nxl)
+    # a global edge's dropped column still joins its shift's backward
+    ext = _comm.keep(torch.cat(parts, dim=-1), group,
+                     *(h for h, used in ((from_left, left),
+                                         (from_right, right)) if not used))
+    return ext, cols, slice(int(left), int(left) + nxl)
 
 
 def sharded_squared_gradient(q: torch.Tensor, grid: Grid,
@@ -58,21 +65,23 @@ def sharded_squared_gradient(q: torch.Tensor, grid: Grid,
     :func:`..ops.stencil.squared_gradient` of the whole grid on these
     columns.  Each shard must hold at least 2 columns where x is not
     periodic."""
-    no_grad_inputs("sharded_squared_gradient", q)
     ext, cols, own = _halo(q, grid, mesh)
     dy, dx = _spacing(grid, q.dtype)
     Ny = q.shape[-2]
     rdx = (1.0 / dx)[:, cols].contiguous()
     rdy = (1.0 / dy).contiguous()
-    out = _k1.squared_gradient(ext.reshape(-1, Ny, ext.shape[-1]).contiguous(),
-                               rdx, rdy, periodic_x=False, bc_y=grid.bc_y)
+    ef = ext.reshape(-1, Ny, ext.shape[-1]).contiguous()
+    kw = dict(periodic_x=False, bc_y=grid.bc_y)
+    if needs_grad(ef, rdx, rdy):
+        out = _SquaredGradient.apply(ef, rdx, rdy, kw)
+    else:
+        out = _k1.squared_gradient(ef, rdx, rdy, **kw)
     return out[..., own].reshape(q.shape)
 
 
 def sharded_gradient(q: torch.Tensor, grid: Grid, mesh: DeviceMesh):
     """(dq/dy, dq/dx) of the rank's block, equal to
     :func:`..ops.stencil.gradient` of the whole grid on these columns."""
-    no_grad_inputs("sharded_gradient", q)
     ext, cols, own = _halo(q, grid, mesh)
     dy, dx = _spacing(grid, q.dtype)
     qx = _centered_x(ext, False)[..., own] / dx[:, cols[own]]
