@@ -1,0 +1,7 @@
+"""K7's share of its bound: the frozen work of every launch in the
+traced window, at the H100 SXM's published peaks, over K7's device time
+(kernels/K7.json)."""
+
+
+def read(tr):
+    return tr.roofline("K7")
