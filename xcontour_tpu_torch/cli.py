@@ -52,7 +52,7 @@ import torch
 from . import pipeline, runner
 from .grid import from_latlon, to_numpy
 from .utils.ncio import Dataset, load_dataset
-from .utils.prof import annotate
+from .utils import prof
 from .xcontour import dimXList, dimYList
 
 
@@ -437,7 +437,7 @@ def _run(args, step, grid, tracer, lead_names, lead_shape, lead_coords,
               validate=validate, device=args.device, transfer_dtype=tdt,
               sharding=sharding, x_keys=x_keys)
     lead = sharding is None or torch.distributed.get_rank() == 0
-    with annotate("cli.stream"):
+    with prof.span("cli.stream"):
         if args.stem:
             _check_stem_on(args, tracer, sharding)
             runner.run_batched(chunk_step, tracer, out_stem=args.stem,
@@ -452,7 +452,7 @@ def _run(args, step, grid, tracer, lead_names, lead_shape, lead_coords,
             if not lead:
                 return 0
 
-    with annotate("cli.label"):
+    with prof.span("cli.label"):
         out = {k: np.asarray(v).reshape(lead_shape + np.asarray(v).shape[1:])
                for k, v in out.items()}
         labeled = pipeline.as_dataset(out, grid, pre_y=pre_y,
@@ -473,7 +473,7 @@ def _run(args, step, grid, tracer, lead_names, lead_shape, lead_coords,
                 del labeled.variables[name], labeled.dims[name]
                 labeled.attrs.pop(name, None)
     path = args.out or f"{os.path.splitext(args.input)[0]}_{args.cmd}.nc"
-    with annotate("cli.write"):
+    with prof.span("cli.write"):
         if args.format == "nc3":
             labeled.to_nc3(path)
         else:
@@ -766,7 +766,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     mesh_req = _parse_mesh(args) if args.mesh else None
     if mesh_req and mesh_req[2] and args.device == "cuda":
         torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
-    with annotate("cli.open"):
+    with prof.span("cli.open"):
         tracer, grid, lead_names, lead_shape, lead_coords = _load_field(args)
     if mesh_req is None:
         return _steps(args, tracer, grid, lead_names, lead_shape,

@@ -28,6 +28,7 @@ from .ops.stencil import gradient, squared_gradient
 from .utils.coarsen import coarsen
 from .utils.constants import Rearth as _REARTH
 from .utils.ncio import Dataset
+from .utils.prof import span, spanned
 
 _LMIN = ("analytic", "dxF", "frac")
 
@@ -71,6 +72,7 @@ def _lwa_weight(metric: str, grid: Grid, dA):
     return dA / _lwa.nanmax(dA) * grid.dyF.to(dA.dtype)
 
 
+@spanned("pipeline.keff_pipeline")
 def keff_pipeline(tracer: torch.Tensor, grid: Grid,
                   grdS: Optional[torch.Tensor] = None,
                   mask: Optional[torch.Tensor] = None,
@@ -99,35 +101,44 @@ def keff_pipeline(tracer: torch.Tensor, grid: Grid,
     if mask is None:
         mask = grid.fluid_mask(dtype)
     if grdS is None:
-        grdS = squared_gradient(tracer, grid)
+        with span("stage.gradient"):
+            grdS = squared_gradient(tracer, grid)
 
-    ctr = core.cal_contours(tracer, N, increase=increase)
-    if hist:
-        if table is None:
-            table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
-                                                     increase=increase, lt=lt)
-        intArea, intgrdS = weighted_cdf_multi(tracer, ctr, [dA, grdS * dA], lt)
-    else:
-        if table is None:
-            table = core.cal_area_eqCoord_table(mask, ydef, dA,
-                                                increase=increase, lt=lt)
-        intArea = core.cal_integral_within_contours(tracer, ctr, dA, lt=lt)
-        intgrdS = core.cal_integral_within_contours(tracer, ctr, dA, grdS,
-                                                    lt=lt)
-    Yeq = table.lookup_coordinates(intArea)
-    Lmin = _lmin(lmin, Yeq, grid, mask, ydef)
-    k = _keff(ctr, intArea, intgrdS, Lmin, nkeff_mask)
+    with span("stage.contours"):
+        ctr = core.cal_contours(tracer, N, increase=increase)
+    if table is None:
+        with span("stage.table"):
+            build = core.cal_area_eqCoord_table_hist if hist else \
+                core.cal_area_eqCoord_table
+            table = build(mask, ydef, dA, increase=increase, lt=lt)
+    with span("stage.cdf"):
+        if hist:
+            intArea, intgrdS = weighted_cdf_multi(tracer, ctr,
+                                                  [dA, grdS * dA], lt)
+        else:
+            intArea = core.cal_integral_within_contours(tracer, ctr, dA,
+                                                        lt=lt)
+            intgrdS = core.cal_integral_within_contours(tracer, ctr, dA,
+                                                        grdS, lt=lt)
+    with span("stage.lookup"):
+        Yeq = table.lookup_coordinates(intArea)
+    with span("stage.lmin"):
+        Lmin = _lmin(lmin, Yeq, grid, mask, ydef)
+    with span("stage.keff"):
+        k = _keff(ctr, intArea, intgrdS, Lmin, nkeff_mask)
     origin = dict(contour=ctr, intArea=intArea, Yeq=Yeq, intgrdS=intgrdS,
                   dgrdSdA=k["dgrdSdA"], dqdA=k["dqdA"], Leq2=k["Leq2"],
                   Lmin=Lmin, nkeff=k["nkeff"], table=table.values)
     out = dict(origin=origin)
     if pre_y is not None:
-        pre_y = pre_y.to(dtype)
-        out["interp"] = {key: core.interp_to_coords(pre_y, Yeq, v)
-                         for key, v in origin.items() if key != "table"}
+        with span("stage.interp"):
+            pre_y = pre_y.to(dtype)
+            out["interp"] = {key: core.interp_to_coords(pre_y, Yeq, v)
+                             for key, v in origin.items() if key != "table"}
     return out
 
 
+@spanned("pipeline.lwa_pipeline")
 def lwa_pipeline(tracer: torch.Tensor, grid: Grid,
                  mask: Optional[torch.Tensor] = None, *, N: int = 121,
                  increase: bool = True, lt: bool = True, part: str = "all",
@@ -153,19 +164,27 @@ def lwa_pipeline(tracer: torch.Tensor, grid: Grid,
         mask = grid.fluid_mask(dtype)
 
     if table is None:
-        table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
-                                                 increase=increase, lt=lt)
-    ctr = core.cal_contours(tracer, N, increase=increase)
-    intArea = core.cal_integral_within_contours_hist(tracer, ctr, dA, lt=lt)
-    latEq = table.lookup_coordinates(intArea)
-    Q = core.interp_to_coords(ydef, latEq, ctr)
+        with span("stage.table"):
+            table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
+                                                     increase=increase, lt=lt)
+    with span("stage.contours"):
+        ctr = core.cal_contours(tracer, N, increase=increase)
+    with span("stage.cdf"):
+        intArea = core.cal_integral_within_contours_hist(tracer, ctr, dA,
+                                                         lt=lt)
+    with span("stage.lookup"):
+        latEq = table.lookup_coordinates(intArea)
+    with span("stage.interp"):
+        Q = core.interp_to_coords(ydef, latEq, ctr)
     kw = dict(increase=increase, part=part, weight=weight, method=lwa_method)
-    lwa = _lwa.local_wave_activity(tracer, Q, dA, ydef, **kw)
-    lwa2 = _lwa.local_wave_activity2(tracer, Q, dA, ydef, **kw)
+    with span("stage.lwa"):
+        lwa = _lwa.local_wave_activity(tracer, Q, dA, ydef, **kw)
+        lwa2 = _lwa.local_wave_activity2(tracer, Q, dA, ydef, **kw)
     return dict(contour=ctr, intArea=intArea, latEq=latEq, Q=Q, lwa=lwa,
                 lwa2=lwa2)
 
 
+@spanned("pipeline.keff_lwa_pipeline")
 def keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
                       grdS: Optional[torch.Tensor] = None,
                       mask: Optional[torch.Tensor] = None,
@@ -198,33 +217,48 @@ def keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
     if mask is None:
         mask = grid.fluid_mask(dtype)
     if grdS is None:
-        grdS = squared_gradient(tracer, grid)
+        with span("stage.gradient"):
+            grdS = squared_gradient(tracer, grid)
 
     if table is None:
-        table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
-                                                 increase=increase, lt=lt)
-    ctr = core.cal_contours(tracer, N, increase=increase)
+        with span("stage.table"):
+            table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
+                                                     increase=increase, lt=lt)
+    with span("stage.contours"):
+        ctr = core.cal_contours(tracer, N, increase=increase)
     # the area and |grad q|^2 integrals share one digitize pass
-    intArea, intgrdS = weighted_cdf_multi(tracer, ctr, [dA, grdS * dA], lt)
-    Yeq = table.lookup_coordinates(intArea)
-    Lmin = _lmin(lmin, Yeq, grid, mask, ydef)
-    k = _keff(ctr, intArea, intgrdS, Lmin, 2e7)
+    with span("stage.cdf"):
+        intArea, intgrdS = weighted_cdf_multi(tracer, ctr, [dA, grdS * dA],
+                                              lt)
+    with span("stage.lookup"):
+        Yeq = table.lookup_coordinates(intArea)
+    with span("stage.lmin"):
+        Lmin = _lmin(lmin, Yeq, grid, mask, ydef)
+    with span("stage.keff"):
+        k = _keff(ctr, intArea, intgrdS, Lmin, 2e7)
 
-    Q = core.interp_to_coords(ydef, Yeq, ctr)
+    with span("stage.interp"):
+        Q = core.interp_to_coords(ydef, Yeq, ctr)
     kw = dict(increase=increase, part="all",
               weight=_lwa_weight(metric, grid, dA), method=lwa_method)
-    lwa = _lwa.local_wave_activity(tracer, Q, dA, ydef, **kw)
+    with span("stage.lwa"):
+        lwa = _lwa.local_wave_activity(tracer, Q, dA, ydef, **kw)
     out = dict(contour=ctr, intArea=intArea, intgrdS=intgrdS, Yeq=Yeq,
                Lmin=Lmin, Leq2=k["Leq2"], nkeff=k["nkeff"], Q=Q, lwa=lwa)
     if with_lwa2:
-        out["lwa2"] = _lwa.local_wave_activity2(tracer, Q, dA, ydef, **kw)
+        with span("stage.lwa"):
+            out["lwa2"] = _lwa.local_wave_activity2(tracer, Q, dA, ydef,
+                                                    **kw)
     if pre_y is not None:
-        pre_y = pre_y.to(dtype)
-        for key in ("Leq2", "nkeff", "Lmin"):
-            out[key + "_at"] = core.interp_to_coords(pre_y, Yeq, out[key])
+        with span("stage.interp"):
+            pre_y = pre_y.to(dtype)
+            for key in ("Leq2", "nkeff", "Lmin"):
+                out[key + "_at"] = core.interp_to_coords(pre_y, Yeq,
+                                                         out[key])
     return out
 
 
+@spanned("pipeline.clength_pipeline")
 def clength_pipeline(tracer: torch.Tensor, grid: Grid,
                      mask: Optional[torch.Tensor] = None, *, N: int = 121,
                      increase: bool = True, lt: bool = True,
@@ -248,35 +282,44 @@ def clength_pipeline(tracer: torch.Tensor, grid: Grid,
     dA = grid.dA.to(dtype)
     if mask is None:
         mask = grid.fluid_mask(dtype)
-    qy, qx = gradient(tracer, grid)
-    grdS = qx * qx + qy * qy
-    grdm = torch.sqrt(grdS)
+    with span("stage.gradient"):
+        qy, qx = gradient(tracer, grid)
+        grdS = qx * qx + qy * qy
+        grdm = torch.sqrt(grdS)
 
     if table is None:
-        table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
-                                                 increase=increase, lt=lt)
-    ctr = core.cal_contours(tracer, N, increase=increase)
+        with span("stage.table"):
+            table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
+                                                     increase=increase, lt=lt)
+    with span("stage.contours"):
+        ctr = core.cal_contours(tracer, N, increase=increase)
     # the weights as cal_contour_mean_hist forms them: (f * grdm) * dA
-    intArea, intgrdS, int_gg, int_g, int_ig = weighted_cdf_multi(
-        tracer, ctr, [dA, grdS * dA, (grdm * grdm) * dA, grdm * dA,
-                      ((1.0 / grdm) * grdm) * dA], lt)
-    Yeq = table.lookup_coordinates(intArea)
+    with span("stage.cdf"):
+        intArea, intgrdS, int_gg, int_g, int_ig = weighted_cdf_multi(
+            tracer, ctr, [dA, grdS * dA, (grdm * grdm) * dA, grdm * dA,
+                          ((1.0 / grdm) * grdm) * dA], lt)
+    with span("stage.lookup"):
+        Yeq = table.lookup_coordinates(intArea)
 
-    lengths = contour_lengths(tracer, ctr, grid.ydef, grid.xdef,
-                              latlon=grid.latlon)
-    Lmin = _lmin("frac", Yeq, grid, mask, ydef)
-    # the contour means divide as cal_contour_mean_hist does
-    lower = core.cal_gradient_wrt_area(int_g, intArea)
-    cmGrd = core.grad_safe_div(core.cal_gradient_wrt_area(int_gg, intArea),
-                               lower)
-    cmInvGrd = core.grad_safe_div(core.cal_gradient_wrt_area(int_ig, intArea),
-                                  lower)
-    k = _keff(ctr, intArea, intgrdS, Lmin, 1e5)
+    with span("stage.lengths"):
+        lengths = contour_lengths(tracer, ctr, grid.ydef, grid.xdef,
+                                  latlon=grid.latlon)
+    with span("stage.lmin"):
+        Lmin = _lmin("frac", Yeq, grid, mask, ydef)
+    with span("stage.keff"):
+        # the contour means divide as cal_contour_mean_hist does
+        lower = core.cal_gradient_wrt_area(int_g, intArea)
+        cmGrd = core.grad_safe_div(
+            core.cal_gradient_wrt_area(int_gg, intArea), lower)
+        cmInvGrd = core.grad_safe_div(
+            core.cal_gradient_wrt_area(int_ig, intArea), lower)
+        k = _keff(ctr, intArea, intgrdS, Lmin, 1e5)
     return dict(contour=ctr, intArea=intArea, Yeq=Yeq, lengths=lengths,
                 Lmin=Lmin, Leq2=k["Leq2"], nkeff=k["nkeff"], cmGrd=cmGrd,
                 cmInvGrd=cmInvGrd)
 
 
+@spanned("pipeline.fractal_pipeline")
 def fractal_pipeline(tracer: torch.Tensor, grid: Grid, *, N: int = 121,
                      strides=(1, 2, 4, 8, 16, 32), increase: bool = True,
                      lt: bool = True, box_counting: bool = True,
@@ -296,30 +339,41 @@ def fractal_pipeline(tracer: torch.Tensor, grid: Grid, *, N: int = 121,
     mask = grid.fluid_mask(dtype)
 
     if table is None:
-        table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
-                                                 increase=increase, lt=lt)
-    ctr = core.cal_contours(tracer, N, increase=increase)
-    intArea = core.cal_integral_within_contours_hist(tracer, ctr, dA, lt=lt)
-    Yeq = table.lookup_coordinates(intArea)
+        with span("stage.table"):
+            table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
+                                                     increase=increase, lt=lt)
+    with span("stage.contours"):
+        ctr = core.cal_contours(tracer, N, increase=increase)
+    with span("stage.cdf"):
+        intArea = core.cal_integral_within_contours_hist(tracer, ctr, dA,
+                                                         lt=lt)
+    with span("stage.lookup"):
+        Yeq = table.lookup_coordinates(intArea)
 
     lengths = []
     for s in strides:
-        ys = ydef if s == 1 else ydef.reshape(-1, s).mean(dim=1)
-        xs = xdef if s == 1 else xdef.reshape(-1, s).mean(dim=1)
-        lengths.append(contour_lengths(coarsen(tracer, s), ctr, ys, xs,
-                                       latlon=grid.latlon))
+        with span("stage.coarsen"):
+            ys = ydef if s == 1 else ydef.reshape(-1, s).mean(dim=1)
+            xs = xdef if s == 1 else xdef.reshape(-1, s).mean(dim=1)
+            qs = coarsen(tracer, s)
+        with span("stage.lengths"):
+            lengths.append(contour_lengths(qs, ctr, ys, xs,
+                                           latlon=grid.latlon))
     L = torch.stack(lengths, dim=-1)                   # (..., N, S)
 
-    reso = grid.xdef[1] - grid.xdef[0]
-    rulers = (torch.as_tensor(strides, dtype=dtype, device=tracer.device)
-              * torch.cos(torch.deg2rad(Yeq))[..., None]
-              * torch.deg2rad(reso).to(dtype) * _REARTH)
-    out = dict(contour=ctr, Yeq=Yeq, lengths=L, rulers=rulers,
-               D=fractal_dimension(L, rulers))
+    with span("stage.dimension"):
+        reso = grid.xdef[1] - grid.xdef[0]
+        rulers = (torch.as_tensor(strides, dtype=dtype, device=tracer.device)
+                  * torch.cos(torch.deg2rad(Yeq))[..., None]
+                  * torch.deg2rad(reso).to(dtype) * _REARTH)
+        out = dict(contour=ctr, Yeq=Yeq, lengths=L, rulers=rulers,
+                   D=fractal_dimension(L, rulers))
     if box_counting:
-        bc = contour_crossing(tracer, ctr, dA, list(strides))
-        out["bclens"] = torch.stack(bc, dim=-1)
-        out["D_bc"] = fractal_dimension(out["bclens"], rulers)
+        with span("stage.boxcount"):
+            bc = contour_crossing(tracer, ctr, dA, list(strides))
+            out["bclens"] = torch.stack(bc, dim=-1)
+        with span("stage.dimension"):
+            out["D_bc"] = fractal_dimension(out["bclens"], rulers)
     return out
 
 

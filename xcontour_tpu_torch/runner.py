@@ -45,7 +45,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from .utils.prof import annotate
+from .utils import prof
 
 
 def _failed_path(out_stem: str, k: int) -> str:
@@ -304,7 +304,10 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
     without one), ``'cpu'`` the CPU.  On the card each chunk is read into
     pinned host memory, copied on a dedicated stream, and ``step`` is
     called on this thread's current stream once the copy has landed; so
-    the kernels the step launches run here, on that stream.
+    the kernels the step launches run here, on that stream.  Its stages
+    are spans (``utils.prof.span``): ``runner.read`` and ``runner.pin`` on
+    the read thread; ``runner.wait`` (for the chunk's copy), ``runner.step``,
+    ``runner.fetch`` and ``runner.write`` on this one.
 
     ``sharding`` (a ``parallel.mesh.BlockSpec``, from
     ``parallel.shard_batch_spec(mesh, 3)``) runs the chunks over a mesh.
@@ -385,15 +388,18 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
         copy into a (pinned) host tensor -- ALL host-side work.  Pinned
         blocks come from torch's caching host allocator, which reuses one
         only after the copy that read it has completed."""
-        arr = mesh.read(snapshots, k * batch, T)
-        if wire is not None:
-            _check_wire_range(arr, wire)
-            host = torch.empty(arr.shape, dtype=torch.int16, pin_memory=cuda)
-            _to_wire(arr, wire, host)
-        else:
-            host = torch.empty(arr.shape, dtype=_torch_dtype(arr.dtype),
-                               pin_memory=cuda)
-            np.copyto(host.numpy(), arr)
+        with prof.span("runner.read"):
+            arr = mesh.read(snapshots, k * batch, T)
+        with prof.span("runner.pin"):
+            if wire is not None:
+                _check_wire_range(arr, wire)
+                host = torch.empty(arr.shape, dtype=torch.int16,
+                                   pin_memory=cuda)
+                _to_wire(arr, wire, host)
+            else:
+                host = torch.empty(arr.shape, dtype=_torch_dtype(arr.dtype),
+                                   pin_memory=cuda)
+                np.copyto(host.numpy(), arr)
         return host
 
     def ship(read_fut):
@@ -430,7 +436,7 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
     def compute(x):
         """The step on the chunk (a rank's block of it), its outputs
         checked for a snapshot axis."""
-        with annotate("runner.step"):
+        with prof.span("runner.step"):
             out = step(x)
         bad = [key for key, v in out.items() if getattr(v, "ndim", 1) == 0]
         if bad:
@@ -494,7 +500,7 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
                     err, code = e, _FAIL
                 code = mesh.agree(code)
             if code == _OK:
-                with annotate("runner.fetch"):
+                with prof.span("runner.fetch"):
                     whole = mesh.gather(out, x_keys)
                     if mesh.lead:
                         try:
@@ -545,7 +551,8 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
             # machinery as a compute failure
             shipped, wire_err = None, None
             try:
-                shipped = pending_ship[1].result()
+                with prof.span("runner.wait"):
+                    shipped = pending_ship[1].result()
             except WireRangeError as e:
                 wire_err = e  # every rank hears of it before it raises
             except Exception as e:  # noqa: BLE001 -- re-read under retries
@@ -592,7 +599,7 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
                 f"in {dt:.3f}s ({nvalid / dt:.1f}/s)")
 
             if path:
-                with annotate("runner.write"):
+                with prof.span("runner.write"):
                     tmp = path + ".tmp.npz"
                     np.savez(tmp, **out_np)
                     os.replace(tmp, path)  # atomic: complete or absent
