@@ -42,7 +42,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      ranges), K8 on an ERA5 level at windows 101 / stride 7 and 64 / 10
      (window - 1 not a multiple of the stride), 101 / 40 and 161 / 80
      (strides past 32 and 64) and 31 / 45 (a stride past the window), K7
-     at 5,000 levels;
+     at 5,000 levels; the archive decode D (``kernels.decode``) on raw
+     planes of the benchmark archive's chunk (16x721x1440) in six layouts
+     (big-endian float32 with the latitude flipped, masked, into float64,
+     from big-endian float64, little-endian unflipped, Nx 1439) against its
+     plain version on the card and the host path's chunk, bit for bit;
   4. the paths: for each, every launch count set to 0 just before it and
      read just after; a path fails if a kernel it runs was not launched.
      K2's counts must be exact: one launch per step and one per table
@@ -75,7 +79,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      device time of each CUDA kernel K3 and K5 launch (prep against
      surface kernel, torch.profiler) and the SM clock and power that
      nvidia-smi samples under K3 and K4; snapshots/s of each streamed step,
-     peak device memory of each path;
+     peak device memory of each path; D in its six layouts in turns with
+     its plain version and Tensor.copy_ of its output (device times);
   7. gradients: every kernel wrapper raises on a CUDA tensor that requires
      grad; each autograd Function (K1-K8) on the card: its forward against
      the wrapper's bits (K2 within its bound: float atomics) and its
@@ -127,13 +132,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      ERA5-width archive: pv(time=6, level=15, 721, 1440) float32, latitude
      stored descending, written as nc3 into a temporary directory.
      ``keff-lwa -N 241 --batch 15`` in process with --stem and in memory
-     (K1 once, K2 twice and K3 once a chunk), each against
+     (K1 once, K2 twice, K3 once and D once a chunk), each against
      keff_lwa_pipeline on the same snapshots by phase 9's comparator, the
      latitude ascending; end-to-end snapshots/s (host clock around
      cli.main, the open and the nc3 write included), the runner's rate a
      chunk, peak memory, the device's busy share from a utils.prof trace of
-     the in-memory run; each stage alone a chunk (the read and byte swap,
-     the pinned copy, the host-to-device copy and its GB/s, the step, the
+     the in-memory run; each stage alone a chunk (the host path's read and
+     byte swap, the raw path's copy of the file's bytes and its decode, the
+     decoded chunk the host path's bit for bit, the pinned copy, the
+     host-to-device copy and its GB/s, the step, the
      fetch three ways, bit for bit alike, the .npz write) and the step's
      compute-only rate; the CLI as a subprocess killed with SIGKILL once
      two chunks exist and resumed in process (the survivors unchanged, the
@@ -143,7 +150,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      input bit for bit the host rounding, outputs within the JAX suite's
      bounds); lwa ('auto' and 'dense'), keff, clength -N 401 and
      local-length on one time, fractal on the headline grid and lwa
-     'dense' on the tall grid (K6), each with its exact launch counts;
+     'dense' on the tall grid (K6), each with its exact launch counts (D
+     once a chunk, none under --transfer or --mesh);
      --f64 on the card and nc4 without h5py refused with their messages,
      and info;
  11. the sharded path (``xcontour_tpu_torch.parallel``): (a) in this
@@ -200,7 +208,7 @@ import torch
 from xcontour_tpu_torch.utils.roofline import (
     CLASSIFY_INSTR, SEGMENT_INSTR, bound_ms, cdf_work, corner_ranges,
     k7_crossed_pairs, k7_work, kernel_rooflines, lwa_work, nvidia_smi_line,
-    stencil_work)
+    stencil_work, time_alternating)
 
 ERA5 = dict(B=15, nlat=721, nlon=1440, N=241)
 HEADLINE = dict(B=32, nlat=256, nlon=512, N=121)
@@ -387,6 +395,24 @@ DATASET_B = 2
 ARCHIVE = dict(time=6, level=15, nlat=721, nlon=1440, N=241, seed=300)
 CLI_DISK_FACTOR = 4
 WIRE_BOUND = dict(f16=2e-3, bf16=2e-2)
+# phases 3 and 6, the archive decode D (kernels.decode): raw planes of the
+# benchmark archive's chunk (one time of era5_pv16: 16 levels at ERA5
+# width, make_pv's field) in the layouts the CLI meets.  DECODE_CASES:
+# name, file dtype, run dtype, latitude stored descending, a fluid mask,
+# Nx (1439: one cell a lane).  The kernel against its plain version on the
+# same card tensors and against the host path's chunk (_LazyField's
+# field[rows]): NaN at the same cells, every other cell bit for bit.  The
+# bound: each cell's file bytes in and its value out once, the mask's
+# plane once.
+DECODE = dict(B=16, nlat=721, nlon=1440, seed=500)
+DECODE_CASES = (
+    ("be_f4_desc", ">f4", np.float32, True, False, 1440),     # the archive
+    ("be_f4_desc_mask", ">f4", np.float32, True, True, 1440),
+    ("be_f4_desc_f64", ">f4", np.float64, True, False, 1440),  # --f64
+    ("be_f8_desc", ">f8", np.float32, True, False, 1440),
+    ("le_f4_asc", "<f4", np.float32, False, False, 1440),
+    ("be_f4_desc_nx1439", ">f4", np.float32, True, False, 1439),
+)
 # phase 11, the sharded path (xcontour_tpu_torch.parallel): (a) in this
 # process, an NCCL group of one on a ('cuda', (1, 1)) mesh at ERA5 width,
 # each sharded function against its unsharded counterpart (bit for bit,
@@ -969,6 +995,64 @@ def tie_checks(dev):
     _expect(zeros == 64, "K8 breaks the exact-empty rule")
 
 
+def decode_cases(dev):
+    """{name: (kernel, plain, host chunk, (bytes, 0))} of DECODE_CASES: the
+    raw planes of a _LazyField over an ndarray of the file's dtype (the nc3
+    memmap's layout) on the card, their decode by the kernel and by the
+    plain version, and the host path's chunk field[rows]."""
+    from xcontour_tpu_torch import cli
+    from xcontour_tpu_torch.kernels import decode
+    B, Ny = DECODE["B"], DECODE["nlat"]
+    _, _, pv = make_pv(B, Ny, DECODE["nlon"], DECODE["seed"])
+    rng = np.random.default_rng(DECODE["seed"])
+    cases = {}
+    for name, fdt, rdt, flip, masked, Nx in DECODE_CASES:
+        src = np.ascontiguousarray(pv[..., :Nx], dtype=fdt)
+        mask = ((rng.uniform(size=(Ny, Nx)) > 0.1).astype(rdt)
+                if masked else None)
+        f = cli._LazyField(src, ("level", "latitude", "longitude"), {}, None,
+                           (), mask, rdt, flip_y=flip)
+        planes = f.raw_planes()
+        _expect(planes is not None, f"decode {name}: no raw planes offered")
+        raw = np.empty((B, Ny, Nx * src.itemsize), np.uint8)
+        f.raw_into(slice(0, B), raw)
+        raw = torch.from_numpy(raw).to(dev)
+        m = None if planes.mask is None else \
+            torch.from_numpy(planes.mask).to(dev)
+        nbytes = B * Ny * Nx * (src.itemsize + np.dtype(rdt).itemsize) \
+            + (Ny * Nx if masked else 0)
+        cases[name] = (
+            lambda raw=raw, planes=planes, m=m:
+                decode.decode_planes(raw, planes, m),
+            lambda raw=raw, planes=planes, m=m:
+                decode.decode_planes_plain(raw, planes, m),
+            f[0:B], (nbytes, 0))
+    return cases
+
+
+def decode_checks(dev, errs):
+    """Phase 3, D: the kernel (one launch a call) against its plain version
+    on the same card tensors and against the host path's chunk, NaN at the
+    same cells and every other cell bit for bit, at each of DECODE_CASES."""
+    from xcontour_tpu_torch.kernels import decode
+    for name, (kern, plain, want, _) in decode_cases(dev).items():
+        before = decode.KERNEL.launches
+        got = kern()
+        _expect(decode.KERNEL.launches == before + 1,
+                f"decode {name}: {decode.KERNEL.launches - before} launches "
+                "for one call")
+        ok_plain = same_bits(got, plain())
+        ok_host = same_bits(got, torch.from_numpy(want).to(dev))
+        log(f"phase 3 check decode_planes {name} {tuple(got.shape)} "
+            f"{got.dtype}: against the plain version on the card "
+            f"{'bit for bit' if ok_plain else 'FAIL'}, against the host "
+            f"path's chunk {'bit for bit' if ok_host else 'FAIL'} "
+            f"({int(torch.isnan(got).sum())} NaN cells)")
+        _expect(ok_plain and ok_host, f"decode {name}: the kernel's chunk "
+                "differs from the plain version's or the host path's")
+        errs[f"decode_{name}"] = 0.0
+
+
 def limit_checks(dev, era_q, era_grid):
     """The port's launch limits, each against its plain version: K2-K5
     and K7 at a batch of LIMIT_B snapshots of 4x8 (past CUDA's 65,535 grid
@@ -1530,11 +1614,11 @@ def adjoint_ms(loss, q, N):
 
 
 def kernel_records():
-    """K1-K8's launch records."""
-    from xcontour_tpu_torch.kernels import hist, length, lwa, stencil
+    """K1-K8's and the archive decode's launch records."""
+    from xcontour_tpu_torch.kernels import decode, hist, length, lwa, stencil
     return (stencil.KERNEL, hist.KERNEL, lwa.KERNEL_LIN, lwa.KERNEL_DENSE,
             lwa.KERNEL_LIN2, lwa.KERNEL_DENSE_TALL, length.KERNEL_LENGTHS,
-            length.KERNEL_LOCAL_LENGTHS)
+            length.KERNEL_LOCAL_LENGTHS, decode.KERNEL)
 
 
 def kernel_counts():
@@ -2452,20 +2536,46 @@ def fetch_packed(out, dev):
 
 
 def stage_times(tracer, step, dev, tmp):
-    """Each stage of the streamed run alone, chunk by chunk: the read (the
-    memmap slice, the latitude flip and the byte swap of _LazyField), the
-    copy into pinned memory, the host-to-device copy (CUDA events), the step
-    (host clock around it and a synchronize), the fetch three ways (the
-    runner's pinned per-key copies with one synchronize, per-key .cpu(),
-    and the JAX runner's packing), bit for bit alike, and the .npz write."""
+    """Each stage of the streamed run alone, chunk by chunk: the host
+    path's read (the memmap slice, the latitude flip and the byte swap of
+    _LazyField); the raw path's copy of the file's bytes into a pinned
+    block and its decode on the card (CUDA events around the wrapper), the
+    decoded chunk the host path's bit for bit; the host path's copy into
+    pinned memory, the host-to-device copy (CUDA events), the step (host
+    clock around it and a synchronize), the fetch three ways (the runner's
+    pinned per-key copies with one synchronize, per-key .cpu(), and the JAX
+    runner's packing), bit for bit alike, and the .npz write."""
     from xcontour_tpu_torch import runner
+    from xcontour_tpu_torch.kernels import decode
     B = ARCHIVE["level"]
+    planes = tracer.raw_planes()
+    _expect(planes is not None, "phase 10: the archive offers no raw planes")
+    mask = None if planes.mask is None else \
+        torch.from_numpy(planes.mask).to(dev)
     rows = []
     for k in range(tracer.shape[0] // B):
         r = {}
         t0 = time.perf_counter()
         arr = tracer[k * B:(k + 1) * B]
         r["read_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        raw = torch.empty(arr.shape[:-1] + (arr.shape[-1]
+                                             * planes.file_dtype.itemsize,),
+                          dtype=torch.uint8, pin_memory=True)
+        tracer.raw_into(slice(k * B, (k + 1) * B), raw.numpy())
+        r["raw_read_ms"] = 1e3 * (time.perf_counter() - t0)
+        raw = raw.to(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        y = decode.decode_planes(raw, planes, mask)
+        stop.record()
+        torch.cuda.synchronize()
+        r["decode_ms"] = start.elapsed_time(stop)
+        _expect(same_bits(y, torch.from_numpy(arr).to(dev)),
+                f"phase 10 decode: chunk {k} differs from the host path's")
+        del raw, y
         t0 = time.perf_counter()
         host = torch.empty(arr.shape, dtype=torch.float32, pin_memory=True)
         np.copyto(host.numpy(), arr)
@@ -2615,7 +2725,8 @@ def kill_and_resume(drive, none, argv, stem, nchunk, root):
     rc, lines, _ = drive(
         "cli keff-lwa era5 resume", {}, lambda: run_cli(argv),
         exact=dict(none, squared_gradient=missing,
-                   weighted_cdf=2 * missing, lwa_lin=missing))
+                   weighted_cdf=2 * missing, lwa_lin=missing,
+                   decode_planes=missing))
     seconds = time.perf_counter() - t0
     _expect(rc == 0, "phase 10 resume: the CLI failed")
     skipped = sum("exists, skipped" in ln for ln in lines)
@@ -2788,8 +2899,9 @@ def cli_phase(dev, drive, path_counts, peaks, card, then=None):
         S = T * A["level"]
         base = ["keff-lwa", path, "--var", "pv", "-N", str(N), "--batch",
                 str(A["level"]), "--format", "nc3", *dev_args]
+        # the nc3 memmap takes the runner's raw path: one decode a chunk
         per_run = {"squared_gradient": T, "weighted_cdf": 2 * T,
-                   "lwa_lin": T}
+                   "lwa_lin": T, "decode_planes": T}
 
         # the reference: keff_lwa_pipeline on the same snapshots, on the card
         grid = xt.from_latlon(lat, lon, device=dev)
@@ -2823,6 +2935,10 @@ def cli_phase(dev, drive, path_counts, peaks, card, then=None):
         mem, _ = nc_tensors(out_mem, dev)
         os.remove(out_mem)
         cli_vs("keff-lwa in memory", mem, got, "keff-lwa --stem")
+        log(f"phase 10 decode: "
+            f"{path_counts['cli keff-lwa era5 in memory']['decode_planes']} "
+            f"launches for {T} chunks of the in-memory run (the count set to "
+            "0 just before)")
         if then is not None:
             then(path, base, got, T, tmp)
         for name in ("stem", "memory"):
@@ -2910,20 +3026,21 @@ def cli_phase(dev, drive, path_counts, peaks, card, then=None):
         shapes = {}
         for label, cmd, extra, counts, var, shape in (
                 ("lwa", "lwa", [], {"weighted_cdf": 2, "lwa_lin": 1,
-                                    "lwa_lin2": 1}, "lwa2",
-                 (A["level"], A["nlat"], A["nlon"])),
+                                    "lwa_lin2": 1, "decode_planes": 1},
+                 "lwa2", (A["level"], A["nlat"], A["nlon"])),
                 ("lwa dense", "lwa", ["--lwa-method", "dense"],
-                 {"weighted_cdf": 2, "lwa_dense": 2}, "lwa",
-                 (A["level"], A["nlat"], A["nlon"])),
+                 {"weighted_cdf": 2, "lwa_dense": 2, "decode_planes": 1},
+                 "lwa", (A["level"], A["nlat"], A["nlon"])),
                 ("keff", "keff", [], {"squared_gradient": 1,
-                                      "weighted_cdf": 2}, "nkeff",
-                 (A["level"], 121)),
+                                      "weighted_cdf": 2, "decode_planes": 1},
+                 "nkeff", (A["level"], 121)),
                 ("clength N=401", "clength", ["-N", "401"],
-                 {"weighted_cdf": 2, "contour_lengths": 1}, "lengths",
-                 (A["level"], 401)),
+                 {"weighted_cdf": 2, "contour_lengths": 1,
+                  "decode_planes": 1}, "lengths", (A["level"], 401)),
                 ("local-length", "local-length",
                  ["--window", str(LOCAL["window"]), "--stride",
-                  str(LOCAL["stride"])], {"local_lengths": A["level"]},
+                  str(LOCAL["stride"])], {"local_lengths": A["level"],
+                                          "decode_planes": 1},
                  "llen", (A["level"],
                           (A["nlat"] - LOCAL["window"]) // LOCAL["stride"] + 1,
                           (A["nlon"] - LOCAL["window"]) // LOCAL["stride"]
@@ -2940,7 +3057,8 @@ def cli_phase(dev, drive, path_counts, peaks, card, then=None):
         out_c = os.path.join(tmp, "sub.nc")
         run("cli fractal headline", {"weighted_cdf": 2,
                                      "contour_lengths":
-                                         len(FRACTAL_STRIDES)},
+                                         len(FRACTAL_STRIDES),
+                                     "decode_planes": 1},
             ["fractal", hpath, "--var", "pv", "-N", str(HEADLINE["N"]),
              "--batch", str(HEADLINE["B"]), "--format", "nc3", *dev_args,
              "--out", out_c])
@@ -2949,7 +3067,8 @@ def cli_phase(dev, drive, path_counts, peaks, card, then=None):
         tlat, tlon, tpv = make_pv(TALL["B"], TALL["nlat"], TALL["nlon"], 200)
         tpath, _ = nc3_archive(tmp, "tall", tpv, tlat, tlon,
                                np.arange(TALL["B"]), time_axis=False)
-        run("cli lwa dense tall", {"weighted_cdf": 2, "lwa_dense_tall": 2},
+        run("cli lwa dense tall", {"weighted_cdf": 2, "lwa_dense_tall": 2,
+                                   "decode_planes": 1},
             ["lwa", tpath, "--var", "pv", "-N", str(TALL["N"]),
              "--lwa-method", "dense", "--format", "nc3", *dev_args,
              "--out", out_c])
@@ -3630,9 +3749,12 @@ def same_bits(a, b):
     nan = torch.isnan(a)
     if not torch.equal(nan, torch.isnan(b)):
         return False
+    if a.dtype != b.dtype:
+        return False
     zero = torch.zeros((), dtype=a.dtype, device=a.device)
-    return torch.equal(torch.where(nan, zero, a).view(torch.int32),
-                       torch.where(nan, zero, b).view(torch.int32))
+    bits = torch.int32 if a.element_size() == 4 else torch.int64
+    return torch.equal(torch.where(nan, zero, a).view(bits),
+                       torch.where(nan, zero, b).view(bits))
 
 
 def probe_against(name, label, got, want, what):
@@ -3839,7 +3961,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing is run", file=sys.stderr)
         return 1
     import xcontour_tpu_torch as xt
-    from xcontour_tpu_torch.kernels import _build, hist, length, lwa, stencil
+    from xcontour_tpu_torch.kernels import (_build, decode, hist, length,
+                                            lwa, stencil)
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3926,6 +4049,7 @@ def main() -> int:
         errs[name] = check_length_kernel(name, bound_key, kern, plain, plain64)
     tie_checks(dev)
     limit_checks(dev, era_steps[0], era_grid)
+    decode_checks(dev, errs)
 
     # 4. the paths, through the entry points a user calls
     totals = {r.name: 0 for r in records}
@@ -4148,7 +4272,9 @@ def main() -> int:
     log(f"phase 4 local era5: {S} steps of {ERA5['B']} calls, step s "
         f"{[round(t, 5) for t in times]}: checks OK")
     log(f"phase 4 launches over all paths: {totals}")
-    missing = [n for n, c in totals.items() if c == 0]
+    # the decode runs through the runner alone: phase 10
+    missing = [n for n, c in totals.items()
+               if c == 0 and n != decode.KERNEL.name]
     _expect(not missing, f"kernels never launched by the paths: {missing}")
 
     # 5. card against CPU on one small step each
@@ -4239,6 +4365,18 @@ def main() -> int:
             f"table reused){extra}")
     for label, peak in peaks.items():
         log(f"phase 6 peak device memory {label}: {peak:.3f} GiB")
+    # D in turns with its plain version and Tensor.copy_ of its output (the
+    # device's times, utils.roofline.time_alternating)
+    decode_copy = {}
+    for name, (kern, plain, _, w) in decode_cases(dev).items():
+        key, out = f"decode_{name}", kern()
+        dst = torch.empty_like(out)
+        k_ms, p_ms, c_ms = time_alternating(
+            [kern, plain, lambda: dst.copy_(out)], dev, reps=20)
+        timing[key], work[key] = (k_ms, p_ms), w
+        decode_copy[key] = (c_ms, bound_ms((2 * out.numel()
+                                            * out.element_size(), 0))[0])
+        del out, dst
 
     # K1-K8 against their bounds, with launches per step of their paths
     # (the table builds of the streamed runs included)
@@ -4274,6 +4412,16 @@ def main() -> int:
         log(f"phase 6 kernel {key}: {k_ms:.4f} ms, plain "
             f"{timing[key][1]:.4f} ms, bound {b_ms:.4f} ms "
             f"({bounds[key][1]}), {100 * b_ms / k_ms:.2f}% of bound")
+    for name, *_ in DECODE_CASES:
+        key = f"decode_{name}"
+        bounds[key] = bound_ms(work[key])
+        (k_ms, p_ms), (b_ms, b_by) = timing[key], bounds[key]
+        c_ms, cb_ms = decode_copy[key]
+        log(f"phase 6 kernel D {decode.KERNEL.name} {name}: {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / k_ms:.2f}% of bound; Tensor.copy_ of the output "
+            f"{c_ms:.4f} ms ({100 * cb_ms / c_ms:.2f}% of its bound); "
+            "launches: phase 10")
 
     # 7. gradients: the autograd Functions on the card
     t0 = time.perf_counter()
@@ -4408,6 +4556,26 @@ def main() -> int:
                     pct_of_bound=r["probe_pct_of_bound"],
                     ms_headline=head["probe_ms"],
                     bound_ms_headline=head["probe_bound_ms"])
+    def decode_entry():
+        # D at the archive's layout, the other layouts under their names;
+        # no library call decodes
+        r, (main, *rest) = decode.KERNEL, [c[0] for c in DECODE_CASES]
+        key = f"decode_{main}"
+        e = dict(name=r.name, route="cuda", source=r.source,
+                 replaces=r.replaces, launches=totals[r.name],
+                 max_abs_err=errs[key], ms=timing[key][0],
+                 plain_ms=timing[key][1], bound_ms=bounds[key][0],
+                 bound_by=bounds[key][1], library_ms=None,
+                 copy_ms=decode_copy[key][0],
+                 launches_facade=facade_counts[r.name],
+                 launches_cli=cli_counts[r.name],
+                 launches_parallel=par_counts[r.name])
+        for tag in rest:
+            k = f"decode_{tag}"
+            e.update({f"max_abs_err_{tag}": errs[k], f"ms_{tag}": timing[k][0],
+                      f"plain_ms_{tag}": timing[k][1],
+                      f"bound_ms_{tag}": bounds[k][0]})
+        return e
     k2_extra = tuple((tag, f"weighted_cdf_{tag}") for tag in K2_SHAPES)
     kernels_line = {"kernels": [
         entry(r, key, key[1] if isinstance(key, tuple) else key,
@@ -4423,7 +4591,7 @@ def main() -> int:
                     for tag in (f"n{CLENGTH_N[1]}", "cartesian"))),
         entry(length.KERNEL_LOCAL_LENGTHS, "local_lengths", "local_lengths")]
         + [probe_entry(key) for key in ("lwa", "hist_cdf2", "length",
-                                        "stencil")]}
+                                        "stencil")] + [decode_entry()]}
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

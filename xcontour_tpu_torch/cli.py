@@ -51,6 +51,7 @@ import torch
 
 from . import pipeline, runner
 from .grid import from_latlon, to_numpy
+from .kernels import decode
 from .utils.ncio import Dataset, load_dataset
 from .utils import prof
 from .xcontour import dimXList, dimYList
@@ -116,8 +117,16 @@ class _LazyField:
     fluid-mask NaN'ing, dtype cast -- at slice time, so the CLI never
     materializes the archive: ``runner.run_batched`` accepts any sliceable
     (T, ...) source, and this is what makes inputs larger than host memory
-    stream.  The cast also brings a classic netCDF file's big-endian
-    memmap to native byte order, which the runner needs."""
+    stream.  ``field[rows]`` gives native-order chunks of the run's dtype
+    (the cast brings a classic netCDF file's big-endian memmap to native
+    byte order).
+
+    Where the source is a C-contiguous numpy buffer (the nc3 memmap or an
+    ndarray) of big- or little-endian float32 or float64 and no --scale-var
+    applies, the field also offers its raw planes (:meth:`raw_planes`,
+    :meth:`raw_into`): the runner then copies the file's bytes unchanged and
+    the card does the byte order, flip, cast and mask
+    (``kernels.decode``)."""
 
     def __init__(self, src, vdims, isel, scale_src, sdims, mask, dtype,
                  keepalive=(), flip_y=False):
@@ -194,6 +203,38 @@ class _LazyField:
         block = np.asarray(self.src[tuple(
             self._sel(d, lead, cols) for d in self._vdims)])
         return self._finish(block, lead, cols)               # (hi-lo, Ny, nc)
+
+    def raw_planes(self) -> Optional[decode.Planes]:
+        """How :meth:`raw_into`'s bytes decode into ``field[rows]``, or None
+        where the source offers no raw planes: not a C-contiguous numpy
+        buffer, a dtype the decode does not take, or a --scale-var."""
+        src = self.src
+        if (self._scale is not None or not isinstance(src, np.ndarray)
+                or not src.flags.c_contiguous
+                or src.dtype not in decode.FILE_DTYPES):
+            return None
+        mask = None if self._mask is None else self._mask != 0
+        return decode.Planes(src.dtype, self._flip_y, mask, self.dtype)
+
+    def raw_into(self, rows: slice, out: np.ndarray) -> None:
+        """Copy the file bytes of the snapshots ``rows`` unchanged into
+        ``out`` ((n, Ny, Nx * itemsize) uint8), one copy a run of planes
+        that lie one after another in the file: a whole chunk is one run
+        unless --isel splits it."""
+        src = self.src
+        planes = src.reshape((-1,) + src.shape[-2:]).view(np.uint8)
+        ts = np.arange(*rows.indices(self.shape[0]))
+        pos = dict(zip(self._lead_names,
+                       np.unravel_index(ts, self.lead_shape)
+                       if self.lead_shape else ()))
+        lead = src.shape[:-2]
+        plane = np.ravel_multi_index(
+            [pos[d] if d in pos else np.full(len(ts), self._isel[d])
+             for d in self._vdims[:-2]], lead) if lead else \
+            np.zeros(len(ts), np.int64)
+        cuts = np.flatnonzero(np.diff(plane) != 1) + 1
+        for a, b in zip(np.r_[0, cuts], np.r_[cuts, len(ts)]):
+            np.copyto(out[a:b], planes[plane[a]:plane[a] + b - a])
 
     def __getitem__(self, key):
         """``field[rows]`` or ``field[rows, :, cols]`` (slices): the

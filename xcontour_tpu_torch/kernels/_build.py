@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
@@ -47,6 +48,8 @@ SIGNATURES = {
     # data, levels, y, x, acc, out, Ny, Nx, Wy, Wx, window, stride, nby, nbx,
     # nbw, latlon, stream
     "xc_local_lengths": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+    # raw, mask, out, B, Ny, Nx, in_bytes, out_bytes, swap, flip, stream
+    "xc_decode_planes": [P, P, P, I, I, I, I, I, I, I, P],
     # the structure probes (csrc/probes.cu)
     # q, W, Q, out, B, Ny, Nx, stream
     "xc_lwa_structure": [P, P, P, P, I, I, I, P],
@@ -60,6 +63,7 @@ SIGNATURES = {
 }
 
 _LIB = None
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -128,13 +132,15 @@ def build_log() -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; the runner's copy
+    thread and the caller's may both make the first)."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = lib
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIB = lib
     return _LIB

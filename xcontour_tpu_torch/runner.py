@@ -11,7 +11,9 @@ the whole archive.  This runner provides:
 * a two-stage prefetch: the host read of chunk k+2 (own thread, into
   pinned host memory) overlaps the host-to-device copy of chunk k+1 (own
   thread, on a dedicated CUDA stream) overlaps the compute of chunk k on
-  the calling thread's current stream;
+  the calling thread's current stream; a source that offers its raw
+  planes (the CLI's nc3 archives) crosses as the file's bytes and is
+  decoded on the card, on the copy stream;
 * idempotent per-chunk outputs: each chunk writes ``<stem>_ck{k:05d}.npz``
   and is skipped when the file already exists, giving snapshot-granular
   checkpoint/resume;
@@ -45,6 +47,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from .kernels import decode
 from .utils import prof
 
 
@@ -297,16 +300,29 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
     -- an ndarray, a ``np.memmap``, or an object with ``shape`` and
     ``__getitem__`` (lazy loaders) -- so archives larger than host or
     device memory stream through.  A classic netCDF file's raw memmap is
-    big-endian: convert it as the CLI's ``_LazyField`` does
-    (``astype(float32)`` per chunk).
+    big-endian and is refused here: pass it through the CLI's
+    ``_LazyField``, which decodes it.
+
+    A source that offers its raw planes (``raw_planes()`` returning a
+    ``kernels.decode.Planes``, and ``raw_into(rows, out)``; the CLI's
+    ``_LazyField`` over an nc3 memmap or an ndarray) takes the raw path
+    when neither ``transfer_dtype`` nor ``sharding`` is given: the read
+    thread copies each chunk's file bytes unchanged into the pinned block,
+    and the copy thread, after the host-to-device copy, decodes them on the
+    copy stream (``kernels.decode.decode_planes``: byte order, latitude
+    flip, cast and fluid mask, the mask uploaded once), so the card, not
+    the host, brings an archive's big-endian planes to the run's dtype.
 
     ``device``: where ``step`` runs; ``None`` is the card (and raises
     without one), ``'cpu'`` the CPU.  On the card each chunk is read into
     pinned host memory, copied on a dedicated stream, and ``step`` is
     called on this thread's current stream once the copy has landed; so
     the kernels the step launches run here, on that stream.  Its stages
-    are spans (``utils.prof.span``): ``runner.read`` and ``runner.pin`` on
-    the read thread; ``runner.wait`` (for the chunk's copy), ``runner.step``,
+    are spans (``utils.prof.span``): ``runner.read`` (the read of the
+    chunk; on the raw path the copy of its bytes into the pinned block)
+    and ``runner.pin`` (the pinned block and the copy or wire cast into it;
+    on the raw path the taking of the block alone) on the read thread;
+    ``runner.wait`` (for the chunk's copy), ``runner.step``,
     ``runner.fetch`` and ``runner.write`` on this one.
 
     ``sharding`` (a ``parallel.mesh.BlockSpec``, from
@@ -371,6 +387,15 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
                              "float16 or bfloat16")
     copy_stream = torch.cuda.Stream(dev) if cuda else None
     T = snapshots.shape[0]
+    planes = None
+    if wire is None and sharding is None:
+        offer = getattr(snapshots, "raw_planes", None)
+        planes = offer() if offer is not None else None
+    if planes is not None:
+        raw_row = snapshots.shape[1:-1] + (
+            snapshots.shape[-1] * planes.file_dtype.itemsize,)
+        mask = None if planes.mask is None else \
+            torch.from_numpy(np.ascontiguousarray(planes.mask)).to(dev)
     nchunk = -(-T // batch)
     collected: List[Optional[Dict[str, np.ndarray]]] = []
     nvalids: List[int] = []
@@ -387,7 +412,16 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
         """Stage 1 (read thread): slice, optional wire narrowing, and the
         copy into a (pinned) host tensor -- ALL host-side work.  Pinned
         blocks come from torch's caching host allocator, which reuses one
-        only after the copy that read it has completed."""
+        only after the copy that read it has completed.  On the raw path
+        the block holds the chunk's file bytes."""
+        if planes is not None:
+            lo, hi = k * batch, min((k + 1) * batch, T)
+            with prof.span("runner.pin"):
+                host = torch.empty((hi - lo,) + raw_row, dtype=torch.uint8,
+                                   pin_memory=cuda)
+            with prof.span("runner.read"):
+                snapshots.raw_into(slice(lo, hi), host.numpy())
+            return host
         with prof.span("runner.read"):
             arr = mesh.read(snapshots, k * batch, T)
         with prof.span("runner.pin"):
@@ -403,13 +437,18 @@ def run_batched(step: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
         return host
 
     def ship(read_fut):
-        """Stage 2 (copy thread): host to device on the copy stream; returns
-        the device tensor and the event its copy records."""
+        """Stage 2 (copy thread): host to device on the copy stream, and on
+        the raw path the decode after it; returns the device tensor and the
+        event recorded after both."""
         host = read_fut.result()
         if not cuda:
+            if planes is not None:
+                host = decode.decode_planes(host, planes, mask)
             return host, None
         with torch.cuda.device(dev), torch.cuda.stream(copy_stream):
             x = host.to(dev, non_blocking=True)
+            if planes is not None:
+                x = decode.decode_planes(x, planes, mask)
             ev = torch.cuda.Event()
             ev.record(copy_stream)
         return x, ev
