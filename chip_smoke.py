@@ -31,8 +31,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      with the plain version's NaN pattern; K1 at one column a lane (row
      lengths 182 and 361, and a view off 16-byte alignment), six modes bit
      for bit, and K2 with nine channels (two channel groups); K7
-     (ERA5 lat-lon N=121 and N=401, headline Cartesian N=121) and K8 (an
-     ERA5 snapshot) against their plain versions run in float64, beside
+     (ERA5 lat-lon N=121 and N=401, headline Cartesian N=121) and K8 (the
+     16 levels of an ERA5 step in one launch at window 101 / stride 10,
+     as the path runs it) against their plain versions run in float64, beside
      the float32 plain versions' own errors, and two runs of each bit for
      bit; the exact-empty rule on the card (seed-7 tie fields, windows at
      their own minimum); the limits: K2, K3, K4 (both variants), K5 and
@@ -42,7 +43,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      ranges), K8 on an ERA5 level at windows 101 / stride 7 and 64 / 10
      (window - 1 not a multiple of the stride), 101 / 40 and 161 / 80
      (strides past 32 and 64) and 31 / 45 (a stride past the window), K7
-     at 5,000 levels; the archive decode D (``kernels.decode``) on raw
+     at 5,000 levels; K8 on the 16 levels of an ERA5 step in one launch
+     against the 2-D K8 level by level, bit for bit, at 101 / 10 and those
+     windows, and on 65,537 fields (past the 65,535 a launch takes); the archive decode D (``kernels.decode``) on raw
      planes of the benchmark archive's chunk (16x721x1440) in six layouts
      (big-endian float32 with the latitude flipped, masked, into float64,
      from big-endian float64, little-endian unflipped, Nx 1439) against its
@@ -60,9 +63,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      (hist=True, pre_y) and at the headline shape (hist=False);
      keff_lwa_pipeline(with_lwa2=True) once; clength_pipeline at ERA5
      (N=121 and N=401, the same streaming), fractal_pipeline at the
-     headline shape, local_contour_lengths on every level of the ERA5
-     steps.  The outputs are checked (shapes, finite values, monotone
-     areas, coordinates in range, LAPE positive-definite to the float32
+     headline shape, local_length_pipeline on the ERA5 steps (one K8
+     launch a step).  The outputs are checked (shapes, finite values,
+     monotone areas, coordinates in range, LAPE positive-definite to the float32
      floor, empty extreme levels, positive interior lengths, the median
      fractal dimension in [1, 2));
   5. card against CPU: one small step of keff_lwa_pipeline, lwa_pipeline
@@ -223,6 +226,9 @@ STREAM_STEPS = 4
 CLENGTH_N = (121, 401)
 FRACTAL_STRIDES = (1, 2, 4, 8, 16, 32)
 LOCAL = dict(window=101, stride=10)
+# the ERA5 levels of a step of the benchmark's local-length cell, which K8
+# takes in one launch
+LOCAL_B = 16
 # the inputs of ROADMAP Queue 3 at test_torch_lwa.py's shape, and taller
 # than 3072 rows for K6
 QUEUE3_SHAPES = ((2, 40, 128), (2, 3104, 128))
@@ -769,15 +775,16 @@ def k8_instructions(Ny, Nx, Wy, Wx, window, stride, pairs):
             + SEGMENT_INSTR[True] * pairs)
 
 
-def length_cases(era_q, era_grid, head_q):
+def length_cases(era_q, era_grid, head_q, local_q):
     """name -> (bound key, kernel call, float32 plain call, float64 plain
     call, (bytes, instructions), crossed pairs) for K7 at ERA5 (lat-lon,
     N = 121 and 401) and at the headline shape (Cartesian, 10 km spacing,
-    N = 121), and K8 on one ERA5 snapshot at its rolling-mean levels
-    (window 101 / stride 10, and K8_WINDOWS): the inputs the geometry
-    paths give them.  K7's instructions count CLASSIFY_INSTR per cell and
-    SEGMENT_INSTR per crossed pair, counted from the inputs; K8's,
-    k8_instructions."""
+    N = 121), and K8 at its rolling-mean levels: on the LOCAL_B levels
+    local_q of an ERA5 step in one launch at LOCAL, as
+    local_length_pipeline runs it, and on one ERA5 snapshot at K8_WINDOWS.
+    K7's instructions count CLASSIFY_INSTR per cell and SEGMENT_INSTR per
+    crossed pair, counted from the inputs; K8's, k8_instructions summed
+    over the fields."""
     import xcontour_tpu_torch as xt
     from xcontour_tpu_torch.kernels import length
 
@@ -803,21 +810,26 @@ def length_cases(era_q, era_grid, head_q):
     cases["contour_lengths_cartesian"] = k7(
         head_q, xt.cal_contours(head_q, HEADLINE["N"]), hy, hx, False)
     q0 = era_q[0].contiguous()
-    for tag, window, stride in (("", LOCAL["window"], LOCAL["stride"]),
-                                *((f"_w{w}s{s}", w, s) for w, s in K8_WINDOWS)):
-        lv = xt.rolling_mean(q0, window, stride)[0].contiguous()
+    for tag, q, window, stride in (
+            ("", local_q.contiguous(), LOCAL["window"], LOCAL["stride"]),
+            *((f"_w{w}s{s}", q0, w, s) for w, s in K8_WINDOWS)):
+        lv = xt.rolling_mean(q, window, stride)[0].contiguous()
         kw = dict(window=window, stride=stride, latlon=True)
-        pairs = k8_crossed_cells(q0, lv, window, stride)
+        fields = list(zip(q.reshape(-1, *q.shape[-2:]),
+                          lv.reshape(-1, *lv.shape[-2:])))
+        each = [k8_crossed_cells(f, v, window, stride) for f, v in fields]
         cases["local_lengths" + tag] = (
             "local_lengths",
-            lambda lv=lv, kw=kw: length.local_lengths(q0, lv, yc, xc, **kw),
-            lambda lv=lv, kw=kw: length.local_lengths_plain(q0, lv, yc, xc,
-                                                            **kw),
-            lambda lv=lv, kw=kw: length.local_lengths_plain(
-                q0.double(), lv.double(), yc.double(), xc.double(), **kw),
-            (4 * (q0.numel() + 2 * lv.numel() + yc.numel() + xc.numel()),
-             k8_instructions(*q0.shape, *lv.shape, window, stride, pairs)),
-            pairs)
+            lambda q=q, lv=lv, kw=kw: length.local_lengths(q, lv, yc, xc,
+                                                           **kw),
+            lambda q=q, lv=lv, kw=kw: length.local_lengths_plain(
+                q, lv, yc, xc, **kw),
+            lambda q=q, lv=lv, kw=kw: length.local_lengths_plain(
+                q.double(), lv.double(), yc.double(), xc.double(), **kw),
+            (4 * (q.numel() + 2 * lv.numel() + yc.numel() + xc.numel()),
+             sum(k8_instructions(*q0.shape, *lv.shape[-2:], window, stride, p)
+                 for p in each)),
+            sum(each))
     return cases
 
 
@@ -993,6 +1005,54 @@ def tie_checks(dev):
     zeros = int((out == 0).sum())
     log(f"phase 3 tie K8: exact zeros at the window minima {zeros} of 64")
     _expect(zeros == 64, "K8 breaks the exact-empty rule")
+
+
+def k8_batch_checks(era_q, era_grid):
+    """K8 on every level of an ERA5 step (LOCAL_B levels) in one launch
+    against the 2-D K8 on each level, bit for bit, at LOCAL and at each of
+    K8_WINDOWS, at the levels' rolling means: one launch a call, batch or
+    not.  (length_cases holds the same launch at LOCAL against the float64
+    plain version.)"""
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch.kernels import length
+    yc = torch.deg2rad(era_grid.ydef).contiguous()
+    xc = torch.deg2rad(era_grid.xdef).contiguous()
+    K = length.KERNEL_LOCAL_LENGTHS
+    for window, stride in ((LOCAL["window"], LOCAL["stride"]), *K8_WINDOWS):
+        lv = xt.rolling_mean(era_q, window, stride)[0].contiguous()
+        kw = dict(window=window, stride=stride, latlon=True)
+        n0 = K.launches
+        got = length.local_lengths(era_q, lv, yc, xc, **kw)
+        _expect(K.launches == n0 + 1, f"K8 batch {window} / {stride}: "
+                f"{K.launches - n0} launches, not 1")
+        want = torch.stack([length.local_lengths(
+            era_q[b].contiguous(), lv[b].contiguous(), yc, xc, **kw)
+            for b in range(era_q.shape[0])])
+        _expect(K.launches == n0 + 1 + era_q.shape[0],
+                f"K8 2-D {window} / {stride}: a launch a level expected")
+        _expect(same_bits(got, want), f"K8 batch {window} / {stride}: "
+                "differs from the 2-D kernel level by level")
+        log(f"phase 3 K8 batch {tuple(era_q.shape)} window {window} / stride "
+            f"{stride}: one launch, {tuple(got.shape)} bit for bit with "
+            f"{era_q.shape[0]} 2-D launches OK")
+    # past CUDA's 65,535 grid y: a launch a 65,535 fields inside one call
+    rng = np.random.default_rng(11)
+    f = torch.as_tensor(rng.standard_normal((LIMIT_B, 4, 8)),
+                        dtype=torch.float32, device=era_q.device)
+    fy = torch.linspace(0.0, 0.3, 4, device=era_q.device)
+    fx = torch.linspace(0.0, 0.7, 8, device=era_q.device)
+    lv = xt.rolling_mean(f, 3, 1)[0].contiguous()
+    kw = dict(window=3, stride=1, latlon=True)
+    n0 = K.launches
+    got = length.local_lengths(f, lv, fy, fx, **kw)
+    _expect(K.launches == n0 + 1, "K8 batch past 65,535 fields: one call")
+    for b in sorted({0, 65534, 65535, LIMIT_B - 1} & set(range(LIMIT_B))):
+        want = length.local_lengths(f[b].contiguous(), lv[b].contiguous(), fy,
+                                    fx, **kw)
+        _expect(same_bits(got[b], want),
+                f"K8 batch of {LIMIT_B} fields: field {b} differs")
+    log(f"phase 3 K8 batch of {LIMIT_B} fields of 4x8 (window 3 / stride 1):"
+        " fields 0, 65534, 65535 and the last bit for bit with 2-D launches OK")
 
 
 def decode_cases(dev):
@@ -3039,7 +3099,7 @@ def cli_phase(dev, drive, path_counts, peaks, card, then=None):
                   "decode_planes": 1}, "lengths", (A["level"], 401)),
                 ("local-length", "local-length",
                  ["--window", str(LOCAL["window"]), "--stride",
-                  str(LOCAL["stride"])], {"local_lengths": A["level"],
+                  str(LOCAL["stride"])], {"local_lengths": 1,
                                           "decode_planes": 1},
                  "llen", (A["level"],
                           (A["nlat"] - LOCAL["window"]) // LOCAL["stride"] + 1,
@@ -3994,6 +4054,8 @@ def main() -> int:
     era_grid = xt.from_latlon(era[0][0], era[0][1], device=dev)
     era_steps = [torch.as_tensor(pv).to(dev) for _, _, pv in era]
     del era
+    local_q = torch.as_tensor(make_pv(LOCAL_B, ERA5["nlat"], ERA5["nlon"],
+                                      STREAM_STEPS + 1)[2]).to(dev)
     hlat, hlon, hpv = make_pv(HEADLINE["B"], HEADLINE["nlat"],
                               HEADLINE["nlon"], 100)
     head_grid = xt.from_latlon(hlat, hlon, device=dev)
@@ -4043,11 +4105,12 @@ def main() -> int:
     odd_shape_checks(dev)
 
     # K7 and K8 against their plain versions in float64, and the tie rule
-    cases["length"] = length_cases(era_steps[0], era_grid, head_q)
+    cases["length"] = length_cases(era_steps[0], era_grid, head_q, local_q)
     for name, (bound_key, kern, plain, plain64, _, _) in \
             cases["length"].items():
         errs[name] = check_length_kernel(name, bound_key, kern, plain, plain64)
     tie_checks(dev)
+    k8_batch_checks(local_q, era_grid)
     limit_checks(dev, era_steps[0], era_grid)
     decode_checks(dev, errs)
 
@@ -4261,16 +4324,16 @@ def main() -> int:
 
     def run_local():
         return timed_steps(
-            lambda q: [xt.local_contour_lengths(q[k], era_grid.ydef,
-                                                era_grid.xdef, **LOCAL)
-                       for k in range(q.shape[0])], era_steps[:S])
-    outs, times = drive("local era5", {"local_lengths": ERA5["B"] * S},
-                        run_local)
+            lambda q: xt.local_length_pipeline(q, era_grid, **LOCAL),
+            era_steps[:S])
+    outs, times = drive("local era5", {"local_lengths": S}, run_local,
+                        exact={"local_lengths": S})
     for i, out in enumerate(outs):
-        check_local(out, f"local era5 step {i}")
+        check_local([(out["llen"][k], out["y_window"], out["x_window"])
+                     for k in range(ERA5["B"])], f"local era5 step {i}")
     rates["local_era5"] = (ERA5["B"] / statistics.median(times), None, times)
-    log(f"phase 4 local era5: {S} steps of {ERA5['B']} calls, step s "
-        f"{[round(t, 5) for t in times]}: checks OK")
+    log(f"phase 4 local era5: {S} steps of local_length_pipeline (one K8 "
+        f"launch a step), step s {[round(t, 5) for t in times]}: checks OK")
     log(f"phase 4 launches over all paths: {totals}")
     # the decode runs through the runner alone: phase 10
     missing = [n for n, c in totals.items()

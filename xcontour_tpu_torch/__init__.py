@@ -6,7 +6,8 @@ reference.  This package imports torch and numpy only.  It covers the
 three Keff/LWA pipelines (:func:`keff_pipeline`, :func:`lwa_pipeline` and
 the combined :func:`keff_lwa_pipeline`), the two geometry pipelines
 (:func:`clength_pipeline`, :func:`fractal_pipeline`) and windowed local
-lengths (:func:`local_contour_lengths`), and what they run: grid metrics
+lengths (:func:`local_length_pipeline`, :func:`local_contour_lengths`), and
+what they run: grid metrics
 (latitude-longitude, Cartesian and the MITgcm x-z plane), the |grad q|^2
 stencil, the weighted-CDF engine, the broadcast and exact sort-based
 conditional integrals, the A(Y_eq) tables, the Keff algebra and the contour
@@ -52,7 +53,7 @@ from .grid import (Grid, equivalent_latitudes, from_cartesian, from_latlon,
 from .ops.stencil import gradient, squared_gradient
 from .pipeline import (as_dataset, clength_pipeline, flatten_output,
                        fractal_pipeline, keff_lwa_pipeline, keff_pipeline,
-                       lwa_pipeline)
+                       local_length_pipeline, lwa_pipeline)
 from .utils.coarsen import coarsen
 from .utils.constants import Rearth, deg2m, g, omega
 # the reference's top-level metric constructors; the whole reference namespace
@@ -76,7 +77,8 @@ __all__ = [
     "fractal_pipeline", "from_cartesian", "from_latlon", "from_metrics",
     "from_xz", "g", "get_extrema_extend", "gradient", "grid", "grid_from_numpy",
     "interp_to_coords", "keff_lwa_pipeline", "keff_pipeline",
-    "latitude_lengths_at", "local_contour_lengths", "local_wave_activity",
-    "local_wave_activity2", "loglog_slope", "lwa_masks_at", "lwa_pipeline",
+    "latitude_lengths_at", "local_contour_lengths", "local_length_pipeline",
+    "local_wave_activity", "local_wave_activity2", "loglog_slope",
+    "lwa_masks_at", "lwa_pipeline",
     "omega", "rolling_mean", "squared_gradient", "to_host",
 ]

@@ -867,8 +867,7 @@ def _steps(args, tracer, grid, lead_names, lead_shape, lead_coords,
         def step(t):
             return clength(t, grid, N=args.N, increase=inc, lt=lt)
     elif args.cmd == "local-length":
-        from .diagnostics.local_length import (_window_centers,
-                                               local_contour_lengths)
+        from .diagnostics.local_length import _window_centers
         from .parallel.local_length import sharded_local_lengths
 
         Ny, Nx = grid.shape
@@ -878,16 +877,17 @@ def _steps(args, tracer, grid, lead_names, lead_shape, lead_coords,
         if args.stride < 1:
             raise SystemExit(f"--stride must be >= 1, got {args.stride}")
 
-        def one(s):
-            kw = dict(window=args.window, stride=args.stride,
-                      latlon=grid.latlon, min_count=args.min_count)
-            if mesh is None:
-                return local_contour_lengths(s, grid.ydef, grid.xdef, **kw)[0]
-            return sharded_local_lengths(s, grid.ydef, grid.xdef, mesh,
-                                         **kw)[0]
+        kw = dict(window=args.window, stride=args.stride,
+                  min_count=args.min_count)
 
-        def step(t):  # K8 once a snapshot
-            return {"llen": torch.stack([one(s) for s in t])}
+        def step(t):
+            if mesh is None:  # one rolling mean and one K8 launch a chunk
+                return {"llen": pipeline.local_length_pipeline(
+                    t, grid, **kw)["llen"]}
+            # the sharded windows, K8 once a snapshot
+            return {"llen": torch.stack([sharded_local_lengths(
+                s, grid.ydef, grid.xdef, mesh, latlon=grid.latlon,
+                **kw)[0] for s in t])}
 
         # window-center coordinates depend only on grid + window/stride
         # (the kernel's own _window_centers formula -- no probe run needed)

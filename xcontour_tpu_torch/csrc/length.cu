@@ -11,8 +11,8 @@
 // level that crosses nothing (the caller makes it NaN).
 //
 // K8 replaces xcontour_tpu/kernels/length_pallas.py, _local_kernel (launched
-// by local_lengths_pallas): the length inside each (W x W)-cell window of a
-// 2-D field at that window's own level, 0 for a NaN level.
+// by local_lengths_pallas): the length inside each (W x W)-cell window of
+// each 2-D field of a batch at that window's own level, 0 for a NaN level.
 //
 // The tie rule.  An endpoint-pinned level (a level equal to a corner value)
 // must give segments of exactly zero length, so that an empty contour totals
@@ -82,7 +82,12 @@
 // population count) to a queue of 64 in shared memory; whenever 32 are
 // queued, every lane measures one (corners and coordinates reloaded
 // through L1) and adds it to its window's total.  At most 64 registers a
-// thread.
+// thread.  A batch of fields is one launch (one per 65,535 fields): grid y
+// is the field, each field's windows keep their own totals, so a slice of
+// a batch gives the bits of a launch on it alone (the scale depends on the
+// coordinates and the window, not the batch).  The field offsets the
+// window index; the levels and totals pointers stay kernel parameters,
+// which hold no register (offset pointers cost 10-15% in spills).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -250,15 +255,15 @@ __device__ __forceinline__ void measure(const WarpQueue& q, int n,
 }
 
 // K8: a warp per slab of up to kSlabSteps steps of 32 cells of a lattice
-// block of s x s cells (8 warps a CUDA block; one slab a block unless the
-// stride is large).  Only the block's first min(s, cells) rows and columns
-// are read: past the window's cells (stride > window - 1) no window covers
-// a cell.  The warp takes its cells kCellSteps steps at a time (lane map
-// ccw x crps, no division per cell), keeps each cell's [lo, hi) in
-// registers and reduces the steps' [min, max); then tests the windows that
-// cover the block, 32 at a time, against that range, and for each that
-// passes classifies the cells against its level (clipped to the window),
-// queueing the crossed ones.
+// block of s x s cells of field blockIdx.y (8 warps a CUDA block; one slab
+// a block unless the stride is large).  Only the block's first
+// min(s, cells) rows and columns are read: past the window's cells
+// (stride > window - 1) no window covers a cell.  The warp takes its cells
+// kCellSteps steps at a time (lane map ccw x crps, no division per cell),
+// keeps each cell's [lo, hi) in registers and reduces the steps' [min,
+// max); then tests the windows that cover the block, 32 at a time, against
+// that range, and for each that passes classifies the cells against its
+// level (clipped to the window), queueing the crossed ones.
 template <bool kLatlon>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 local_lengths_kernel(const float* __restrict__ data,
@@ -275,6 +280,8 @@ local_lengths_kernel(const float* __restrict__ data,
   const int warp = threadIdx.x >> 5;
   const long long wid = (long long)blockIdx.x * kWarps + warp;
   if (wid >= (long long)nby * nbx * nsl) return;  // the whole warp
+  const int b = blockIdx.y;
+  const int wo = b * Wy * Wx;   // the field's windows (B Wy Wx < 2^31)
   const long long blk = wid / nsl;
   const int sl = (int)(wid - blk * nsl);
   const int bi = (int)(blk / nbx);
@@ -284,7 +291,7 @@ local_lengths_kernel(const float* __restrict__ data,
   const int h = (int)min((long long)bs, Ny - 1 - r0);   // the block's cells
   const int wd = (int)min((long long)bs, Nx - 1 - c0);  // inside the field
   const int scale = *scale_ptr;
-  const float* p0 = data + r0 * Nx + c0;
+  const float* p0 = data + (long long)b * Ny * Nx + r0 * Nx + c0;
   const float* ys = ycoord + r0;
   const float* xs = xcoord + c0;
   WarpQueue q{qr[warp], qc[warp], qw[warp], ql[warp], 0};
@@ -332,7 +339,7 @@ local_lengths_kernel(const float* __restrict__ data,
       const int t = t0 + lane;
       const int dwy = t / nwx;   // per window tested, not per cell
       const int wyy = wy0 + dwy, wxx = wx0 + t - dwy * nwx;
-      const int w = wyy * Wx + wxx;
+      const int w = wo + wyy * Wx + wxx;
       const float lw = t < nwin ? levels[w] : NAN;
       unsigned todo = __ballot_sync(kFull, glo <= lw && lw < ghi);
       while (todo) {
@@ -439,18 +446,19 @@ extern "C" int xc_contour_lengths(const void* data, const void* levels,
   return (int)cudaGetLastError();
 }
 
-// data (Ny, Nx); levels (Wy, Wx); y (Ny,), x (Nx,); acc (Wy Wx + 1) 64-bit
-// scratch (the totals, then the scale); out (Wy, Wx) raw totals of the
-// windows of `window` points anchored every `stride` points; nby x nbx
-// lattice blocks, nbw a window's side.
+// data (B, Ny, Nx); levels (B, Wy, Wx); y (Ny,), x (Nx,); acc (B Wy Wx + 1)
+// 64-bit scratch (the totals, then the scale); out (B, Wy, Wx) raw totals
+// of the windows of `window` points anchored every `stride` points; nby x
+// nbx lattice blocks a field, nbw a window's side.  A launch takes up to
+// 65,535 fields (grid y).
 extern "C" int xc_local_lengths(const void* data, const void* levels,
                                 const void* y, const void* x, void* acc,
-                                void* out, int Ny, int Nx, int Wy, int Wx,
-                                int window, int stride, int nby, int nbx,
-                                int nbw, int latlon, void* stream) {
+                                void* out, int B, int Ny, int Nx, int Wy,
+                                int Wx, int window, int stride, int nby,
+                                int nbx, int nbw, int latlon, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int s = stride, cells = window - 1;
-  const long long n = (long long)Wy * Wx;
+  const long long n = (long long)B * Wy * Wx;
   if (cells < 1)
     return (int)cudaMemsetAsync(out, 0, sizeof(float) * (size_t)n, st);
   unsigned long long* a = (unsigned long long*)acc;
@@ -469,20 +477,26 @@ extern "C" int xc_local_lengths(const void* data, const void* levels,
   lane_map(bs, &ccw, &crps);
   const int nsl = ((bs + crps - 1) / crps * ((bs + ccw - 1) / ccw) +
                    kSlabSteps - 1) / kSlabSteps;
-  const unsigned grid =
+  const unsigned gx =
       (unsigned)(((long long)nby * nbx * nsl + kWarps - 1) / kWarps);
-  const float *d = (const float*)data, *lv = (const float*)levels;
   const float *yy = (const float*)y, *xx = (const float*)x;
-  if (latlon)
-    local_lengths_kernel<true><<<grid, kThreads, 0, st>>>(
-        d, lv, yy, xx, sc, a, Ny, Nx, Wy, Wx, cells, s, nby, nbx, nbw, ccw,
-        crps, nsl);
-  else
-    local_lengths_kernel<false><<<grid, kThreads, 0, st>>>(
-        d, lv, yy, xx, sc, a, Ny, Nx, Wy, Wx, cells, s, nby, nbx, nbw, ccw,
-        crps, nsl);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  for (int f0 = 0; f0 < B; f0 += 65535) {
+    const int nb = B - f0 < 65535 ? B - f0 : 65535;
+    const dim3 grid(gx, nb);
+    const float* d = (const float*)data + (long long)f0 * Ny * Nx;
+    const float* lv = (const float*)levels + (long long)f0 * Wy * Wx;
+    unsigned long long* af = a + (long long)f0 * Wy * Wx;
+    if (latlon)
+      local_lengths_kernel<true><<<grid, kThreads, 0, st>>>(
+          d, lv, yy, xx, sc, af, Ny, Nx, Wy, Wx, cells, s, nby, nbx, nbw, ccw,
+          crps, nsl);
+    else
+      local_lengths_kernel<false><<<grid, kThreads, 0, st>>>(
+          d, lv, yy, xx, sc, af, Ny, Nx, Wy, Wx, cells, s, nby, nbx, nbw, ccw,
+          crps, nsl);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   fixed_to_float_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
                           0, st>>>(a, nullptr, sc, (float*)out, n, Wx);
   return (int)cudaGetLastError();

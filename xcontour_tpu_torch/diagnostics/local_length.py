@@ -1,10 +1,11 @@
 """Windowed (local) contour lengths.
 
 Counterpart of ``xcontour_tpu/diagnostics/local_length.py``: for each
-(window x window) tile of a 2-D field, anchored every ``stride`` points,
-the length of the contour at the tile's mean tracer value.  The window
-means come from integral images in O(grid); the lengths from the K8
-wrapper (:mod:`..kernels.length`).
+(window x window) tile of a 2-D field, or of each field of a batch,
+anchored every ``stride`` points, the length of the contour at the tile's
+mean tracer value.  The window means come from integral images in O(grid);
+the lengths from the K8 wrapper (:mod:`..kernels.length`), one launch a
+call.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from ..kernels import length as _k8
 from ..kernels import needs_grad
 from ..utils.constants import Rearth as _REARTH
+from ..utils.prof import span
 
 
 def rolling_mean(data: torch.Tensor, window: int, stride: int,
@@ -40,8 +42,9 @@ def rolling_mean(data: torch.Tensor, window: int, stride: int,
     S = integral(vals)
     C = integral(good.to(data.dtype))
     ny, nx = data.shape[-2:]
-    oy = torch.arange(0, ny - window + 1, stride, device=data.device)
-    ox = torch.arange(0, nx - window + 1, stride, device=data.device)
+    # no window when it is larger than the field (numpy's empty range)
+    oy = torch.arange(0, max(0, ny - window + 1), stride, device=data.device)
+    ox = torch.arange(0, max(0, nx - window + 1), stride, device=data.device)
     yy, xx = torch.meshgrid(oy, ox, indexing="ij")
 
     def box(I):
@@ -54,9 +57,10 @@ def rolling_mean(data: torch.Tensor, window: int, stride: int,
 
 
 class _LocalLengths(torch.autograd.Function):
-    """K8 with the plain version's VJP (JAX:
-    ``diagnostics/local_length._local_pallas_ad``), recomputed a row of
-    windows at a time (:func:`..kernels.length.local_lengths_vjp`)."""
+    """K8 on a field (Ny, Nx) or a batch (B, Ny, Nx) with the plain
+    version's VJP (JAX: ``diagnostics/local_length._local_pallas_ad``),
+    recomputed a field and a chunk of window rows at a time
+    (:func:`..kernels.length.local_lengths_vjp`)."""
 
     @staticmethod
     def forward(ctx, data, levels, yc, xc, kw):
@@ -80,6 +84,45 @@ def _window_centers(ydef, xdef, oy, ox, window: int):
     return cy, cx
 
 
+def local_lengths_and_means(data: torch.Tensor, ydef: torch.Tensor,
+                            xdef: torch.Tensor, *, window: int, stride: int,
+                            latlon: bool = True, min_count: int = 1,
+                            levels: Optional[torch.Tensor] = None,
+                            Rearth: float = _REARTH):
+    """The body of :func:`local_contour_lengths` and
+    :func:`..pipeline.local_length_pipeline`: one rolling mean (span
+    ``stage.rolling``) and one K8 launch for the whole batch, with the NaN
+    and empty mask and the Earth-radius scale (span
+    ``stage.local_lengths``).  Returns (lengths, window means, window-center
+    y, x)."""
+    with span("stage.rolling"):
+        means, oy, ox = rolling_mean(data, window, stride, min_count)
+    if levels is None:
+        levels = means
+    with span("stage.local_lengths"):
+        yc = torch.deg2rad(ydef) if latlon else ydef
+        xc = torch.deg2rad(xdef) if latlon else xdef
+        yc = yc.to(data.dtype).contiguous()
+        xc = xc.to(data.dtype).contiguous()
+        # one field stays 2-D; leading dimensions fold into one batch
+        fold = (lambda a: a.reshape((-1,) + a.shape[-2:])) \
+            if data.dim() > 3 else (lambda a: a)
+        d, lv = fold(data).contiguous(), fold(levels).contiguous()
+        kw = dict(window=window, stride=stride, latlon=latlon)
+        if needs_grad(d, lv, yc, xc):
+            totals = _LocalLengths.apply(d, lv, yc, xc, kw)
+        else:
+            totals = _k8.local_lengths(d.detach(), lv.detach(), yc.detach(),
+                                       xc.detach(), **kw)
+        totals = totals.reshape(levels.shape)
+        lengths = torch.where(torch.isnan(levels) | (totals == 0),
+                              torch.full_like(totals, float("nan")), totals)
+        if latlon:
+            lengths = lengths * Rearth
+    cy, cx = _window_centers(ydef, xdef, oy, ox, window)
+    return lengths, means, cy, cx
+
+
 def local_contour_lengths(data: torch.Tensor, ydef: torch.Tensor,
                           xdef: torch.Tensor, *, window: int = 101,
                           stride: int = 10, latlon: bool = True,
@@ -88,27 +131,12 @@ def local_contour_lengths(data: torch.Tensor, ydef: torch.Tensor,
                           Rearth: float = _REARTH):
     """Per-window contour length at the window-mean level.
 
-    data : (Ny, Nx).  Returns (lengths (Wy, Wx), window-center y, x).
-    ``levels`` overrides the rolling-mean levels (same (Wy, Wx) shape).
-    An empty window or contour gives NaN.
+    data : (..., Ny, Nx).  Returns (lengths (..., Wy, Wx), window-center
+    y, x): one rolling mean and one K8 launch for the whole batch.
+    ``levels`` overrides the rolling-mean levels (the same shape).  An
+    empty window or contour gives NaN.
     """
-    yc = torch.deg2rad(ydef) if latlon else ydef
-    xc = torch.deg2rad(xdef) if latlon else xdef
-    yc = yc.to(data.dtype).contiguous()
-    xc = xc.to(data.dtype).contiguous()
-    means, oy, ox = rolling_mean(data, window, stride, min_count)
-    if levels is None:
-        levels = means
-    d, lv = data.contiguous(), levels.contiguous()
-    kw = dict(window=window, stride=stride, latlon=latlon)
-    if needs_grad(d, lv, yc, xc):
-        totals = _LocalLengths.apply(d, lv, yc, xc, kw)
-    else:
-        totals = _k8.local_lengths(d.detach(), lv.detach(), yc.detach(),
-                                   xc.detach(), **kw)
-    lengths = torch.where(torch.isnan(levels) | (totals == 0),
-                          torch.full_like(totals, float("nan")), totals)
-    if latlon:
-        lengths = lengths * Rearth
-    cy, cx = _window_centers(ydef, xdef, oy, ox, window)
+    lengths, _, cy, cx = local_lengths_and_means(
+        data, ydef, xdef, window=window, stride=stride, latlon=latlon,
+        min_count=min_count, levels=levels, Rearth=Rearth)
     return lengths, cy, cx

@@ -45,9 +45,10 @@ SIGNATURES = {
     # data, levels, order, y, x, acc, out, B, Ny, Nx, N, n_rb, n_cb,
     # y_batched, x_batched, latlon, stream
     "xc_contour_lengths": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
-    # data, levels, y, x, acc, out, Ny, Nx, Wy, Wx, window, stride, nby, nbx,
-    # nbw, latlon, stream
-    "xc_local_lengths": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+    # data, levels, y, x, acc, out, B, Ny, Nx, Wy, Wx, window, stride, nby,
+    # nbx, nbw, latlon, stream
+    "xc_local_lengths": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I,
+                         P],
     # raw, mask, out, B, Ny, Nx, in_bytes, out_bytes, swap, flip, stream
     "xc_decode_planes": [P, P, P, I, I, I, I, I, I, I, P],
     # the structure probes (csrc/probes.cu)

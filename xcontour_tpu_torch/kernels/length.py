@@ -9,8 +9,9 @@ Its plain version is the XLA twin ``_lengths_totals_xla``.
 
 K8 (:func:`local_lengths`) replaces ``_local_kernel`` of the same file
 (launched by ``local_lengths_pallas``): the length inside each window of a
-2-D field at that window's own level.  Its plain version is
-``_local_totals_xla_raw`` of ``diagnostics/local_length.py``.
+2-D field, or of each field of a batch in one launch, at that window's own
+level.  Its plain version is ``_local_totals_xla_raw`` of
+``diagnostics/local_length.py``, a field at a time.
 
 Both follow the twin's tie rule: edge fractions by division and vertices
 that land bitwise on a corner at a fraction of 0 or 1, so a level equal to
@@ -238,9 +239,16 @@ def lattice(Wy: int, Wx: int, window: int, stride: int):
 def local_lengths_plain(data: torch.Tensor, levels: torch.Tensor,
                         yc: torch.Tensor, xc: torch.Tensor, *, window: int,
                         stride: int, latlon: bool) -> torch.Tensor:
-    """data (Ny, Nx); levels (Wy, Wx) -> (Wy, Wx) raw window totals: one
-    row of windows at a time through :func:`contour_lengths_plain`, each
-    window a batch element with its own x coordinates."""
+    """data (Ny, Nx) or (B, Ny, Nx); levels (Wy, Wx) or (B, Wy, Wx) ->
+    raw window totals of levels' shape: a field at a time, one row of
+    windows at a time through :func:`contour_lengths_plain`, each window a
+    batch element with its own x coordinates."""
+    if data.dim() == 3:
+        if data.shape[0] == 0:
+            return levels.new_zeros(levels.shape)
+        return torch.stack([local_lengths_plain(d, lv, yc, xc, window=window,
+                                                stride=stride, latlon=latlon)
+                            for d, lv in zip(data, levels)])
     Ny, Nx = data.shape
     oy = _anchors(Ny, window, stride)
     Wx = len(_anchors(Nx, window, stride))
@@ -274,42 +282,52 @@ def _window_rows(data, levels, yc, xc, rows: slice, window: int, stride: int,
 def local_lengths_vjp(data, levels, yc, xc, g, needs, *, window: int,
                       stride: int, latlon: bool):
     """Cotangents of (data, levels, yc, xc) of :func:`local_lengths_plain`
-    for the cotangent g (Wy, Wx), a chunk of window rows at a time: as
-    many rows as keep (windows x cells) within ``VJP_TRIPLES``."""
-    Wy, Wx = levels.shape
+    for the cotangent g (levels' shape), a field and a chunk of window rows
+    at a time: as many rows as keep (windows x cells) within
+    ``VJP_TRIPLES``."""
+    Wy, Wx = levels.shape[-2:]
     step = max(1, VJP_TRIPLES // max(1, Wx * (window - 1) ** 2))
 
-    def piece(rows):
-        return lambda p: _window_rows(*p, rows, window, stride, latlon)
-    pieces = [(piece(slice(i, min(Wy, i + step))), g[i:i + step])
-              for i in range(0, Wy, step)]
+    def piece(b, rows):
+        if b is None:
+            return lambda p: _window_rows(*p, rows, window, stride, latlon)
+        return lambda p: _window_rows(p[0][b], p[1][b], p[2], p[3], rows,
+                                      window, stride, latlon)
+    fields = [None] if data.dim() == 2 else range(data.shape[0])
+    pieces = [(piece(b, slice(i, min(Wy, i + step))),
+               (g if b is None else g[b])[i:i + step])
+              for b in fields for i in range(0, Wy, step)]
     return vjp(pieces, (data, levels, yc, xc), needs)
 
 
 def local_lengths(data: torch.Tensor, levels: torch.Tensor, yc: torch.Tensor,
                   xc: torch.Tensor, *, window: int, stride: int,
                   latlon: bool) -> torch.Tensor:
-    """Raw length (Wy, Wx) inside each window of ``window`` x ``window``
-    points of data (Ny, Nx), anchored every ``stride`` points, at that
-    window's level (Wy, Wx); coordinates (Ny,), (Nx,), radians if
-    ``latlon``.  CPU tensors take the plain version; CUDA tensors launch
-    K8 (a warp per lattice block, testing the levels of the windows that
-    cover it against its corner range, measuring the crossed cells): any
-    window >= 1 and stride >= 1, fewer than 2^31 cells (32-bit column
-    offsets)."""
+    """Raw length inside each window of ``window`` x ``window`` points of
+    data (Ny, Nx), anchored every ``stride`` points, at that window's level
+    (Wy, Wx); or of each field of data (B, Ny, Nx) at levels (B, Wy, Wx).
+    Coordinates (Ny,), (Nx,), radians if ``latlon``.  Returns levels'
+    shape.  CPU tensors take the plain version; CUDA tensors launch K8 once
+    a call, batch or not, up to 65,535 fields a launch (a warp per lattice
+    block of a field, testing the levels of the windows that cover it
+    against its corner range, measuring the crossed cells; each field's
+    totals are the bits of a launch on it alone): any window >= 1 and
+    stride >= 1, fewer than 2^31 cells."""
     if data.device.type == "cpu":
         return local_lengths_plain(data, levels, yc, xc, window=window,
                                    stride=stride, latlon=latlon)
     name = KERNEL_LOCAL_LENGTHS.name
     check_cuda_inputs(name, data=data, levels=levels, yc=yc, xc=xc)
-    if data.dim() != 2:
-        raise ValueError(f"{name}: data must be (Ny, Nx)")
-    Ny, Nx = data.shape
+    if data.dim() not in (2, 3):
+        raise ValueError(f"{name}: data must be (Ny, Nx) or (B, Ny, Nx)")
+    B = data.shape[0] if data.dim() == 3 else 1
+    Ny, Nx = data.shape[-2:]
     Wy = len(_anchors(Ny, window, stride))
     Wx = len(_anchors(Nx, window, stride))
-    if levels.shape != (Wy, Wx):
+    want = data.shape[:-2] + (Wy, Wx)
+    if levels.shape != want:
         raise ValueError(f"{name}: levels {tuple(levels.shape)}, expected "
-                         f"({Wy}, {Wx})")
+                         f"{tuple(want)}")
     if yc.shape != (Ny,) or xc.shape != (Nx,):
         raise ValueError(f"{name}: coordinates {tuple(yc.shape)}, "
                          f"{tuple(xc.shape)} do not match ({Ny}, {Nx})")
@@ -317,17 +335,18 @@ def local_lengths(data: torch.Tensor, levels: torch.Tensor, yc: torch.Tensor,
         raise ValueError(f"{name}: window and stride must be >= 1")
     if data.numel() >= 2 ** 31:
         raise ValueError(f"{name}: more than 2^31 cells")
-    if Wy == 0 or Wx == 0:
-        return levels.new_zeros((Wy, Wx))
+    if B == 0 or Wy == 0 or Wx == 0:
+        return levels.new_zeros(want)
     from ._build import library
     nby, nbx, nbw = lattice(Wy, Wx, window, stride)
     # the windows' totals in 64-bit fixed point, then the scale's word
-    acc = torch.empty((Wy * Wx + 1,), dtype=torch.int64, device=data.device)
-    out = torch.empty((Wy, Wx), dtype=data.dtype, device=data.device)
+    acc = torch.empty((B * Wy * Wx + 1,), dtype=torch.int64,
+                      device=data.device)
+    out = torch.empty(want, dtype=data.dtype, device=data.device)
     status = library().xc_local_lengths(
         data.data_ptr(), levels.data_ptr(), yc.data_ptr(), xc.data_ptr(),
-        acc.data_ptr(), out.data_ptr(), Ny, Nx, Wy, Wx, window, stride, nby,
-        nbx, nbw, int(latlon), stream_handle())
+        acc.data_ptr(), out.data_ptr(), B, Ny, Nx, Wy, Wx, window, stride,
+        nby, nbx, nbw, int(latlon), stream_handle())
     check_status(name, status)
     KERNEL_LOCAL_LENGTHS.launches += 1
     return out

@@ -5,9 +5,12 @@ Counterparts of ``keff_pipeline``, ``lwa_pipeline``, ``keff_lwa_pipeline``,
 ``xcontour_tpu/pipeline.py``: the effective-diffusivity chain, the
 sorted-state + local wave activity chain, the combined step that runs both
 from one shared sorted state, the contour-length chain and the
-fractal-dimension chain, over a batch of (..., Ny, Nx) snapshots.  They run eagerly; the JAX versions' static flags
-are plain Python arguments.  :func:`flatten_output` and :func:`as_dataset`
-label a step's outputs as a netCDF-ready :class:`.utils.ncio.Dataset`.
+fractal-dimension chain, over a batch of (..., Ny, Nx) snapshots; and
+:func:`local_length_pipeline`, the windowed local contour lengths of
+``diagnostics/local_length.py`` in the same signature.  They run eagerly;
+the JAX versions' static flags are plain Python arguments.
+:func:`flatten_output` and :func:`as_dataset` label a step's outputs as a
+netCDF-ready :class:`.utils.ncio.Dataset`.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from . import core
 from .diagnostics import lwa as _lwa
 from .diagnostics.fractal import fractal_dimension
 from .diagnostics.length import contour_crossing, contour_lengths
+from .diagnostics.local_length import local_lengths_and_means
 from .grid import Grid, latitude_lengths_at, to_numpy
 from .ops.histogram import weighted_cdf_multi
 from .ops.interp import interp1d
@@ -375,6 +379,28 @@ def fractal_pipeline(tracer: torch.Tensor, grid: Grid, *, N: int = 121,
         with span("stage.dimension"):
             out["D_bc"] = fractal_dimension(out["bclens"], rulers)
     return out
+
+
+@spanned("pipeline.local_length_pipeline")
+def local_length_pipeline(tracer: torch.Tensor, grid: Grid, *,
+                          window: int = 101, stride: int = 10,
+                          min_count: int = 1) -> dict:
+    """Windowed local contour lengths (xcontour's local length): for each
+    window of ``window`` x ``window`` points anchored every ``stride``
+    points, the length of the contour inside it at its own mean.  One
+    rolling mean (integral images) and one K8 launch for the whole batch
+    of (Ny, Nx) or (..., Ny, Nx) snapshots; great-circle metres on a
+    latitude-longitude grid.
+
+    Returns a dict with llen (..., Wy, Wx; NaN for a window with fewer
+    than ``min_count`` finite points or an empty contour), means (the
+    window-mean levels, the same shape), and the window centres y_window
+    (Wy,) and x_window (Wx,).
+    """
+    llen, means, cy, cx = local_lengths_and_means(
+        tracer, grid.ydef, grid.xdef, window=window, stride=stride,
+        latlon=grid.latlon, min_count=min_count)
+    return dict(llen=llen, means=means, y_window=cy, x_window=cx)
 
 
 # ---------------------------------------------------------------------------
