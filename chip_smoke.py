@@ -49,7 +49,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      planes of the benchmark archive's chunk (16x721x1440) in six layouts
      (big-endian float32 with the latitude flipped, masked, into float64,
      from big-endian float64, little-endian unflipped, Nx 1439) against its
-     plain version on the card and the host path's chunk, bit for bit;
+     plain version on the card and the host path's chunk, bit for bit; box
+     counting B (``kernels.boxcount``) at the t170.fractal step (the
+     headline shape, N = 121, strides 1-32) against its plain version run
+     in float64 and in float32, one launch a call, two runs bit for bit;
   4. the paths: for each, every launch count set to 0 just before it and
      read just after; a path fails if a kernel it runs was not launched.
      K2's counts must be exact: one launch per step and one per table
@@ -83,7 +86,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      surface kernel, torch.profiler) and the SM clock and power that
      nvidia-smi samples under K3 and K4; snapshots/s of each streamed step,
      peak device memory of each path; D in its six layouts in turns with
-     its plain version and Tensor.copy_ of its output (device times);
+     its plain version and Tensor.copy_ of its output (device times); B at
+     the t170.fractal step in turns with its plain version, against its
+     bound (two FP32 compares a (box, level) test, or its bytes);
   7. gradients: every kernel wrapper raises on a CUDA tensor that requires
      grad; each autograd Function (K1-K8) on the card: its forward against
      the wrapper's bits (K2 within its bound: float atomics) and its
@@ -209,7 +214,8 @@ import numpy as np
 import torch
 
 from xcontour_tpu_torch.utils.roofline import (
-    CLASSIFY_INSTR, SEGMENT_INSTR, bound_ms, cdf_work, corner_ranges,
+    CLASSIFY_INSTR, SEGMENT_INSTR, bound_ms, boxcount_work, cdf_work,
+    corner_ranges,
     k7_crossed_pairs, k7_work, kernel_rooflines, lwa_work, nvidia_smi_line,
     stencil_work, time_alternating)
 
@@ -264,6 +270,11 @@ K2_SHAPES = ("table", "clength5", "noise")
 #       measured 5.9e-8 (P2) and 1.1e-7 (P3, N = 121 and 401); P3 takes
 #       K7's bound
 #   P4: bit for bit (one float32 product a cell)
+#   B: against the plain version run in float64 (BOX_BOUND): the same
+#       crossed (box, level) pairs, float32 sums of up to ~10^5 positive
+#       weights in another order; at the t170.fractal step an H100
+#       measured 3.2e-7, the float32 plain version 3.2e-7
+BOX_BOUND = 2e-6
 KERNEL_BOUNDS = dict(squared_gradient=1e-6, weighted_cdf=1e-5,
                      lwa_lin=1.5e-4, lwa_dense=5e-6, lwa_dense_v2=5e-6,
                      lwa_dense_upper=5e-6,
@@ -271,7 +282,7 @@ KERNEL_BOUNDS = dict(squared_gradient=1e-6, weighted_cdf=1e-5,
                      lwa_dense_tall_v2=1e-5, contour_lengths=2e-6,
                      local_lengths=2e-6, lwa_structure_probe=1.5e-4,
                      hist_structure_probe=1e-6, length_structure_probe=2e-6,
-                     copy_probe=0.0)
+                     copy_probe=0.0, box_counts=BOX_BOUND)
 # card (kernels) against CPU (plain versions), float32, relative to each
 # output's largest magnitude: summation order for the sorted state (2e-5);
 # Yeq and Lmin come from a table lookup of float32 areas, where near the
@@ -1113,6 +1124,50 @@ def decode_checks(dev, errs):
         errs[f"decode_{name}"] = 0.0
 
 
+def boxcount_case(q, grid, N):
+    """B at the fractal path's call: (kernel, plain, plain in float64,
+    work) on the field and areas padded by the largest stride."""
+    from xcontour_tpu_torch import core
+    from xcontour_tpu_torch.diagnostics import length as dlength
+    from xcontour_tpu_torch.kernels import boxcount
+    ctr = core.cal_contours(q, N)
+    pad = max(FRACTAL_STRIDES)
+    d = dlength._pad_x(q, pad, "edge")
+    a = dlength._pad_x(grid.dA.to(q.dtype), pad, "edge")
+    B, Ny, W = d.shape
+    return (lambda: boxcount.box_counts(d, ctr, a, FRACTAL_STRIDES),
+            lambda: boxcount.box_counts_plain(d, ctr, a, FRACTAL_STRIDES,
+                                              False),
+            lambda: boxcount.box_counts_plain(d.double(), ctr.double(),
+                                              a.double(), FRACTAL_STRIDES,
+                                              False),
+            boxcount_work(B, Ny, W, N, FRACTAL_STRIDES))
+
+
+def boxcount_checks(q, grid, N, errs):
+    """Phase 3, B: one launch a call, two runs bit for bit, within
+    BOX_BOUND of the plain version run in float64 (the float32 plain
+    version's own error beside it), the same finite totals."""
+    from xcontour_tpu_torch.kernels import boxcount
+    kern, plain, plain64, _ = boxcount_case(q, grid, N)
+    before = boxcount.KERNEL.launches
+    got = kern()
+    _expect(boxcount.KERNEL.launches == before + 1,
+            f"box_counts: {boxcount.KERNEL.launches - before} launches for "
+            "one call")
+    _expect(same_bits(got, kern()), "box_counts: two runs differ")
+    want = plain64()
+    err, rel = rel_err(got.double(), want)
+    _, rel32 = rel_err(plain().double(), want)
+    ok = rel <= BOX_BOUND
+    log(f"phase 3 kernel box_counts {tuple(got.shape)}: two runs bit for bit "
+        f"OK; against float64 plain: max_abs_err {err:.6g} rel {rel:.3e} "
+        f"(float32 plain {rel32:.3e}) bound {BOX_BOUND:g} "
+        f"{'OK' if ok else 'FAIL'}")
+    _expect(ok, "box_counts disagrees with its plain version")
+    errs["box_counts"] = err
+
+
 def limit_checks(dev, era_q, era_grid):
     """The port's launch limits, each against its plain version: K2-K5
     and K7 at a batch of LIMIT_B snapshots of 4x8 (past CUDA's 65,535 grid
@@ -1674,11 +1729,12 @@ def adjoint_ms(loss, q, N):
 
 
 def kernel_records():
-    """K1-K8's and the archive decode's launch records."""
-    from xcontour_tpu_torch.kernels import decode, hist, length, lwa, stencil
+    """K1-K8's, the archive decode's and box counting's launch records."""
+    from xcontour_tpu_torch.kernels import (boxcount, decode, hist, length,
+                                            lwa, stencil)
     return (stencil.KERNEL, hist.KERNEL, lwa.KERNEL_LIN, lwa.KERNEL_DENSE,
             lwa.KERNEL_LIN2, lwa.KERNEL_DENSE_TALL, length.KERNEL_LENGTHS,
-            length.KERNEL_LOCAL_LENGTHS, decode.KERNEL)
+            length.KERNEL_LOCAL_LENGTHS, decode.KERNEL, boxcount.KERNEL)
 
 
 def kernel_counts():
@@ -1769,7 +1825,8 @@ def grad_card_vs_cpu(label, loss_gpu, loss_cpu, q, N):
 def wrapper_grad_limits(dev):
     """Every kernel wrapper, called directly on a CUDA tensor that
     requires grad, raises: wrappers record no graph."""
-    from xcontour_tpu_torch.kernels import hist, length, lwa, stencil
+    from xcontour_tpu_torch.kernels import (boxcount, hist, length, lwa,
+                                            stencil)
     T = lambda *s: torch.rand(*s, device=dev)
     q, W, Q = T(2, 8, 16), T(8, 16), T(2, 8)
     lev, yc, xc = T(2, 3), T(8), T(16)
@@ -1785,7 +1842,9 @@ def wrapper_grad_limits(dev):
         "contour_lengths": lambda a: length.contour_lengths(
             a, lev, yc, xc, latlon=True),
         "local_lengths": lambda a: length.local_lengths(
-            a[0], T(2, 4), yc, xc, window=4, stride=4, latlon=True)}
+            a[0], T(2, 4), yc, xc, window=4, stride=4, latlon=True),
+        "box_counts": lambda a: boxcount.box_counts(a, lev, T(8, 16),
+                                                    [1, 2])}
     for name, call in calls.items():
         try:
             call(q.clone().requires_grad_())
@@ -3118,7 +3177,7 @@ def cli_phase(dev, drive, path_counts, peaks, card, then=None):
         run("cli fractal headline", {"weighted_cdf": 2,
                                      "contour_lengths":
                                          len(FRACTAL_STRIDES),
-                                     "decode_planes": 1},
+                                     "decode_planes": 1, "box_counts": 1},
             ["fractal", hpath, "--var", "pv", "-N", str(HEADLINE["N"]),
              "--batch", str(HEADLINE["B"]), "--format", "nc3", *dev_args,
              "--out", out_c])
@@ -4021,8 +4080,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing is run", file=sys.stderr)
         return 1
     import xcontour_tpu_torch as xt
-    from xcontour_tpu_torch.kernels import (_build, decode, hist, length,
-                                            lwa, stencil)
+    from xcontour_tpu_torch.kernels import (_build, boxcount, decode, hist,
+                                            length, lwa, stencil)
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4113,6 +4172,7 @@ def main() -> int:
     k8_batch_checks(local_q, era_grid)
     limit_checks(dev, era_steps[0], era_grid)
     decode_checks(dev, errs)
+    boxcount_checks(head_q, head_grid, HEADLINE["N"], errs)
 
     # 4. the paths, through the entry points a user calls
     totals = {r.name: 0 for r in records}
@@ -4309,12 +4369,13 @@ def main() -> int:
     nf = 3
     outs, times = drive(
         "fractal headline",
-        {"weighted_cdf": nf, "contour_lengths": nf * len(FRACTAL_STRIDES)},
+        {"weighted_cdf": nf, "contour_lengths": nf * len(FRACTAL_STRIDES),
+         "box_counts": nf},
         lambda: timed_steps(
             lambda q: xt.fractal_pipeline(q, head_grid, N=HEADLINE["N"],
                                           strides=FRACTAL_STRIDES,
                                           table=head_table),
-            [head_q] * nf))
+            [head_q] * nf), exact={"box_counts": nf})
     meds = [check_fractal(out, head_q, HEADLINE["N"], "fractal headline")
             for out in outs]
     rates["fractal_headline"] = (HEADLINE["B"] / statistics.median(times[1:]),
@@ -4440,6 +4501,11 @@ def main() -> int:
         decode_copy[key] = (c_ms, bound_ms((2 * out.numel()
                                             * out.element_size(), 0))[0])
         del out, dst
+    # B in turns with its plain version at the t170.fractal step
+    kern, plain, _, w = boxcount_case(head_q, head_grid, HEADLINE["N"])
+    timing["box_counts"] = tuple(time_alternating([kern, plain], dev,
+                                                  reps=20))
+    work["box_counts"] = w
 
     # K1-K8 against their bounds, with launches per step of their paths
     # (the table builds of the streamed runs included)
@@ -4485,6 +4551,15 @@ def main() -> int:
             f"{100 * b_ms / k_ms:.2f}% of bound; Tensor.copy_ of the output "
             f"{c_ms:.4f} ms ({100 * cb_ms / c_ms:.2f}% of its bound); "
             "launches: phase 10")
+    bounds["box_counts"] = bound_ms(work["box_counts"])
+    (k_ms, p_ms), (b_ms, b_by) = timing["box_counts"], bounds["box_counts"]
+    log(f"phase 6 kernel B {boxcount.KERNEL.name} t170.fractal step "
+        f"{HEADLINE['B']}x{HEADLINE['nlat']}x{HEADLINE['nlon']} N="
+        f"{HEADLINE['N']} strides {list(FRACTAL_STRIDES)}: {k_ms:.4f} ms, "
+        f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{100 * b_ms / k_ms:.2f}% of bound, "
+        f"{path_counts['fractal headline'][boxcount.KERNEL.name] / nf:g} "
+        "launches per step of 'fractal headline', library call none")
 
     # 7. gradients: the autograd Functions on the card
     t0 = time.perf_counter()
@@ -4639,6 +4714,16 @@ def main() -> int:
                       f"plain_ms_{tag}": timing[k][1],
                       f"bound_ms_{tag}": bounds[k][0]})
         return e
+    def boxcount_entry():
+        r, key = boxcount.KERNEL, "box_counts"
+        return dict(name=r.name, route="cuda", source=r.source,
+                    replaces=r.replaces, launches=totals[r.name],
+                    max_abs_err=errs[key], ms=timing[key][0],
+                    plain_ms=timing[key][1], bound_ms=bounds[key][0],
+                    bound_by=bounds[key][1], library_ms=None,
+                    launches_facade=facade_counts[r.name],
+                    launches_cli=cli_counts[r.name],
+                    launches_parallel=par_counts[r.name])
     k2_extra = tuple((tag, f"weighted_cdf_{tag}") for tag in K2_SHAPES)
     kernels_line = {"kernels": [
         entry(r, key, key[1] if isinstance(key, tuple) else key,
@@ -4654,7 +4739,8 @@ def main() -> int:
                     for tag in (f"n{CLENGTH_N[1]}", "cartesian"))),
         entry(length.KERNEL_LOCAL_LENGTHS, "local_lengths", "local_lengths")]
         + [probe_entry(key) for key in ("lwa", "hist_cdf2", "length",
-                                        "stencil")] + [decode_entry()]}
+                                        "stencil")]
+        + [decode_entry(), boxcount_entry()]}
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ from xcontour_tpu_torch import core as tcore
 from xcontour_tpu_torch.diagnostics import length as dlength
 from xcontour_tpu_torch.diagnostics import local_length as dlocal
 from xcontour_tpu_torch.diagnostics import lwa as dlwa
-from xcontour_tpu_torch.kernels import hist, length, lwa, stencil
+from xcontour_tpu_torch.kernels import boxcount, hist, length, lwa, stencil
 from xcontour_tpu_torch.ops import histogram as ohist
 from xcontour_tpu_torch.ops import stencil as ostencil
 
@@ -191,7 +191,8 @@ def _count_wrappers(monkeypatch):
     calls = {}
     for mod, name in ((stencil, "squared_gradient"), (hist, "weighted_cdf"),
                       (lwa, "lwa_lin"), (lwa, "lwa_lin2"), (lwa, "lwa_dense"),
-                      (length, "contour_lengths"), (length, "local_lengths")):
+                      (length, "contour_lengths"), (length, "local_lengths"),
+                      (boxcount, "box_counts")):
         def wrapped(*a, _orig=getattr(mod, name), _name=name, **k):
             calls[_name] = calls.get(_name, 0) + 1
             return _orig(*a, **k)
@@ -258,3 +259,5 @@ def test_no_function_without_gradients_and_same_wrapper_calls(monkeypatch):
     assert set(applied) == {fn.__name__ for fn in FUNCTIONS}
     # six paths, each one step and one table build
     assert seen[2]["weighted_cdf"] == 2 * 6
+    # fractal_pipeline's box counting: every stride in one call
+    assert seen[2]["box_counts"] == 1

@@ -12,6 +12,7 @@ order) and exact on the fuzz-1004 case; coarsening and the fractal fit
 1e-12 in float64.  Empty contours (NaN) must agree exactly.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from xcontour_tpu.kernels.length_pallas import contour_lengths_pallas
 from xcontour_tpu.utils import coarsen as jcoarsen
 import xcontour_tpu_torch as xt
 from xcontour_tpu_torch.diagnostics import length as tlength
+from xcontour_tpu_torch.kernels import boxcount
 from xcontour_tpu_torch.kernels import length as k7
 
 
@@ -259,6 +261,161 @@ def test_crossing_quirks_bound_exceeds_width():
                                   dtype=torch.float64),
                                   torch.as_tensor(area), 2, quirks=quirks)
         assert float(got[0]) == want, (quirks, float(got[0]), want)
+
+
+def _table_eval(d, levels, a, strides, quirks):
+    """Kernel B's launch table (``kernels.boxcount.plan``) evaluated in
+    plain torch, as ``csrc/boxcount.cu`` reads it: each block's tile of one
+    field and stride (box rows r0.., columns c0..), each box's points with
+    the columns at or past the padded width W as NaN, its weight at
+    (r*s, c*s) or under ``quirks`` at (r, c), its levels' sums, and the
+    blocks' partials folded in block order.  d (B, Ny, W) and a (Ny, W)
+    padded, levels (B, N); returns (B, N, S).  Every box is checked to lie
+    in exactly one tile, and no tile to pass the kernel's limits."""
+    B, Ny, W = d.shape
+    N = levels.shape[-1]
+    nan = torch.tensor(float("nan"), dtype=d.dtype)
+    table = boxcount.plan(tuple(strides), B, Ny, W, quirks)
+    assert sorted(table[:, 1].tolist()) == list(range(len(strides)))
+    assert table[:, 0].tolist() == sorted(strides, reverse=True)
+    out = torch.full((B, N, len(strides)), float("nan"), dtype=d.dtype)
+    first = 0
+    for s, col, nrows, ncols, T, R, ntc, nbf, off in table.tolist():
+        assert (s, off) == (strides[col], first)
+        assert (nrows, ncols) == boxcount.boxes(Ny, W, s, quirks)
+        assert T * R <= min(boxcount.TILE_BOXES,
+                            max(1, boxcount.TILE_POINTS // (s + 1) ** 2))
+        first += B * nbf
+        for b in range(B):
+            seen = torch.zeros((nrows, ncols), dtype=torch.int64)
+            total = torch.zeros(N, dtype=d.dtype)
+            for t in range(nbf):
+                rb, ct = divmod(t, ntc)
+                r0, c0 = rb * R, ct * T
+                nr, nc = max(0, min(R, nrows - r0)), max(0, min(T, ncols - c0))
+                part = torch.zeros(N, dtype=d.dtype)
+                if nr * nc:
+                    seen[r0:r0 + nr, c0:c0 + nc] += 1
+                    r = torch.arange(r0, r0 + nr)[:, None]
+                    c = torch.arange(c0, c0 + nc)[None, :]
+                    step = torch.arange(s + 1)
+                    ys = (r * s)[..., None, None] + step[:, None]
+                    xs = (c * s)[..., None, None] + step[None, :]
+                    v = torch.where(xs < W, d[b][ys, xs.clamp(max=W - 1)], nan)
+                    isn = torch.isnan(v)
+                    lo = torch.where(isn, float("inf"), v).amin((-2, -1))
+                    hi = torch.where(isn, float("-inf"), v).amax((-2, -1))
+                    ay, ax = (r, c) if quirks else (r * s, c * s)
+                    ay, ax = torch.broadcast_tensors(ay, ax)
+                    w = torch.where(ax < W, torch.sqrt(a[ay, ax.clamp(max=W - 1)])
+                                    * s, nan)
+                    w = torch.where(torch.isnan(w), 0.0, w)
+                    lev = levels[b][:, None, None]
+                    part = torch.where((lo <= lev) & (hi > lev), w,
+                                       0.0).sum((-2, -1))
+                total = total + part
+            assert bool((seen == 1).all()), (s, b)
+            out[b, :, col] = total
+    assert first == int(table[-1, 8]) + B * int(table[-1, 7])
+    return out
+
+
+def _table_case(seed, Ny, Nx, levels):
+    rng = np.random.default_rng(seed)
+    d = _field(rng, 2, Ny, Nx)
+    d[0, 5:8, Nx - 6:] = np.nan                 # NaN cells at the x seam
+    d[1, 20:22, 3:9] = np.nan
+    area = rng.uniform(1.0, 4.0, (Ny, Nx))
+    area[3, 4] = area[0, Nx - 1] = np.nan
+    ctr = jlength_levels(d, 9)
+    if levels == "nan_unsorted":
+        ctr = ctr[:, rng.permutation(9)]
+        ctr[0, 2] = ctr[1, 7] = np.nan
+        return d, area, ctr
+    if levels == "scalar":                      # a 0-d level, broadcast
+        return d, area, np.array(ctr[0, 4])
+    return d, area, ctr
+
+
+@pytest.mark.parametrize("levels", ["sorted", "nan_unsorted", "scalar"])
+@pytest.mark.parametrize("quirks", [False, True])
+@pytest.mark.parametrize("mode", ["edge", "wrap", "reflect", "symmetric",
+                                  "constant"])
+@pytest.mark.parametrize("stride", [1, 3, [1, 2, 4, 8, 16, 32]])
+def test_box_table_matches_plain_crossing(stride, mode, quirks, levels):
+    """Kernel B's launch table evaluated in plain torch equals the plain
+    ``contour_crossing`` (float64, rtol 1e-12): per-stride box geometry,
+    the ``quirks`` area indexing, columns past the pad read as NaN, NaN
+    data, areas and levels, unsorted levels, and a 0-d level broadcast as
+    the plain version broadcasts it (``boxcount._levels``)."""
+    d, area, ctr = _table_case(17, 70, 45, levels)
+    strides = stride if isinstance(stride, list) else [stride]
+    want = xt.contour_crossing(torch.as_tensor(d), torch.as_tensor(ctr),
+                               torch.as_tensor(area), stride, mode=mode,
+                               quirks=quirks)
+    want = torch.stack(want if isinstance(stride, list) else [want], -1)
+    pad = max(strides)
+    dp = tlength._pad_x(torch.as_tensor(d), pad, mode)
+    ap = tlength._pad_x(torch.as_tensor(area), pad, mode)
+    lev = boxcount._levels(torch.as_tensor(ctr), dp.shape[:-2])
+    got = _table_eval(dp, lev, ap, strides, quirks)
+    assert got.shape == want.shape
+    assert float(want.abs().max()) > 0
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                               atol=0)
+
+
+@pytest.mark.parametrize("quirks", [False, True])
+def test_box_table_quirks_bound_exceeds_width(quirks):
+    """The fuzz-1004 shape of test_crossing_quirks_bound_exceeds_width: the
+    table's column boxes past the padded width read NaN points and NaN
+    areas, as the reference's clamped slices do, exactly."""
+    f = np.zeros((1, 11, 8))
+    f[:, 5:] = 1.0
+    area = np.full((11, 8), 4.0)
+    dp = tlength._pad_x(torch.as_tensor(f), 2, "edge")
+    ap = tlength._pad_x(torch.as_tensor(area), 2, "edge")
+    got = _table_eval(dp, torch.tensor([[0.5]], dtype=torch.float64), ap,
+                      [2], quirks)
+    want = compat.contour_crossing(f[0], 0.5, area, 2, quirks=quirks)
+    assert float(got[0, 0, 0]) == want
+
+
+def test_box_table_tiles_of_large_strides():
+    """A tile of a large stride holds few boxes (its points bound it), the
+    columns cut evenly; a stride without boxes takes one empty tile a
+    field."""
+    table = boxcount.plan((1, 32, 300), 3, 700, 1500, False)
+    rows = {r[0]: r for r in table.tolist()}
+    assert table[:, 0].tolist() == [300, 32, 1]
+    s, _, nrows, ncols, T, R, ntc, nbf, _ = rows[32]
+    assert T * R <= boxcount.TILE_POINTS // 33 ** 2 and T * ntc >= ncols
+    assert ncols - T * (ntc - 1) > 0
+    assert rows[300][4:6] == [1, 1]
+    empty = boxcount.plan((40,), 2, 41, 60, False)
+    assert empty[0, 2] == 0 and empty[0, 7] == 1
+
+
+def test_box_counting_area_gradient_matches_jax():
+    """Only the area carries a gradient: through the autograd Function (the
+    B wrapper forward, the plain VJP a stride at a time) against jax.grad
+    of the JAX package's box counting, float64."""
+    d, area, ctr = _crossing_inputs(41)
+    strides = [1, 2, 4]
+    wt = np.random.default_rng(2).uniform(size=(2, ctr.shape[1], 3))
+
+    def jloss(a):
+        outs = jlength.contour_crossing(jnp.asarray(d), jnp.asarray(ctr), a,
+                                        strides, mode="wrap")
+        return sum(jnp.sum(o * wt[..., j]) for j, o in enumerate(outs))
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(area)))
+    at = torch.tensor(area, requires_grad=True)
+    out = tlength.box_counting_lengths(torch.as_tensor(d),
+                                       torch.as_tensor(ctr), at, strides,
+                                       mode="wrap")
+    g, = torch.autograd.grad((out * torch.as_tensor(wt)).sum(), at)
+    _rel_close(g.numpy(), want, 1e-12)
+    assert np.abs(want[np.isfinite(want)]).max() > 0
 
 
 @pytest.mark.parametrize("mode", ["edge", "wrap", "reflect", "symmetric",

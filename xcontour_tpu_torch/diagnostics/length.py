@@ -3,18 +3,19 @@
 Counterpart of ``xcontour_tpu/diagnostics/length.py``.  Perimeters are
 traversal-free marching squares (every cell measures its own segments, a
 sum per level) through the K7 wrapper (:mod:`..kernels.length`); an empty
-contour gives NaN.  Box counting pads x once by the largest stride, takes
-the NaN-skipping min and max over (stride+1)-point windows, and counts the
-boxes that straddle each level.
+contour gives NaN.  Box counting pads x once by the largest stride and
+sums, for each level, the weights of the (stride+1)-point boxes whose
+NaN-skipping min and max straddle it, every stride in one call of the B
+wrapper (:mod:`..kernels.boxcount`).
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
-import numpy as np
 import torch
 
+from ..kernels import boxcount as _bc
 from ..kernels import length as _k7
 from ..kernels import needs_grad
 from ..utils.constants import Rearth as _REARTH
@@ -138,58 +139,39 @@ def _pad_x(a: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
     return torch.cat([a, tail], dim=-1)
 
 
-def _window_minmax(data: torch.Tensor, stride: int):
-    """NaN-skipping (min, max) over (stride+1) x (stride+1) windows
-    advancing by stride; an all-NaN window gives (+inf, -inf).  NaN is
-    replaced by +-inf first: torch's reductions propagate it."""
-    nan = torch.isnan(data)
-    lo = torch.where(nan, torch.full_like(data, float("inf")), data)
-    hi = torch.where(nan, torch.full_like(data, float("-inf")), data)
-
-    def windows(a):
-        return a.unfold(-2, stride + 1, stride).unfold(-2, stride + 1, stride)
-    return windows(lo).amin(dim=(-2, -1)), windows(hi).amax(dim=(-2, -1))
-
-
-# contour levels per step of the crossing sums: bounds their
-# (..., chunk, boxes) temporaries
-_CHUNK = 16
-
-
-def _crossing_one_stride(data, contours, area, stride: int, pad_x: int,
-                         mode: str, quirks: bool):
-    batch = data.shape[:-2]
+def box_counting_lengths(data, contours, area, strides: Sequence[int], *,
+                         mode: str = "edge", quirks: bool = False
+                         ) -> torch.Tensor:
+    """Box-counting crossing lengths (..., N, S), one column a stride of
+    ``strides``: x padded once by the largest stride, then every stride in
+    one call of :func:`..kernels.boxcount.box_counts` (a launch on the
+    card).  Only ``area`` carries a gradient."""
+    strides = tuple(int(s) for s in strides)
+    pad_x = max(strides)
     d = _pad_x(data, pad_x, mode)
     a = _pad_x(area, pad_x, mode)
-    jj, nn = d.shape[-2:]
-    Jn = int(np.round(jj / stride))
-    In = int(np.round(nn / stride))
-    i_bound = (Jn - 1) if quirks else (In - 1)
-    # the reference's quirks loop can ask for more column boxes than the
-    # padded width holds (its numpy slices clamp, core.py:1545-1550); NaN
-    # columns make the NaN-skipping windows reproduce the clamped blocks
-    extra = max(0, i_bound * stride + 1 - nn)
-    if extra:
-        d = torch.cat([d, d.new_full(d.shape[:-1] + (extra,), float("nan"))], -1)
-        a = torch.cat([a, a.new_full(a.shape[:-1] + (extra,), float("nan"))], -1)
-    wmin, wmax = _window_minmax(d, stride)
-    wmin = wmin[..., :Jn - 1, :i_bound]
-    wmax = wmax[..., :Jn - 1, :i_bound]
-    if quirks:
-        a_box = a[:Jn - 1, :i_bound]   # the reference indexes area by box
-    else:
-        a_box = a[::stride, ::stride][:Jn - 1, :i_bound]
-    contrib = torch.sqrt(a_box) * stride
-    contrib = torch.where(torch.isnan(contrib), torch.zeros_like(contrib),
-                          contrib)
-    ctr = torch.broadcast_to(contours, batch + contours.shape[-1:])
-    zero = torch.zeros((), dtype=contrib.dtype, device=contrib.device)
-    outs = []
-    for k in range(0, ctr.shape[-1], _CHUNK):
-        c = ctr[..., k:k + _CHUNK, None, None]          # (..., c, 1, 1)
-        crossing = (wmin[..., None, :, :] <= c) & (wmax[..., None, :, :] > c)
-        outs.append(torch.where(crossing, contrib, zero).sum(dim=(-2, -1)))
-    return torch.cat(outs, dim=-1)
+    if needs_grad(a):
+        return _BoxCounts.apply(d, contours, a, strides, quirks)
+    return _bc.box_counts(d.detach(), contours.detach(), a.detach(), strides,
+                          quirks=quirks)
+
+
+class _BoxCounts(torch.autograd.Function):
+    """Box counting with the plain version's VJP in the areas, recomputed a
+    stride at a time (:func:`..kernels.boxcount.box_counts_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, data, contours, area, strides, quirks):
+        ctx.save_for_backward(data, contours, area)
+        ctx.strides, ctx.quirks = strides, quirks
+        return _bc.box_counts(data.detach(), contours.detach(), area.detach(),
+                              strides, quirks=quirks)
+
+    @staticmethod
+    def backward(ctx, g):
+        ga = _bc.box_counts_vjp(*ctx.saved_tensors, g, ctx.strides,
+                                ctx.quirks)
+        return None, None, ga, None, None
 
 
 def contour_crossing(data, contours, area, stride=1, *, mode: str = "edge",
@@ -206,8 +188,8 @@ def contour_crossing(data, contours, area, stride=1, *, mode: str = "edge",
     corrected full-width form.
     """
     if isinstance(stride, Sequence):
-        pad_x = int(max(stride))
-        return [_crossing_one_stride(data, contours, area, int(s), pad_x,
-                                     mode, quirks) for s in stride]
-    return _crossing_one_stride(data, contours, area, int(stride),
-                                int(stride), mode, quirks)
+        out = box_counting_lengths(data, contours, area, stride, mode=mode,
+                                   quirks=quirks)
+        return [out[..., j] for j in range(len(stride))]
+    return box_counting_lengths(data, contours, area, [stride], mode=mode,
+                                quirks=quirks)[..., 0]

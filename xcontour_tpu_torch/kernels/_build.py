@@ -51,6 +51,9 @@ SIGNATURES = {
                          P],
     # raw, mask, out, B, Ny, Nx, in_bytes, out_bytes, swap, flip, stream
     "xc_decode_planes": [P, P, P, I, I, I, I, I, I, I, P],
+    # data, area, levels, partial, count, out, B, Ny, W, N, S, quirks,
+    # table (host), blocks, stream
+    "xc_box_counts": [P, P, P, P, P, P, I, I, I, I, I, I, P, I, P],
     # the structure probes (csrc/probes.cu)
     # q, W, Q, out, B, Ny, Nx, stream
     "xc_lwa_structure": [P, P, P, P, I, I, I, P],

@@ -23,7 +23,7 @@ import torch
 from . import core
 from .diagnostics import lwa as _lwa
 from .diagnostics.fractal import fractal_dimension
-from .diagnostics.length import contour_crossing, contour_lengths
+from .diagnostics.length import box_counting_lengths, contour_lengths
 from .diagnostics.local_length import local_lengths_and_means
 from .grid import Grid, latitude_lengths_at, to_numpy
 from .ops.histogram import weighted_cdf_multi
@@ -374,8 +374,7 @@ def fractal_pipeline(tracer: torch.Tensor, grid: Grid, *, N: int = 121,
                    D=fractal_dimension(L, rulers))
     if box_counting:
         with span("stage.boxcount"):
-            bc = contour_crossing(tracer, ctr, dA, list(strides))
-            out["bclens"] = torch.stack(bc, dim=-1)
+            out["bclens"] = box_counting_lengths(tracer, ctr, dA, strides)
         with span("stage.dimension"):
             out["D_bc"] = fractal_dimension(out["bclens"], rulers)
     return out

@@ -54,6 +54,9 @@ FP32_INSTR_PER_S = 33.5e12
 # saddle's second segment not at all, so the counts stay lower bounds.
 CLASSIFY_INSTR = 6
 SEGMENT_INSTR = {True: 32, False: 13}
+# B's FP32 instructions: two compares a (box, level) test (the add of a
+# crossed box's weight not counted)
+BOX_TEST_INSTR = 2
 # K1's and P4's stack on the card: at least this many bytes of snapshots
 COPY_BYTES = 256e6
 # each timing window: warm-up turns, then timed turns (the median is kept)
@@ -91,6 +94,16 @@ def copy_work(B, Ny, Nx):
     """(bytes, FP32 instructions) of P4: q in, q * 1.0000001 out."""
     cells = B * Ny * Nx
     return 8 * cells, cells
+
+
+def boxcount_work(B, Ny, W, N, strides, quirks=False):
+    """(bytes, FP32 instructions) of B on B fields padded to (Ny, W): the
+    field, the areas and the (B, N) levels in, the (B, N, S) totals out;
+    BOX_TEST_INSTR a (box, level) test."""
+    from ..kernels.boxcount import boxes
+    nbox = sum(r * c for r, c in (boxes(Ny, W, s, quirks) for s in strides))
+    return (4 * (B * Ny * W + Ny * W + B * N * (1 + len(strides))),
+            BOX_TEST_INSTR * B * N * nbox)
 
 
 def bound_ms(work):
