@@ -539,7 +539,9 @@ def cuda_ms(fn, reps):
 def device_split(fn, calls=10):
     """{kernel: device ms per call} of the CUDA kernels ``fn`` launches, by
     torch.profiler over ``calls`` calls after a warm-up; the port's LWA,
-    CDF and length kernels by name, torch's own summed as 'torch'."""
+    CDF and length kernels by name, torch's own summed as 'torch'.  The
+    port's spans (``utils.prof``) are ranges, not kernels: their device
+    rows (each the span's whole extent on the card) are left out."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -551,7 +553,8 @@ def device_split(fn, calls=10):
     split = {}
     for evt in prof.key_averages():
         t = getattr(evt, "self_device_time_total", 0) or 0
-        if t > 0 and not evt.key.startswith("aten::"):
+        if t > 0 and not evt.key.startswith(("aten::", "pipeline.",
+                                             "stage.")):
             m = re.search(r"(?:lwa_\w+|cdf_\w+|local_lengths|lengths"
                           r"|spacing_scale|fixed_to_float)_kernel", evt.key)
             name = m.group(0) if m else "torch"

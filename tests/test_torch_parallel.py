@@ -21,6 +21,7 @@ in both directions, non-periodic x with each bc_y, and a snapshot whose
 x slab (two, on four x ranks) is all NaN.
 """
 
+import contextlib
 import dataclasses
 import importlib.util
 import os
@@ -40,6 +41,7 @@ from xcontour_tpu.ops import histogram as jhist
 from xcontour_tpu.ops import sort as jsort
 from xcontour_tpu.ops import stencil as jstencil
 import xcontour_tpu_torch as xt
+from xcontour_tpu_torch import parallel as P
 from xcontour_tpu_torch.ops.histogram import weighted_cdf
 from xcontour_tpu_torch.ops.sort import exact_conditional_integral
 from xcontour_tpu_torch.parallel import _comm
@@ -98,16 +100,30 @@ def run(request, tmp_path_factory):
     d = str(tmp_path_factory.mktemp(f"mesh{spec}"))
     if spec == "1x1":
         before = dict(_comm.CALLS)
-        store = dist.FileStore(os.path.join(d, "store"), 1)
-        dist.init_process_group("gloo", store=store, rank=0, world_size=1)
-        try:
+        with _group_of_one(d):
             C.rank_cases(d, spec)
-        finally:
-            dist.destroy_process_group()
         assert dict(_comm.CALLS) == before, "a ring of one ran a collective"
         return spec, _join(d, 1)
     run_ranks(CASES_FILE + ":rank_cases", 4, d, args=[spec], timeout=240)
     return spec, _join(d, 4)
+
+
+@contextlib.contextmanager
+def _group_of_one(d):
+    """A gloo group of one in this process, its store under ``d``."""
+    store = dist.FileStore(os.path.join(d, "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def stages(tmp_path_factory):
+    """{step: (its sharded step's span names, its own)} on the 1x1 mesh."""
+    with _group_of_one(str(tmp_path_factory.mktemp("stages"))):
+        return C.stage_names(P.make_mesh(x_size=1))
 
 
 def _jgrids():
@@ -291,3 +307,13 @@ def test_all_nan_slab_levels(run, refs):
     assert np.isfinite(lv).all()
     np.testing.assert_array_equal(
         lv, refs["port"]["pipe_keff_lwa_auto", "contour"][1])
+
+
+@pytest.mark.parametrize("step", ["keff", "lwa", "keff_lwa", "clength"])
+def test_sharded_step_spans_its_unsharded_stages(stages, step):
+    """A sharded step is its unsharded step on a mesh layout: the same
+    entry span and ``stage.*`` spans."""
+    sharded, unsharded = stages[step]
+    assert f"pipeline.{step}_pipeline" in unsharded
+    assert {"stage.contours", "stage.cdf", "stage.lookup"} <= set(unsharded)
+    assert sharded == unsharded

@@ -277,6 +277,19 @@ def test_import_loads_no_optional_module():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_pipeline_imports_nothing_of_parallel():
+    """The steps' module loads no module of the sharded package: the
+    sharded steps import the steps, never the other way (a fresh
+    interpreter)."""
+    code = ("import sys, xcontour_tpu_torch.pipeline; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.startswith('xcontour_tpu_torch.parallel')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 # -- labelled outputs -------------------------------------------------------
 
 def _pipe_case():

@@ -1,4 +1,5 @@
-"""Rank-side cases of tests/test_torch_parallel.py (``rank_cases``),
+"""Rank-side cases of tests/test_torch_parallel.py (``rank_cases``,
+``stage_names``),
 tests/test_torch_parallel_grad.py (``rank_grads``) and
 tests/test_torch_parallel_cli.py (``rank_runner``).
 
@@ -155,6 +156,31 @@ def cases(mesh):
             kind = "x" if k in P.X_SHARDED else "r" if k == "table" else "b"
             put(kind, f"pipe_{name}", {k: t})
     return out
+
+
+def stage_names(mesh):
+    """{step: (the ``pipeline.*`` and ``stage.*`` ranges a CPU profiler
+    records of the sharded step on the rank's block of ``tracer``, those
+    of its unsharded twin on the whole snapshots)}."""
+    d = {k: _t(a) for k, a in inputs().items()}
+    t = d["tracer"]
+    tb = P.shard_batch_spec(mesh, 3).block(t)
+    ll = grids()[0]
+    steps = {"keff": (P.sharded_keff_pipeline, xt.keff_pipeline),
+             "lwa": (P.sharded_lwa_pipeline, xt.lwa_pipeline),
+             "keff_lwa": (P.sharded_keff_lwa_pipeline, xt.keff_lwa_pipeline),
+             "clength": (P.sharded_clength_pipeline, xt.clength_pipeline)}
+
+    def names(run):
+        cpu = [torch.profiler.ProfilerActivity.CPU]
+        with torch.profiler.profile(activities=cpu) as p:
+            run()
+        return sorted({e.name for e in p.events()
+                       if e.name.startswith(("pipeline.", "stage."))})
+
+    return {name: (names(lambda: sfn(tb, ll, mesh, N=N)),
+                   names(lambda: fn(t, ll, N=N)))
+            for name, (sfn, fn) in steps.items()}
 
 
 def rank_cases(workdir, spec):

@@ -1,11 +1,14 @@
-"""The sharded pipeline steps, composed from the sharded functions.
+"""The sharded pipeline steps: ``..pipeline``'s own steps on a mesh layout.
 
 The JAX package has no module here: GSPMD derives the sharded programs
-from ``pipeline.*`` on sharded inputs.  The port writes them out.  Each
-step takes the rank's (B_local, Ny, Nx_local) block of the snapshots and
-the whole grid (its metrics replicated on every rank, as JAX replicates
-the grid's leaves), has the arguments and returns the keys of its
-unsharded twin in ``..pipeline``, and runs:
+from ``pipeline.*`` on sharded inputs.  The port runs the same bodies:
+each step here is its twin in ``..pipeline`` given a mesh's layout
+(``_layout=``), which answers the operations that reach the grid's x axis
+on the rank's block.  Each step takes the rank's (B_local, Ny, Nx_local)
+block of the snapshots and the whole grid (its metrics replicated on
+every rank, as JAX replicates the grid's leaves), has the arguments and
+returns the keys of its unsharded twin, emits the same ``stage.*`` spans,
+and runs:
 
 1. |grad q|^2 with a halo (:func:`.stencil.sharded_squared_gradient`);
 2. the contour levels from a min/max all-reduce over 'x' of the local
@@ -18,11 +21,14 @@ unsharded twin in ``..pipeline``, and runs:
    (:func:`replicated_table`) and every output replicated over 'x' is the
    same on every x rank;
 4. the conditional integrals, one K2 launch and one sum over 'x'
-   (:func:`.histogram.sharded_weighted_cdf_multi`);
+   (:func:`.histogram.sharded_weighted_cdf_multi`), or the broadcast
+   integrals of the slab and their sums over 'x';
 5. the lookup, Lmin and the Keff tail, replicated;
 6. the sorted profile Q, replicated;
 7. LWA on each slab (:func:`.lwa.sharded_local_wave_activity`), no
-   collective.
+   collective;
+8. K7's perimeters on each slab plus its halo column
+   (:func:`.length.sharded_contour_lengths`).
 
 Outputs in :data:`X_SHARDED` are the rank's x block of a plane field;
 every other output is replicated over 'x'.  Masks passed in are whole
@@ -41,15 +47,17 @@ its ``.backward()`` then yields its block of the tracer's gradient.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from .. import core
-from .. import pipeline as _p
 from ..grid import Grid
 from ..kernels import needs_grad
+from ..pipeline import (clength_pipeline, keff_lwa_pipeline, keff_pipeline,
+                        lwa_pipeline)
 from . import _comm
 from .histogram import sharded_weighted_cdf_multi
 from .length import sharded_contour_lengths
@@ -89,24 +97,34 @@ def replicated_table(table: core.Table, mesh: DeviceMesh) -> core.Table:
                       coords=table.coords)
 
 
-def _hist_table(mask, ydef, dA, mesh, increase, lt):
-    return replicated_table(core.cal_area_eqCoord_table_hist(
-        mask, ydef, dA, increase=increase, lt=lt), mesh)
+class _MeshLayout:
+    """The layout of a snapshot whose x axis is split over ``mesh``'s 'x':
+    ``..pipeline._PLANE``'s names on the rank's block.  The stencil takes
+    a halo, the levels and the integrals are reduced over 'x', the
+    histogram table is x rank 0's, and LWA and the lengths run on the
+    slab."""
 
+    def __init__(self, mesh: DeviceMesh):
+        self.mesh = mesh
+        self.squared_gradient = partial(sharded_squared_gradient, mesh=mesh)
+        self.gradient = partial(sharded_gradient, mesh=mesh)
+        self.contours = partial(sharded_contours, mesh=mesh)
+        self.cdf = partial(sharded_weighted_cdf_multi, mesh=mesh)
+        self.lwa = partial(sharded_local_wave_activity, mesh=mesh)
+        self.lwa2 = partial(sharded_local_wave_activity2, mesh=mesh)
+        self.lengths = partial(sharded_contour_lengths, mesh=mesh)
 
-def _sharded_broadcast_integral(tracer, ctr, dA, integrand, lt, mesh):
-    part = core.cal_integral_within_contours(tracer, ctr, dA, integrand,
-                                             lt=lt)
-    return _comm.sum_(part, mesh.get_group(X))
+    def block(self, dA, nx: int):
+        return x_block(self.mesh, dA, nx)
 
+    def hist_table(self, mask, ydef, dA, *, increase, lt):
+        return replicated_table(core.cal_area_eqCoord_table_hist(
+            mask, ydef, dA, increase=increase, lt=lt), self.mesh)
 
-def _setup(tracer, grid, mesh, mask):
-    dtype = tracer.dtype
-    ydef = grid.ydef.to(dtype)
-    dA = grid.dA.to(dtype)
-    if mask is None:
-        mask = grid.fluid_mask(dtype)
-    return ydef, dA, x_block(mesh, dA, tracer.shape[-1]), mask
+    def integral(self, tracer, ctr, dA, integrand, *, lt):
+        part = core.cal_integral_within_contours(tracer, ctr, dA, integrand,
+                                                 lt=lt)
+        return _comm.sum_(part, self.mesh.get_group(X))
 
 
 def sharded_keff_pipeline(tracer: torch.Tensor, grid: Grid, mesh: DeviceMesh,
@@ -120,36 +138,10 @@ def sharded_keff_pipeline(tracer: torch.Tensor, grid: Grid, mesh: DeviceMesh,
     """:func:`..pipeline.keff_pipeline` on the rank's block; ``grdS`` is
     the block's, ``mask`` whole.  hist=False sums the broadcast integrals
     of each slab over 'x' (the table from the whole grid)."""
-    _p._check_modes(lmin=lmin)
-    ydef, dA, dA_l, mask = _setup(tracer, grid, mesh, mask)
-    if grdS is None:
-        grdS = sharded_squared_gradient(tracer, grid, mesh)
-    ctr = sharded_contours(tracer, N, mesh, increase=increase)
-    if hist:
-        if table is None:
-            table = _hist_table(mask, ydef, dA, mesh, increase, lt)
-        intArea, intgrdS = sharded_weighted_cdf_multi(
-            tracer, ctr, [dA_l, grdS * dA_l], lt, mesh)
-    else:
-        if table is None:
-            table = core.cal_area_eqCoord_table(mask, ydef, dA,
-                                                increase=increase, lt=lt)
-        intArea = _sharded_broadcast_integral(tracer, ctr, dA_l, None, lt,
-                                              mesh)
-        intgrdS = _sharded_broadcast_integral(tracer, ctr, dA_l, grdS, lt,
-                                              mesh)
-    Yeq = table.lookup_coordinates(intArea)
-    Lmin = _p._lmin(lmin, Yeq, grid, mask, ydef)
-    k = _p._keff(ctr, intArea, intgrdS, Lmin, nkeff_mask)
-    origin = dict(contour=ctr, intArea=intArea, Yeq=Yeq, intgrdS=intgrdS,
-                  dgrdSdA=k["dgrdSdA"], dqdA=k["dqdA"], Leq2=k["Leq2"],
-                  Lmin=Lmin, nkeff=k["nkeff"], table=table.values)
-    out = dict(origin=origin)
-    if pre_y is not None:
-        pre_y = pre_y.to(tracer.dtype)
-        out["interp"] = {key: core.interp_to_coords(pre_y, Yeq, v)
-                         for key, v in origin.items() if key != "table"}
-    return out
+    return keff_pipeline(tracer, grid, grdS, mask, pre_y, N=N,
+                         increase=increase, lt=lt, hist=hist, lmin=lmin,
+                         nkeff_mask=nkeff_mask, table=table,
+                         _layout=_MeshLayout(mesh))
 
 
 def sharded_lwa_pipeline(tracer: torch.Tensor, grid: Grid, mesh: DeviceMesh,
@@ -160,20 +152,9 @@ def sharded_lwa_pipeline(tracer: torch.Tensor, grid: Grid, mesh: DeviceMesh,
                          table: Optional[core.Table] = None) -> dict:
     """:func:`..pipeline.lwa_pipeline` on the rank's block: LWA (K3) and
     LWA2 (K5) on each slab for 'auto'."""
-    _p._check_modes(metric=metric)
-    ydef, dA, dA_l, mask = _setup(tracer, grid, mesh, mask)
-    weight = _p._lwa_weight(metric, grid, dA)
-    if table is None:
-        table = _hist_table(mask, ydef, dA, mesh, increase, lt)
-    ctr = sharded_contours(tracer, N, mesh, increase=increase)
-    intArea, = sharded_weighted_cdf_multi(tracer, ctr, [dA_l], lt, mesh)
-    latEq = table.lookup_coordinates(intArea)
-    Q = core.interp_to_coords(ydef, latEq, ctr)
-    kw = dict(increase=increase, part=part, weight=weight, method=lwa_method)
-    lwa = sharded_local_wave_activity(tracer, Q, dA, ydef, mesh, **kw)
-    lwa2 = sharded_local_wave_activity2(tracer, Q, dA, ydef, mesh, **kw)
-    return dict(contour=ctr, intArea=intArea, latEq=latEq, Q=Q, lwa=lwa,
-                lwa2=lwa2)
+    return lwa_pipeline(tracer, grid, mask, N=N, increase=increase, lt=lt,
+                        part=part, metric=metric, lwa_method=lwa_method,
+                        table=table, _layout=_MeshLayout(mesh))
 
 
 def sharded_keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
@@ -189,33 +170,11 @@ def sharded_keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
     """:func:`..pipeline.keff_lwa_pipeline` on the rank's block, the main
     path: K1 on the halo-extended slab, K2 once for the table (unless
     given) and once for the two integrals, K3 (or K4) on the slab."""
-    _p._check_modes(lmin=lmin, metric=metric)
-    ydef, dA, dA_l, mask = _setup(tracer, grid, mesh, mask)
-    if grdS is None:
-        grdS = sharded_squared_gradient(tracer, grid, mesh)
-    if table is None:
-        table = _hist_table(mask, ydef, dA, mesh, increase, lt)
-    ctr = sharded_contours(tracer, N, mesh, increase=increase)
-    intArea, intgrdS = sharded_weighted_cdf_multi(
-        tracer, ctr, [dA_l, grdS * dA_l], lt, mesh)
-    Yeq = table.lookup_coordinates(intArea)
-    Lmin = _p._lmin(lmin, Yeq, grid, mask, ydef)
-    k = _p._keff(ctr, intArea, intgrdS, Lmin, 2e7)
-
-    Q = core.interp_to_coords(ydef, Yeq, ctr)
-    kw = dict(increase=increase, part="all",
-              weight=_p._lwa_weight(metric, grid, dA), method=lwa_method)
-    lwa = sharded_local_wave_activity(tracer, Q, dA, ydef, mesh, **kw)
-    out = dict(contour=ctr, intArea=intArea, intgrdS=intgrdS, Yeq=Yeq,
-               Lmin=Lmin, Leq2=k["Leq2"], nkeff=k["nkeff"], Q=Q, lwa=lwa)
-    if with_lwa2:
-        out["lwa2"] = sharded_local_wave_activity2(tracer, Q, dA, ydef, mesh,
-                                                   **kw)
-    if pre_y is not None:
-        pre_y = pre_y.to(tracer.dtype)
-        for key in ("Leq2", "nkeff", "Lmin"):
-            out[key + "_at"] = core.interp_to_coords(pre_y, Yeq, out[key])
-    return out
+    return keff_lwa_pipeline(tracer, grid, grdS, mask, pre_y, N=N,
+                             increase=increase, lt=lt, lmin=lmin,
+                             metric=metric, with_lwa2=with_lwa2,
+                             lwa_method=lwa_method, table=table,
+                             _layout=_MeshLayout(mesh))
 
 
 def sharded_clength_pipeline(tracer: torch.Tensor, grid: Grid,
@@ -228,26 +187,5 @@ def sharded_clength_pipeline(tracer: torch.Tensor, grid: Grid,
     integrals in one K2 launch and one sum over 'x', the perimeters by
     :func:`.length.sharded_contour_lengths` (K7 on each slab plus its
     halo column)."""
-    ydef, dA, dA_l, mask = _setup(tracer, grid, mesh, mask)
-    qy, qx = sharded_gradient(tracer, grid, mesh)
-    grdS = qx * qx + qy * qy
-    grdm = torch.sqrt(grdS)
-    if table is None:
-        table = _hist_table(mask, ydef, dA, mesh, increase, lt)
-    ctr = sharded_contours(tracer, N, mesh, increase=increase)
-    intArea, intgrdS, int_gg, int_g, int_ig = sharded_weighted_cdf_multi(
-        tracer, ctr, [dA_l, grdS * dA_l, (grdm * grdm) * dA_l, grdm * dA_l,
-                      ((1.0 / grdm) * grdm) * dA_l], lt, mesh)
-    Yeq = table.lookup_coordinates(intArea)
-    lengths = sharded_contour_lengths(tracer, ctr, grid.ydef, grid.xdef, mesh,
-                                      latlon=grid.latlon)
-    Lmin = _p._lmin("frac", Yeq, grid, mask, ydef)
-    lower = core.cal_gradient_wrt_area(int_g, intArea)
-    cmGrd = core.grad_safe_div(core.cal_gradient_wrt_area(int_gg, intArea),
-                               lower)
-    cmInvGrd = core.grad_safe_div(core.cal_gradient_wrt_area(int_ig, intArea),
-                                  lower)
-    k = _p._keff(ctr, intArea, intgrdS, Lmin, 1e5)
-    return dict(contour=ctr, intArea=intArea, Yeq=Yeq, lengths=lengths,
-                Lmin=Lmin, Leq2=k["Leq2"], nkeff=k["nkeff"], cmGrd=cmGrd,
-                cmInvGrd=cmInvGrd)
+    return clength_pipeline(tracer, grid, mask, N=N, increase=increase,
+                            lt=lt, table=table, _layout=_MeshLayout(mesh))

@@ -11,6 +11,14 @@ fractal-dimension chain, over a batch of (..., Ny, Nx) snapshots; and
 the JAX versions' static flags are plain Python arguments.
 :func:`flatten_output` and :func:`as_dataset` label a step's outputs as a
 netCDF-ready :class:`.utils.ncio.Dataset`.
+
+The Keff, LWA and contour-length steps reach the grid's x axis through a
+layout, at seven operations (the stencil, the levels, the histogram
+table, the CDF, the broadcast integral, LWA and LWA2, K7's lengths) and
+the x block of ``dA`` the CDF weights use.  :data:`_PLANE`, the default,
+holds the whole plane and makes the unsharded calls; the sharded steps
+of :mod:`.parallel.pipeline` are these steps given a mesh's layout
+through the private keyword ``_layout``.
 """
 
 from __future__ import annotations
@@ -76,6 +84,32 @@ def _lwa_weight(metric: str, grid: Grid, dA):
     return dA / _lwa.nanmax(dA) * grid.dyF.to(dA.dtype)
 
 
+class _Plane:
+    """The layout of a snapshot held whole: each operation that reaches
+    the x axis is the unsharded call, and the x block of ``dA`` is
+    ``dA``.  A mesh's layout (:mod:`.parallel.pipeline`) answers the same
+    names on the rank's block."""
+
+    __slots__ = ()
+
+    @staticmethod
+    def block(dA, nx: int):
+        return dA
+
+    squared_gradient = staticmethod(squared_gradient)
+    gradient = staticmethod(gradient)
+    contours = staticmethod(core.cal_contours)
+    hist_table = staticmethod(core.cal_area_eqCoord_table_hist)
+    cdf = staticmethod(weighted_cdf_multi)
+    integral = staticmethod(core.cal_integral_within_contours)
+    lwa = staticmethod(_lwa.local_wave_activity)
+    lwa2 = staticmethod(_lwa.local_wave_activity2)
+    lengths = staticmethod(contour_lengths)
+
+
+_PLANE = _Plane()
+
+
 @spanned("pipeline.keff_pipeline")
 def keff_pipeline(tracer: torch.Tensor, grid: Grid,
                   grdS: Optional[torch.Tensor] = None,
@@ -83,7 +117,8 @@ def keff_pipeline(tracer: torch.Tensor, grid: Grid,
                   pre_y: Optional[torch.Tensor] = None, *, N: int = 251,
                   increase: bool = True, lt: bool = True, hist: bool = True,
                   lmin: str = "dxF", nkeff_mask: float = 2e7,
-                  table: Optional[core.Table] = None) -> dict:
+                  table: Optional[core.Table] = None,
+                  _layout=_PLANE) -> dict:
     """The effective-diffusivity chain on (..., Ny, Nx) snapshots: contours
     -> conditional area and |grad q|^2 integrals -> A(Y_eq) lookup -> d/dA
     -> Leq^2 -> nkeff, plus interpolation onto ``pre_y``.
@@ -102,28 +137,27 @@ def keff_pipeline(tracer: torch.Tensor, grid: Grid,
     dtype = tracer.dtype
     ydef = grid.ydef.to(dtype)
     dA = grid.dA.to(dtype)
+    dA_x = _layout.block(dA, tracer.shape[-1])
     if mask is None:
         mask = grid.fluid_mask(dtype)
     if grdS is None:
         with span("stage.gradient"):
-            grdS = squared_gradient(tracer, grid)
+            grdS = _layout.squared_gradient(tracer, grid)
 
     with span("stage.contours"):
-        ctr = core.cal_contours(tracer, N, increase=increase)
+        ctr = _layout.contours(tracer, N, increase=increase)
     if table is None:
         with span("stage.table"):
-            build = core.cal_area_eqCoord_table_hist if hist else \
+            build = _layout.hist_table if hist else \
                 core.cal_area_eqCoord_table
             table = build(mask, ydef, dA, increase=increase, lt=lt)
     with span("stage.cdf"):
         if hist:
-            intArea, intgrdS = weighted_cdf_multi(tracer, ctr,
-                                                  [dA, grdS * dA], lt)
+            intArea, intgrdS = _layout.cdf(tracer, ctr,
+                                           [dA_x, grdS * dA_x], lt)
         else:
-            intArea = core.cal_integral_within_contours(tracer, ctr, dA,
-                                                        lt=lt)
-            intgrdS = core.cal_integral_within_contours(tracer, ctr, dA,
-                                                        grdS, lt=lt)
+            intArea = _layout.integral(tracer, ctr, dA_x, None, lt=lt)
+            intgrdS = _layout.integral(tracer, ctr, dA_x, grdS, lt=lt)
     with span("stage.lookup"):
         Yeq = table.lookup_coordinates(intArea)
     with span("stage.lmin"):
@@ -147,7 +181,8 @@ def lwa_pipeline(tracer: torch.Tensor, grid: Grid,
                  mask: Optional[torch.Tensor] = None, *, N: int = 121,
                  increase: bool = True, lt: bool = True, part: str = "all",
                  metric: str = "dA", lwa_method: str = "auto",
-                 table: Optional[core.Table] = None) -> dict:
+                 table: Optional[core.Table] = None,
+                 _layout=_PLANE) -> dict:
     """The sorted-state + local wave activity chain: contours -> areas ->
     latEq -> the sorted profile Q on the grid's coordinates -> LWA and the
     impulse-Casimir LWA2.
@@ -163,27 +198,27 @@ def lwa_pipeline(tracer: torch.Tensor, grid: Grid,
     dtype = tracer.dtype
     ydef = grid.ydef.to(dtype)
     dA = grid.dA.to(dtype)
+    dA_x = _layout.block(dA, tracer.shape[-1])
     weight = _lwa_weight(metric, grid, dA)
     if mask is None:
         mask = grid.fluid_mask(dtype)
 
     if table is None:
         with span("stage.table"):
-            table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
-                                                     increase=increase, lt=lt)
+            table = _layout.hist_table(mask, ydef, dA, increase=increase,
+                                       lt=lt)
     with span("stage.contours"):
-        ctr = core.cal_contours(tracer, N, increase=increase)
+        ctr = _layout.contours(tracer, N, increase=increase)
     with span("stage.cdf"):
-        intArea = core.cal_integral_within_contours_hist(tracer, ctr, dA,
-                                                         lt=lt)
+        intArea, = _layout.cdf(tracer, ctr, [dA_x], lt)
     with span("stage.lookup"):
         latEq = table.lookup_coordinates(intArea)
     with span("stage.interp"):
         Q = core.interp_to_coords(ydef, latEq, ctr)
     kw = dict(increase=increase, part=part, weight=weight, method=lwa_method)
     with span("stage.lwa"):
-        lwa = _lwa.local_wave_activity(tracer, Q, dA, ydef, **kw)
-        lwa2 = _lwa.local_wave_activity2(tracer, Q, dA, ydef, **kw)
+        lwa = _layout.lwa(tracer, Q, dA, ydef, **kw)
+        lwa2 = _layout.lwa2(tracer, Q, dA, ydef, **kw)
     return dict(contour=ctr, intArea=intArea, latEq=latEq, Q=Q, lwa=lwa,
                 lwa2=lwa2)
 
@@ -196,7 +231,8 @@ def keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
                       increase: bool = True, lt: bool = True,
                       lmin: str = "analytic", metric: str = "dA",
                       with_lwa2: bool = False, lwa_method: str = "auto",
-                      table: Optional[core.Table] = None) -> dict:
+                      table: Optional[core.Table] = None,
+                      _layout=_PLANE) -> dict:
     """Keff chain + LWA on (..., Ny, Nx) snapshots.
 
     lmin : 'analytic' — 2*pi*R*cos(Yeq);
@@ -218,22 +254,22 @@ def keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
     dtype = tracer.dtype
     ydef = grid.ydef.to(dtype)
     dA = grid.dA.to(dtype)
+    dA_x = _layout.block(dA, tracer.shape[-1])
     if mask is None:
         mask = grid.fluid_mask(dtype)
     if grdS is None:
         with span("stage.gradient"):
-            grdS = squared_gradient(tracer, grid)
+            grdS = _layout.squared_gradient(tracer, grid)
 
     if table is None:
         with span("stage.table"):
-            table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
-                                                     increase=increase, lt=lt)
+            table = _layout.hist_table(mask, ydef, dA, increase=increase,
+                                       lt=lt)
     with span("stage.contours"):
-        ctr = core.cal_contours(tracer, N, increase=increase)
+        ctr = _layout.contours(tracer, N, increase=increase)
     # the area and |grad q|^2 integrals share one digitize pass
     with span("stage.cdf"):
-        intArea, intgrdS = weighted_cdf_multi(tracer, ctr, [dA, grdS * dA],
-                                              lt)
+        intArea, intgrdS = _layout.cdf(tracer, ctr, [dA_x, grdS * dA_x], lt)
     with span("stage.lookup"):
         Yeq = table.lookup_coordinates(intArea)
     with span("stage.lmin"):
@@ -246,13 +282,12 @@ def keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
     kw = dict(increase=increase, part="all",
               weight=_lwa_weight(metric, grid, dA), method=lwa_method)
     with span("stage.lwa"):
-        lwa = _lwa.local_wave_activity(tracer, Q, dA, ydef, **kw)
+        lwa = _layout.lwa(tracer, Q, dA, ydef, **kw)
     out = dict(contour=ctr, intArea=intArea, intgrdS=intgrdS, Yeq=Yeq,
                Lmin=Lmin, Leq2=k["Leq2"], nkeff=k["nkeff"], Q=Q, lwa=lwa)
     if with_lwa2:
         with span("stage.lwa"):
-            out["lwa2"] = _lwa.local_wave_activity2(tracer, Q, dA, ydef,
-                                                    **kw)
+            out["lwa2"] = _layout.lwa2(tracer, Q, dA, ydef, **kw)
     if pre_y is not None:
         with span("stage.interp"):
             pre_y = pre_y.to(dtype)
@@ -266,7 +301,8 @@ def keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
 def clength_pipeline(tracer: torch.Tensor, grid: Grid,
                      mask: Optional[torch.Tensor] = None, *, N: int = 121,
                      increase: bool = True, lt: bool = True,
-                     table: Optional[core.Table] = None) -> dict:
+                     table: Optional[core.Table] = None,
+                     _layout=_PLANE) -> dict:
     """The contour-length chain: perimeter lengths L (K7), the equivalent
     length Leq (through Leq^2), the minimum length Lmin (zonal fluid
     fraction times 2*pi*R*cos(lat) at Yeq), and the Cauchy-Schwarz contour
@@ -284,29 +320,30 @@ def clength_pipeline(tracer: torch.Tensor, grid: Grid,
     dtype = tracer.dtype
     ydef = grid.ydef.to(dtype)
     dA = grid.dA.to(dtype)
+    dA_x = _layout.block(dA, tracer.shape[-1])
     if mask is None:
         mask = grid.fluid_mask(dtype)
     with span("stage.gradient"):
-        qy, qx = gradient(tracer, grid)
+        qy, qx = _layout.gradient(tracer, grid)
         grdS = qx * qx + qy * qy
         grdm = torch.sqrt(grdS)
 
     if table is None:
         with span("stage.table"):
-            table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
-                                                     increase=increase, lt=lt)
+            table = _layout.hist_table(mask, ydef, dA, increase=increase,
+                                       lt=lt)
     with span("stage.contours"):
-        ctr = core.cal_contours(tracer, N, increase=increase)
+        ctr = _layout.contours(tracer, N, increase=increase)
     # the weights as cal_contour_mean_hist forms them: (f * grdm) * dA
     with span("stage.cdf"):
-        intArea, intgrdS, int_gg, int_g, int_ig = weighted_cdf_multi(
-            tracer, ctr, [dA, grdS * dA, (grdm * grdm) * dA, grdm * dA,
-                          ((1.0 / grdm) * grdm) * dA], lt)
+        intArea, intgrdS, int_gg, int_g, int_ig = _layout.cdf(
+            tracer, ctr, [dA_x, grdS * dA_x, (grdm * grdm) * dA_x,
+                          grdm * dA_x, ((1.0 / grdm) * grdm) * dA_x], lt)
     with span("stage.lookup"):
         Yeq = table.lookup_coordinates(intArea)
 
     with span("stage.lengths"):
-        lengths = contour_lengths(tracer, ctr, grid.ydef, grid.xdef,
+        lengths = _layout.lengths(tracer, ctr, grid.ydef, grid.xdef,
                                   latlon=grid.latlon)
     with span("stage.lmin"):
         Lmin = _lmin("frac", Yeq, grid, mask, ydef)
