@@ -217,7 +217,7 @@ from xcontour_tpu_torch.utils.roofline import (
     CLASSIFY_INSTR, SEGMENT_INSTR, bound_ms, boxcount_work, cdf_work,
     corner_ranges,
     k7_crossed_pairs, k7_work, kernel_rooflines, lwa_work, nvidia_smi_line,
-    stencil_work, time_alternating)
+    stencil_work, time_alternating, window_means_work)
 
 ERA5 = dict(B=15, nlat=721, nlon=1440, N=241)
 HEADLINE = dict(B=32, nlat=256, nlon=512, N=121)
@@ -1171,6 +1171,47 @@ def boxcount_checks(q, grid, N, errs):
     errs["box_counts"] = err
 
 
+def rolling_checks(era_q, errs):
+    """Phase 3, R (the window means) on the LOCAL_B levels of an ERA5 step,
+    as local_length_pipeline calls it, and at each of K8_WINDOWS: one
+    launch a call, two runs bit for bit, every mean within one float32 ulp
+    of the float64 direct means (R's float64 sums are rounded once), and
+    the plain version's integral images on the same card inputs beside
+    it.  The float64 means are the benchmark's plain reference's
+    (``xcbench/reference/local.py``: plain torch, none of the port)."""
+    from xcbench.reference.local import window_means as direct_window_means
+    from xcontour_tpu_torch.kernels import rolling
+    for window, stride in ((LOCAL["window"], LOCAL["stride"]), *K8_WINDOWS):
+        n0 = rolling.KERNEL.launches
+        got = rolling.window_means(era_q, window, stride)
+        _expect(rolling.KERNEL.launches == n0 + 1,
+                f"window_means {window} / {stride}: "
+                f"{rolling.KERNEL.launches - n0} launches, not 1")
+        _expect(same_bits(got, rolling.window_means(era_q, window, stride)),
+                f"window_means {window} / {stride}: two runs differ")
+        exact = direct_window_means(era_q.double(), window, stride)
+        plain = rolling.window_means_plain(era_q, window, stride)
+        _expect(torch.equal(torch.isnan(got), torch.isnan(exact)),
+                f"window_means {window} / {stride}: NaN windows differ")
+        m = ~torch.isnan(exact)
+        gap = (got.double() - exact)[m].abs()
+        ulp = (torch.nextafter(got.abs(), torch.full_like(got, float("inf")))
+               - got.abs()).double()[m]
+        worst = float((gap / ulp).max())
+        err = float(gap.max())
+        plain_err = float((plain.double() - exact)[m].abs().max())
+        ok = worst <= 1.0
+        log(f"phase 3 kernel window_means {tuple(got.shape)} window {window} "
+            f"/ stride {stride}: one launch, two runs bit for bit; against "
+            f"float64 direct means max_abs_err {err:.6g} ({worst:.3f} float32 "
+            f"ulp; the plain version's integral images {plain_err:.6g}) "
+            f"{'OK' if ok else 'FAIL'}")
+        _expect(ok, "window_means is not within a float32 ulp of the "
+                "float64 means")
+        if window == LOCAL["window"] and stride == LOCAL["stride"]:
+            errs["window_means"] = err
+
+
 def limit_checks(dev, era_q, era_grid):
     """The port's launch limits, each against its plain version: K2-K5
     and K7 at a batch of LIMIT_B snapshots of 4x8 (past CUDA's 65,535 grid
@@ -1732,12 +1773,14 @@ def adjoint_ms(loss, q, N):
 
 
 def kernel_records():
-    """K1-K8's, the archive decode's and box counting's launch records."""
+    """K1-K8's, the archive decode's, box counting's and the window means'
+    launch records."""
     from xcontour_tpu_torch.kernels import (boxcount, decode, hist, length,
-                                            lwa, stencil)
+                                            lwa, rolling, stencil)
     return (stencil.KERNEL, hist.KERNEL, lwa.KERNEL_LIN, lwa.KERNEL_DENSE,
             lwa.KERNEL_LIN2, lwa.KERNEL_DENSE_TALL, length.KERNEL_LENGTHS,
-            length.KERNEL_LOCAL_LENGTHS, decode.KERNEL, boxcount.KERNEL)
+            length.KERNEL_LOCAL_LENGTHS, decode.KERNEL, boxcount.KERNEL,
+            rolling.KERNEL)
 
 
 def kernel_counts():
@@ -1829,7 +1872,7 @@ def wrapper_grad_limits(dev):
     """Every kernel wrapper, called directly on a CUDA tensor that
     requires grad, raises: wrappers record no graph."""
     from xcontour_tpu_torch.kernels import (boxcount, hist, length, lwa,
-                                            stencil)
+                                            rolling, stencil)
     T = lambda *s: torch.rand(*s, device=dev)
     q, W, Q = T(2, 8, 16), T(8, 16), T(2, 8)
     lev, yc, xc = T(2, 3), T(8), T(16)
@@ -1847,7 +1890,8 @@ def wrapper_grad_limits(dev):
         "local_lengths": lambda a: length.local_lengths(
             a[0], T(2, 4), yc, xc, window=4, stride=4, latlon=True),
         "box_counts": lambda a: boxcount.box_counts(a, lev, T(8, 16),
-                                                    [1, 2])}
+                                                    [1, 2]),
+        "window_means": lambda a: rolling.window_means(a, 4, 4)}
     for name, call in calls.items():
         try:
             call(q.clone().requires_grad_())
@@ -3162,6 +3206,7 @@ def cli_phase(dev, drive, path_counts, peaks, card, then=None):
                 ("local-length", "local-length",
                  ["--window", str(LOCAL["window"]), "--stride",
                   str(LOCAL["stride"])], {"local_lengths": 1,
+                                          "window_means": 1,
                                           "decode_planes": 1},
                  "llen", (A["level"],
                           (A["nlat"] - LOCAL["window"]) // LOCAL["stride"] + 1,
@@ -3475,10 +3520,11 @@ def parallel_inprocess(dev, drive, q, grid, table):
                             exact=dict(weighted_cdf=1))
                 par_step_vs(label, got, fn(q, grid, **dict(kw, **extra)))
             labels.append("parallel local era5")
-            drive("parallel local era5", dict(local_lengths=1),
+            drive("parallel local era5",
+                  dict(local_lengths=1, window_means=1),
                   lambda: P.sharded_local_lengths(q[0], grid.ydef, grid.xdef,
                                                   mesh, **LOCAL),
-                  exact=dict(local_lengths=1))
+                  exact=dict(local_lengths=1, window_means=1))
             # the sharded adjoints against phase 7's
             res["adjoint"], grad_labels, adj_grad = parallel_adjoints(
                 drive, q[:GRAD_ERA5_B].contiguous(), grid, table, mesh)
@@ -4173,6 +4219,7 @@ def main() -> int:
         errs[name] = check_length_kernel(name, bound_key, kern, plain, plain64)
     tie_checks(dev)
     k8_batch_checks(local_q, era_grid)
+    rolling_checks(local_q, errs)
     limit_checks(dev, era_steps[0], era_grid)
     decode_checks(dev, errs)
     boxcount_checks(head_q, head_grid, HEADLINE["N"], errs)
@@ -4390,14 +4437,15 @@ def main() -> int:
         return timed_steps(
             lambda q: xt.local_length_pipeline(q, era_grid, **LOCAL),
             era_steps[:S])
-    outs, times = drive("local era5", {"local_lengths": S}, run_local,
-                        exact={"local_lengths": S})
+    outs, times = drive("local era5", {"local_lengths": S, "window_means": S},
+                        run_local,
+                        exact={"local_lengths": S, "window_means": S})
     for i, out in enumerate(outs):
         check_local([(out["llen"][k], out["y_window"], out["x_window"])
                      for k in range(ERA5["B"])], f"local era5 step {i}")
     rates["local_era5"] = (ERA5["B"] / statistics.median(times), None, times)
-    log(f"phase 4 local era5: {S} steps of local_length_pipeline (one K8 "
-        f"launch a step), step s {[round(t, 5) for t in times]}: checks OK")
+    log(f"phase 4 local era5: {S} steps of local_length_pipeline (one R and "
+        f"one K8 launch a step), step s {[round(t, 5) for t in times]}: checks OK")
     log(f"phase 4 launches over all paths: {totals}")
     # the decode runs through the runner alone: phase 10
     missing = [n for n, c in totals.items()
@@ -4509,6 +4557,16 @@ def main() -> int:
     timing["box_counts"] = tuple(time_alternating([kern, plain], dev,
                                                   reps=20))
     work["box_counts"] = w
+    # R in turns with its plain version (the integral images) at the
+    # era5.local step
+    from xcontour_tpu_torch.kernels import rolling
+    timing["window_means"] = tuple(time_alternating(
+        [lambda: rolling.window_means(local_q, **LOCAL),
+         lambda: rolling.window_means_plain(local_q, **LOCAL)], dev,
+        reps=20))
+    work["window_means"] = window_means_work(
+        *local_q.shape, LOCAL["window"], LOCAL["stride"],
+        local_q.element_size())
 
     # K1-K8 against their bounds, with launches per step of their paths
     # (the table builds of the streamed runs included)
@@ -4563,6 +4621,14 @@ def main() -> int:
         f"{100 * b_ms / k_ms:.2f}% of bound, "
         f"{path_counts['fractal headline'][boxcount.KERNEL.name] / nf:g} "
         "launches per step of 'fractal headline', library call none")
+    bounds["window_means"] = bound_ms(work["window_means"])
+    (k_ms, p_ms), (b_ms, b_by) = timing["window_means"], bounds["window_means"]
+    log(f"phase 6 kernel R {rolling.KERNEL.name} era5.local step "
+        f"{'x'.join(map(str, local_q.shape))} window {LOCAL['window']} / "
+        f"stride {LOCAL['stride']}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / k_ms:.2f}% of bound, "
+        f"{path_counts['local era5'][rolling.KERNEL.name] / S:g} launches "
+        "per step of 'local era5', library call none")
 
     # 7. gradients: the autograd Functions on the card
     t0 = time.perf_counter()
@@ -4717,6 +4783,16 @@ def main() -> int:
                       f"plain_ms_{tag}": timing[k][1],
                       f"bound_ms_{tag}": bounds[k][0]})
         return e
+    def window_entry(r, key):
+        return dict(name=r.name, route="cuda", source=r.source,
+                    replaces=r.replaces, launches=totals[r.name],
+                    max_abs_err=errs[key], ms=timing[key][0],
+                    plain_ms=timing[key][1], bound_ms=bounds[key][0],
+                    bound_by=bounds[key][1], library_ms=None,
+                    launches_facade=facade_counts[r.name],
+                    launches_cli=cli_counts[r.name],
+                    launches_parallel=par_counts[r.name])
+
     def boxcount_entry():
         r, key = boxcount.KERNEL, "box_counts"
         return dict(name=r.name, route="cuda", source=r.source,
@@ -4743,7 +4819,8 @@ def main() -> int:
         entry(length.KERNEL_LOCAL_LENGTHS, "local_lengths", "local_lengths")]
         + [probe_entry(key) for key in ("lwa", "hist_cdf2", "length",
                                         "stencil")]
-        + [decode_entry(), boxcount_entry()]}
+        + [decode_entry(), boxcount_entry(),
+           window_entry(rolling.KERNEL, "window_means")]}
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,14 +21,15 @@ from xcontour_tpu_torch import core as tcore
 from xcontour_tpu_torch.diagnostics import length as dlength
 from xcontour_tpu_torch.diagnostics import local_length as dlocal
 from xcontour_tpu_torch.diagnostics import lwa as dlwa
-from xcontour_tpu_torch.kernels import boxcount, hist, length, lwa, stencil
+from xcontour_tpu_torch.kernels import (boxcount, hist, length, lwa, rolling,
+                                        stencil)
 from xcontour_tpu_torch.ops import histogram as ohist
 from xcontour_tpu_torch.ops import stencil as ostencil
 
 CPU = "cpu"
 FUNCTIONS = [tcore._GradSafeDiv, tcore._GradSafeDivSq, ohist._WeightedCDF,
              ostencil._SquaredGradient, dlwa._LWA, dlength._ContourLengths,
-             dlocal._LocalLengths]
+             dlocal._LocalLengths, dlocal._WindowMeans]
 
 
 def assert_grad_equal(got, want, nonzero=True):
@@ -192,7 +193,7 @@ def _count_wrappers(monkeypatch):
     for mod, name in ((stencil, "squared_gradient"), (hist, "weighted_cdf"),
                       (lwa, "lwa_lin"), (lwa, "lwa_lin2"), (lwa, "lwa_dense"),
                       (length, "contour_lengths"), (length, "local_lengths"),
-                      (boxcount, "box_counts")):
+                      (boxcount, "box_counts"), (rolling, "window_means")):
         def wrapped(*a, _orig=getattr(mod, name), _name=name, **k):
             calls[_name] = calls.get(_name, 0) + 1
             return _orig(*a, **k)

@@ -3,9 +3,10 @@
 Counterpart of ``xcontour_tpu/diagnostics/local_length.py``: for each
 (window x window) tile of a 2-D field, or of each field of a batch,
 anchored every ``stride`` points, the length of the contour at the tile's
-mean tracer value.  The window means come from integral images in O(grid);
-the lengths from the K8 wrapper (:mod:`..kernels.length`), one launch a
-call.
+mean tracer value.  The window means come from the R wrapper
+(:mod:`..kernels.rolling`: one launch a call on the card, integral images
+on the CPU); the lengths from the K8 wrapper (:mod:`..kernels.length`),
+one launch a call.
 """
 
 from __future__ import annotations
@@ -15,45 +16,47 @@ from typing import Optional
 import torch
 
 from ..kernels import length as _k8
-from ..kernels import needs_grad
+from ..kernels import needs_grad, vjp
+from ..kernels import rolling as _rolling
 from ..utils.constants import Rearth as _REARTH
 from ..utils.prof import span
+
+
+class _WindowMeans(torch.autograd.Function):
+    """R on a field or a batch with the plain version's VJP, the integral
+    images recomputed under autograd (the JAX package differentiates its
+    plain jnp)."""
+
+    @staticmethod
+    def forward(ctx, data, window, stride, min_count):
+        ctx.save_for_backward(data)
+        ctx.kw = (window, stride, min_count)
+        return _rolling.window_means(data.detach(), window, stride, min_count)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, = ctx.saved_tensors
+        piece = (lambda p: _rolling.window_means_plain(p[0], *ctx.kw), g)
+        return (*vjp([piece], (data,), (True,)), None, None, None)
 
 
 def rolling_mean(data: torch.Tensor, window: int, stride: int,
                  min_count: int = 1):
     """NaN-skipping mean over (window x window) tiles anchored at strided
     top-left corners; a tile with fewer than ``min_count`` valid points
-    gives NaN.  Returns (means (..., Wy, Wx), oy, ox)."""
-    good = torch.isfinite(data)
-    nan = torch.full_like(data, float("nan"))
-    # the field's constant offset is removed before the integral image: a
-    # box sum is a small difference of large cumsums, and in float32 a
-    # Kelvin-scale offset would leave ~1e-3 relative error in the mean;
-    # mean(f) = mean(f - c) + c restores it
-    c0 = torch.nanmean(torch.where(good, data, nan), dim=(-2, -1), keepdim=True)
-    c0 = torch.where(torch.isfinite(c0), c0, torch.zeros_like(c0))
-    vals = torch.where(good, data - c0, torch.zeros_like(data))
-
-    def integral(a):
-        s = torch.cumsum(torch.cumsum(a, dim=-2), dim=-1)
-        return torch.nn.functional.pad(s, (1, 0, 1, 0))
-
-    S = integral(vals)
-    C = integral(good.to(data.dtype))
+    gives NaN (where ``min_count`` <= 0, one with none gives the field's
+    finite mean).  Returns (means (..., Wy, Wx), oy, ox)."""
+    if data.device.type == "cuda":
+        data = data.contiguous()
+    if needs_grad(data):
+        means = _WindowMeans.apply(data, window, stride, min_count)
+    else:
+        means = _rolling.window_means(data, window, stride, min_count)
     ny, nx = data.shape[-2:]
     # no window when it is larger than the field (numpy's empty range)
     oy = torch.arange(0, max(0, ny - window + 1), stride, device=data.device)
     ox = torch.arange(0, max(0, nx - window + 1), stride, device=data.device)
-    yy, xx = torch.meshgrid(oy, ox, indexing="ij")
-
-    def box(I):
-        return (I[..., yy + window, xx + window] - I[..., yy + window, xx]
-                - I[..., yy, xx + window] + I[..., yy, xx])
-
-    n = box(C)
-    mean = box(S) / torch.clamp(n, min=1) + c0
-    return torch.where(n >= min_count, mean, torch.full_like(mean, float("nan"))), oy, ox
+    return means, oy, ox
 
 
 class _LocalLengths(torch.autograd.Function):

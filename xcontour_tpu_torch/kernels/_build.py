@@ -54,6 +54,10 @@ SIGNATURES = {
     # data, area, levels, partial, count, out, B, Ny, W, N, S, quirks,
     # table (host), blocks, stream
     "xc_box_counts": [P, P, P, P, P, P, I, I, I, I, I, I, P, I, P],
+    # data, fill, out, B, Ny, Nx, Wy, Wx, window, stride, min_count,
+    # itemsize, TX, TY, ntx, nty, threads, cols, nch_max, stream
+    "xc_window_means": [P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I, I, I,
+                        I, P],
     # the structure probes (csrc/probes.cu)
     # q, W, Q, out, B, Ny, Nx, stream
     "xc_lwa_structure": [P, P, P, P, I, I, I, P],

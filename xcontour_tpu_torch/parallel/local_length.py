@@ -9,8 +9,9 @@ measures a block of window rows with K8 on the card
 the window list padded with NaN rows to a multiple of the axis (as JAX
 pads it with NaN levels); a second gather joins the blocks, so every rank
 returns the whole (Wy, Wx) lengths, as JAX's global output is.  The
-window means (the levels) come from the integral images, replicated:
-recomputing them everywhere is cheaper than sending them.  Where an input
+window means (the levels) come from ``rolling_mean`` on the gathered field
+(R on the card), replicated: recomputing them everywhere is cheaper than
+sending them, and every rank gets the unsharded means' bits.  Where an input
 needs a gradient, K8 runs through its autograd Function
 (:class:`..diagnostics.local_length._LocalLengths`), and the gathers'
 backwards return each rank its columns' share of the field's cotangent.

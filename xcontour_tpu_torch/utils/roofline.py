@@ -106,6 +106,15 @@ def boxcount_work(B, Ny, W, N, strides, quirks=False):
             BOX_TEST_INSTR * B * N * nbox)
 
 
+def window_means_work(B, Ny, Nx, window, stride, itemsize=4):
+    """(bytes, FP32 instructions) of R on B fields (Ny, Nx): the field read
+    once and the (B, Wy, Wx) means written once, ``itemsize`` bytes a
+    value; its adds are float64, so no FP32 instruction is counted."""
+    from ..kernels.rolling import anchors
+    Wy, Wx = anchors(Ny, window, stride), anchors(Nx, window, stride)
+    return itemsize * B * (Ny * Nx + Wy * Wx), 0
+
+
 def bound_ms(work):
     """(bound ms, what bounds it) of (bytes, instructions)."""
     nbytes, ops = work
