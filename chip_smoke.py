@@ -9,7 +9,7 @@ port's paths through the entry points a user calls: ``keff_lwa_pipeline``
 (721x1440 global isentropic PV, 15 levels per step, N=241, a seeded
 below-ground NaN patch on the lowest levels), at the JAX bench's headline
 shape (32x256x512), on the LAPE configuration (MITgcm x-z internal-wave
-plane, 64 snapshots of 100x448 per step) and on a tall 2x4096x512 grid;
+plane, 64 snapshots of 100x4480 per step) and on a tall 2x4096x512 grid;
 and the geometry paths ``clength_pipeline`` (ERA5, N=121 and N=401),
 ``fractal_pipeline`` (headline shape, strides 1-32, box counting) and
 ``local_contour_lengths`` (ERA5 snapshots, window 101, stride 10).
@@ -53,6 +53,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      counting B (``kernels.boxcount``) at the t170.fractal step (the
      headline shape, N = 121, strides 1-32) against its plain version run
      in float64 and in float32, one launch a call, two runs bit for bit;
+     K3 and K5 at the LAPE step (64x100x4480, increase=False, the
+     profile of its lwa_pipeline) against their plain versions;
   4. the paths: for each, every launch count set to 0 just before it and
      read just after; a path fails if a kernel it runs was not launched.
      K2's counts must be exact: one launch per step and one per table
@@ -62,7 +64,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      alone) and at the headline shape;
      lwa_pipeline at ERA5 (metric='dy', 'auto' and 'dense', the same
      streaming), part='upper' at the headline shape, the LAPE
-     configuration and the tall grid ('dense', K6); keff_pipeline at ERA5
+     configuration (one K2, one K3 and one K5 launch a step with the
+     table passed in) and the tall grid ('dense', K6); keff_pipeline at ERA5
      (hist=True, pre_y) and at the headline shape (hist=False);
      keff_lwa_pipeline(with_lwa2=True) once; clength_pipeline at ERA5
      (N=121 and N=401, the same streaming), fractal_pipeline at the
@@ -81,7 +84,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      instructions over instruction rate) and the share of it reached, and the
      launches per step of the kernel's path (K7's and K8's crossed pairs,
      counted from the inputs, in their bounds); K2 at its three other shapes;
-     K4 part='upper' at ERA5; the
+     K4 part='upper' at ERA5; K3 and K5 at the LAPE step, with their
+     share of the bound and launches a step of its path; the
      device time of each CUDA kernel K3 and K5 launch (prep against
      surface kernel, torch.profiler) and the SM clock and power that
      nvidia-smi samples under K3 and K4; snapshots/s of each streamed step,
@@ -223,8 +227,9 @@ ERA5 = dict(B=15, nlat=721, nlon=1440, N=241)
 HEADLINE = dict(B=32, nlat=256, nlon=512, N=121)
 # Ny > 3072: the regime of the TPU's y-blocked kernel K6
 TALL = dict(B=2, nlat=4096, nlon=512, N=241)
-# examples/ex3_lape_ocean.py's grid, 64 snapshots a step
-LAPE = dict(B=64, nz=100, nx=448, N=121)
+# the benchmark's mitgcm_xz_lape section (xcontour's Data/internalwave.nc
+# at its 2 m columns), 64 snapshots a step
+LAPE = dict(B=64, nz=100, nx=4480, N=121)
 STREAM_STEPS = 4
 # the geometry paths: the JAX bench's two contour counts (bench.py:1025),
 # the fractal ladder of examples/ex4_contour_length.py, the reference's
@@ -716,6 +721,24 @@ def tall_cases(q, grid, N):
             lambda: lwa.lwa_dense_plain(q, Q, W, increase=True,
                                         variant2=True), work),
     }
+
+
+def lape_cases(q, grid, mask, N):
+    """K3 and K5 at the LAPE step, as lwa_pipeline runs them there: a
+    tracer decreasing down the rows (increase=False), partial cells and
+    rock, the profile of the step's own lwa_pipeline."""
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch.diagnostics.lwa import nanmax
+    from xcontour_tpu_torch.kernels import lwa
+    Q = xt.lwa_pipeline(q, grid, mask, N=N, increase=False,
+                        lt=False)["Q"].contiguous()
+    W = (grid.dA / nanmax(grid.dA) * grid.dA).contiguous()
+    work = lwa_work(*q.shape)
+    return {name: (lambda k=k: k(q, Q, W, increase=False),
+                   lambda p=p: p(q, Q, W, increase=False), work)
+            for name, k, p in (("lwa_lin", lwa.lwa_lin, lwa.lwa_lin_plain),
+                               ("lwa_lin2", lwa.lwa_lin2,
+                                lwa.lwa_lin2_plain))}
 
 
 def variant_cases(q, grid):
@@ -4198,6 +4221,9 @@ def main() -> int:
     for name, (kern, plain, _) in cases["tall"].items():
         errs[name] = check_kernel("tall", name, kern, plain,
                                   tuple(tall_q.shape))
+    cases["lape"] = lape_cases(lape_q, lape_grid, lape_mask, LAPE["N"])
+    for name, (kern, plain, _) in cases["lape"].items():
+        check_kernel("lape", name, kern, plain, tuple(lape_q.shape))
 
     # the kernels' other modes, at the headline shape (the main paths run
     # periodic x, 'extend' walls, increase=True)
@@ -4355,8 +4381,11 @@ def main() -> int:
             lambda q: xt.lwa_pipeline(q, lape_grid, lape_mask, N=LAPE["N"],
                                       increase=False, lt=False, table=table),
             [lape_q] * S)
+    # one K2, one K3 and one K5 launch a step, and K2 once for the table
     lape_outs, times = drive("lape", {"weighted_cdf": S, "lwa_lin": S,
-                                      "lwa_lin2": S}, run_lape)
+                                      "lwa_lin2": S}, run_lape,
+                             exact=dict(weighted_cdf=S + 1, lwa_lin=S,
+                                        lwa_lin2=S))
     for out in lape_outs:
         check_lape(out, lshape, LAPE["N"], "lape")
     rates["lape"] = (LAPE["B"] / statistics.median(times), None, times)
@@ -4469,7 +4498,7 @@ def main() -> int:
     lkw = dict(N=LAPE["N"], increase=False, lt=False)
     lmask = torch.as_tensor(sv["maskC"])
     card_vs_cpu(
-        "lape 4x100x448",
+        f"lape 4x{LAPE['nz']}x{LAPE['nx']}",
         xt.lwa_pipeline(torch.as_tensor(sb),
                         xt.from_xz(sv["Z"], sv["XC"], sv["hFacC"],
                                    mask=sv["maskC"], device="cpu"),
@@ -4504,7 +4533,7 @@ def main() -> int:
 
     # 6. timing with CUDA events
     timing, work = {}, {}
-    for label in ("era5", "headline", "tall"):
+    for label in ("era5", "headline", "tall", "lape"):
         for name, (kern, plain, w) in cases[label].items():
             key = name if label == "tall" else (label, name)
             timing[key], work[key] = (cuda_ms(kern, 20), cuda_ms(plain, 3)), w
@@ -4592,6 +4621,15 @@ def main() -> int:
             f"{100 * b_ms / k_ms:.2f}% of bound, "
             f"{path_counts[path][r.name] / steps:g} launches per step of "
             f"'{path}', library call none")
+    lape_shape = "x".join(map(str, lape_q.shape))
+    for i, name in ((3, "lwa_lin"), (5, "lwa_lin2")):
+        key = ("lape", name)
+        bounds[key] = bound_ms(work[key])
+        (k_ms, p_ms), (b_ms, b_by) = timing[key], bounds[key]
+        log(f"phase 6 kernel K{i} {name} lape {lape_shape} increase=False: "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), {100 * b_ms / k_ms:.2f}% of bound, "
+            f"{path_counts['lape'][name] / S:g} launches per step of 'lape'")
     for key in (*(("era5", f"weighted_cdf_{t}") for t in K2_SHAPES),
                 ("era5", "lwa_dense_v2"), ("era5", "lwa_dense_upper"),
                 "lwa_dense_tall_v2", f"contour_lengths_n{CLENGTH_N[1]}",

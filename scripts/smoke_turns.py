@@ -11,7 +11,7 @@ from its own root (each builds its own kernels), keeps each run's output in
 DIR (default ``build/smoke_turns``) and prints, for every phase-6 line that
 names a time, a bound or a rate, the first number of each run, in run
 order.  After each run it also times, in that checkout, K3 and K5
-(``lwa_lin``, ``lwa_lin2``) at the LAPE step's shape, 64x100x448, K2
+(``lwa_lin``, ``lwa_lin2``) at the LAPE step's shape, 64x100x4480, K2
 (``weighted_cdf``) at the ERA5 step's input and at this checkout's
 ``chip_smoke.py`` K2 shapes (the table build, clength's five channels,
 uniform noise), and K7 and K8 at this checkout's ``chip_smoke.py``
@@ -41,7 +41,7 @@ NUMBER = re.compile(r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?")
 PROBE = r"""
 import numpy as np, torch
 from xcontour_tpu_torch.kernels import lwa
-B, Ny, Nx = 64, 100, 448
+B, Ny, Nx = 64, 100, 4480
 rng = np.random.default_rng(0)
 T = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
 q = T(-rng.standard_normal((B, Ny, Nx)).cumsum(1) * 0.3)

@@ -130,6 +130,14 @@ def test_span_log_keeps_every_concurrent_span():
      {"stage.gradient", "stage.table", "stage.contours", "stage.cdf",
       "stage.lookup", "stage.lmin", "stage.keff", "stage.interp",
       "stage.lwa"}),
+    # LWA2 under a span of its own, apart from LWA
+    ("keff_lwa_pipeline", dict(N=9, with_lwa2=True),
+     {"stage.gradient", "stage.table", "stage.contours", "stage.cdf",
+      "stage.lookup", "stage.lmin", "stage.keff", "stage.interp",
+      "stage.lwa", "stage.lwa2"}),
+    ("lwa_pipeline", dict(N=9),
+     {"stage.table", "stage.contours", "stage.cdf", "stage.lookup",
+      "stage.interp", "stage.lwa", "stage.lwa2"}),
     ("fractal_pipeline", dict(N=9, strides=(1, 2, 4)),
      {"stage.table", "stage.contours", "stage.cdf", "stage.lookup",
       "stage.coarsen", "stage.lengths", "stage.dimension",

@@ -218,6 +218,7 @@ def lwa_pipeline(tracer: torch.Tensor, grid: Grid,
     kw = dict(increase=increase, part=part, weight=weight, method=lwa_method)
     with span("stage.lwa"):
         lwa = _layout.lwa(tracer, Q, dA, ydef, **kw)
+    with span("stage.lwa2"):
         lwa2 = _layout.lwa2(tracer, Q, dA, ydef, **kw)
     return dict(contour=ctr, intArea=intArea, latEq=latEq, Q=Q, lwa=lwa,
                 lwa2=lwa2)
@@ -286,7 +287,7 @@ def keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
     out = dict(contour=ctr, intArea=intArea, intgrdS=intgrdS, Yeq=Yeq,
                Lmin=Lmin, Leq2=k["Leq2"], nkeff=k["nkeff"], Q=Q, lwa=lwa)
     if with_lwa2:
-        with span("stage.lwa"):
+        with span("stage.lwa2"):
             out["lwa2"] = _layout.lwa2(tracer, Q, dA, ydef, **kw)
     if pre_y is not None:
         with span("stage.interp"):
