@@ -73,7 +73,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      launch a step).  The outputs are checked (shapes, finite values,
      monotone areas, coordinates in range, LAPE positive-definite to the float32
      floor, empty extreme levels, positive interior lengths, the median
-     fractal dimension in [1, 2));
+     fractal dimension in [1, 2)).  Then each benchmark step cell's entry
+     at its shape (keff_lwa and clength at 16x721x1440, fractal at the
+     headline shape, local_length at 16x721x1440, the LAPE lwa) through
+     the pipeline's CUDA graphs: a warm-up call, a capture on another
+     input and a replay on the first, each bit for bit with the eager
+     body on the same input and counting its launches;
   5. card against CPU: one small step of keff_lwa_pipeline, lwa_pipeline
      ('auto' and 'dense'), the LAPE configuration, keff_pipeline (hist
      True and False), clength_pipeline, fractal_pipeline and
@@ -1526,6 +1531,85 @@ def timed_steps(fn, steps):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return outs, times
+
+
+def _bits_equal(got, want, where):
+    """Nested output dicts, bit for bit (NaN patterns included)."""
+    if isinstance(want, dict):
+        _expect(set(got) == set(want), f"{where}: keys differ")
+        for k in want:
+            _bits_equal(got[k], want[k], f"{where} {k}")
+        return
+    same = got.shape == want.shape and bool(torch.equal(
+        torch.isnan(got), torch.isnan(want))) and bool(torch.equal(
+            torch.nan_to_num(got), torch.nan_to_num(want)))
+    _expect(same, f"{where}: not bit for bit")
+
+
+def exact_field(dev, shape, seed):
+    """A (B, Ny, Nx) field on a unit Cartesian grid (dA = 1) whose every
+    K2 sum is exact, and so the same whatever the order of K2's float
+    atomics: even integers along x (a triangle: the centred |dq/dx| is 0
+    or 2), the same on every row, a NaN patch on the first field."""
+    B, ny, nx = shape
+    x = torch.arange(nx, device=dev)
+    tri = torch.minimum(x, nx - x)
+    q = 2.0 * (tri + 3 * torch.arange(B, device=dev)[:, None, None] + seed)
+    q = q.expand(B, ny, nx).to(torch.float32).contiguous()
+    q[0, 2:5, 10:20] = float("nan")
+    return q
+
+
+def graph_checks(dev, records, cases):
+    """Phase 4: each step cell's entry at its shape through the pipeline's
+    CUDA graphs, a fresh cache a cell: a warm-up call, a capture on another
+    input, a replay on the first, each bit for bit with the eager body on
+    the same input and counting the eager body's launches (none for the
+    capture itself).  The fields are :func:`exact_field`'s on a unit grid
+    of the cell's shape: K2's float atomics add in no fixed order, so two
+    eager runs on the cells' own fields differ in the last bits."""
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch import pipeline
+    kept = pipeline.GRAPHS
+    try:
+        for label, fn, shape, kw in cases:
+            pipeline.GRAPHS = g = pipeline.Graphs()
+            grid = xt.from_cartesian(np.arange(shape[1], dtype=np.float64),
+                                     np.arange(shape[2], dtype=np.float64),
+                                     device=dev)
+            if "table" in kw:
+                kw = dict(kw, table=xt.cal_area_eqCoord_table_hist(
+                    grid.fluid_mask(), grid.ydef, grid.dA,
+                    increase=kw.get("increase", True), lt=kw.get("lt", True)))
+            q0, q1 = exact_field(dev, shape, 1), exact_field(dev, shape, 2)
+            launches = []
+            for i, q in enumerate((q0, q1, q0)):
+                n0 = [r.launches for r in records]
+                got = fn(q, grid, **kw)
+                torch.cuda.synchronize()
+                n1 = [r.launches for r in records]
+                want = fn.__wrapped__(q, grid, **kw)
+                torch.cuda.synchronize()
+                n2 = [r.launches for r in records]
+                call = {r.name: b - a for r, a, b in zip(records, n0, n1)
+                        if b > a}
+                eager = {r.name: b - a for r, a, b in zip(records, n1, n2)
+                         if b > a}
+                _expect(call == eager, f"graph {label} call {i}: launches "
+                                       f"{call}, eager {eager}")
+                _bits_equal(got, want, f"graph {label} call {i}")
+                launches.append(call)
+            _expect((g.captures, g.replays, g.eager) == (1, 2, 1),
+                    f"graph {label}: captures {g.captures}, replays "
+                    f"{g.replays}, eager {g.eager}")
+            log(f"phase 4 graph {label} {shape}: warm-up, capture and "
+                f"replay bit for bit with the eager body; launches a call "
+                f"{launches[0]} on each; captures 1, replays 2")
+            del g, got, want
+            pipeline.GRAPHS = kept
+            torch.cuda.empty_cache()
+    finally:
+        pipeline.GRAPHS = kept
 
 
 def lape_data(nt, seed=2):
@@ -4475,6 +4559,21 @@ def main() -> int:
     rates["local_era5"] = (ERA5["B"] / statistics.median(times), None, times)
     log(f"phase 4 local era5: {S} steps of local_length_pipeline (one R and "
         f"one K8 launch a step), step s {[round(t, 5) for t in times]}: checks OK")
+    # each step cell's entry at its shape, replayed as a CUDA graph
+    era_shape = (LOCAL_B, ERA5["nlat"], ERA5["nlon"])
+    graph_checks(dev, records, [
+        ("era5.keff_lwa", xt.keff_lwa_pipeline, era_shape,
+         dict(N=241, lwa_method="auto", table=True)),
+        ("era5.clength", xt.clength_pipeline, era_shape,
+         dict(N=401, table=True)),
+        ("t170.fractal", xt.fractal_pipeline,
+         (HEADLINE["B"], HEADLINE["nlat"], HEADLINE["nlon"]),
+         dict(N=121, strides=FRACTAL_STRIDES, box_counting=True,
+              table=True)),
+        ("era5.local", xt.local_length_pipeline, era_shape, LOCAL),
+        ("lape.lwa", xt.lwa_pipeline, (LAPE["B"], LAPE["nz"], LAPE["nx"]),
+         dict(N=121, increase=False, lt=False, lwa_method="auto",
+              table=True))])
     log(f"phase 4 launches over all paths: {totals}")
     # the decode runs through the runner alone: phase 10
     missing = [n for n, c in totals.items()

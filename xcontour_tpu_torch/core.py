@@ -14,6 +14,7 @@ axis -2; contour-space tensors (..., N) with the contour index last.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -29,6 +30,17 @@ from .ops.interp import interp1d
 from .ops.sort import exact_conditional_integral
 from .utils.checks import check_monotonic
 from .utils.ncio import Dataset
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(value, dtype, device) -> torch.Tensor:
+    """``value``, a tuple of numbers or a float's name ('inf', 'nan'), as a
+    tensor on ``device``, made once and kept: a CUDA graph's capture
+    cannot copy from the host (the eager call before it makes the
+    constant), and a graph reads the tensor where it lies.  Read only."""
+    if isinstance(value, str):
+        value = float(value)
+    return torch.as_tensor(value, dtype=dtype, device=device)
 
 
 def cal_contours(tracer: torch.Tensor, N: int, *,
@@ -47,7 +59,7 @@ def masked_extrema(tracer: torch.Tensor):
     the infinities to NaN, so an all-NaN slab does not poison the
     reduction."""
     isn = torch.isnan(tracer)
-    inf = torch.tensor(float("inf"), dtype=tracer.dtype, device=tracer.device)
+    inf = device_constant("inf", tracer.dtype, tracer.device)
     return (torch.where(isn, inf, tracer).amin(dim=(-2, -1)),
             torch.where(isn, -inf, tracer).amax(dim=(-2, -1)))
 
@@ -55,8 +67,8 @@ def masked_extrema(tracer: torch.Tensor):
 def levels_from_extrema(mmin: torch.Tensor, mmax: torch.Tensor, N: int, *,
                         increase: bool = True) -> torch.Tensor:
     """:func:`cal_contours`' levels from :func:`masked_extrema`."""
-    inf = torch.tensor(float("inf"), dtype=mmin.dtype, device=mmin.device)
-    nan = torch.tensor(float("nan"), dtype=mmin.dtype, device=mmin.device)
+    inf = device_constant("inf", mmin.dtype, mmin.device)
+    nan = device_constant("nan", mmin.dtype, mmin.device)
     mmin = torch.where(mmin == inf, nan, mmin)
     mmax = torch.where(mmax == -inf, nan, mmax)
     start, end = (mmin, mmax) if increase else (mmax, mmin)

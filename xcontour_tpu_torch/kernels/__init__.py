@@ -7,7 +7,9 @@ tensors it launches the kernel or raises — there is no fallback.
 
 Each kernel has a :class:`Kernel` record whose ``launches`` count goes up by
 one per kernel launch, so a run can show that its main path went through
-the kernels.
+the kernels.  A launch made while its thread captures a CUDA graph
+(:func:`capturing`) runs nothing, so it goes to the capture's tally
+instead; each replay of the graph adds the tally back.
 
 Gradients: the modules that call a wrapper wrap it in a
 ``torch.autograd.Function`` (the JAX package's custom VJPs), whose forward
@@ -18,13 +20,19 @@ input needs a gradient (:func:`needs_grad`) calls the wrapper directly.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import torch
 
 
-@dataclasses.dataclass
+# the tally of the CUDA graph this thread is capturing, if any
+_capture = threading.local()
+
+
+@dataclasses.dataclass(eq=False)
 class Kernel:
     """One hand-written kernel: where it lives, what it replaces, and how
     many times a wrapper launched it."""
@@ -33,6 +41,28 @@ class Kernel:
     source: str      # CUDA source, relative to the repository root
     replaces: str    # file:line of the TPU (Pallas) kernel body
     launches: int = 0
+
+    def count(self) -> None:
+        """One launch by a wrapper: onto ``launches``, or onto the tally of
+        the graph this thread is capturing."""
+        tally = getattr(_capture, "tally", None)
+        if tally is None:
+            self.launches += 1
+        else:
+            tally[self] = tally.get(self, 0) + 1
+
+
+@contextlib.contextmanager
+def capturing():
+    """Inside the block, this thread's launches go to the dict it yields,
+    ``{Kernel: launches}``, and not to ``Kernel.launches``: a graph's
+    capture launches nothing on the card."""
+    tally = {}
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
 
 
 def check_cuda_inputs(name: str, **tensors: torch.Tensor) -> None:

@@ -200,5 +200,5 @@ def box_counts(data: torch.Tensor, contours: torch.Tensor, area: torch.Tensor,
         partial.data_ptr(), count.data_ptr(), out.data_ptr(), B, Ny, W, N,
         S, int(quirks), table.ctypes.data, blocks, stream_handle())
     check_status(name, status)
-    KERNEL.launches += 1
+    KERNEL.count()
     return out.reshape(batch + (N, S))

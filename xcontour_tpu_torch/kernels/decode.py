@@ -113,6 +113,6 @@ def decode_planes(raw: torch.Tensor, planes: Planes,
         out.element_size(), int(not planes.file_dtype.isnative),
         int(planes.flip), stream_handle())
     check_status(KERNEL.name, status)
-    KERNEL.launches += 1
+    KERNEL.count()
     return out
 

@@ -129,5 +129,5 @@ def weighted_cdf(values: torch.Tensor, edges: torch.Tensor,
         partial.data_ptr(), out.data_ptr(), B, G, N, C, nrange, nblk, wchunk,
         ncopy, stream_handle())
     check_status(KERNEL.name, status)
-    KERNEL.launches += 1
+    KERNEL.count()
     return out

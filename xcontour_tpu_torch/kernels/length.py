@@ -218,7 +218,7 @@ def contour_lengths(data: torch.Tensor, levels: torch.Tensor,
         n_cb, int(yc.dim() == 2), int(xc.dim() == 2), int(latlon),
         stream_handle())
     check_status(name, status)
-    KERNEL_LENGTHS.launches += 1
+    KERNEL_LENGTHS.count()
     return out
 
 
@@ -348,5 +348,5 @@ def local_lengths(data: torch.Tensor, levels: torch.Tensor, yc: torch.Tensor,
         acc.data_ptr(), out.data_ptr(), B, Ny, Nx, Wy, Wx, window, stride,
         nby, nbx, nbw, int(latlon), stream_handle())
     check_status(name, status)
-    KERNEL_LOCAL_LENGTHS.launches += 1
+    KERNEL_LOCAL_LENGTHS.count()
     return out

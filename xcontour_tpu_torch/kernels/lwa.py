@@ -276,7 +276,7 @@ def lwa_lin(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
         E.data_ptr(), tot.data_ptr(), out.data_ptr(), B, Ny, Nx,
         int(increase), stream_handle())
     check_status(KERNEL_LIN.name, status)
-    KERNEL_LIN.launches += 1
+    KERNEL_LIN.count()
     return out
 
 
@@ -299,7 +299,7 @@ def lwa_lin2(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
         E.data_ptr(), out.data_ptr(), B, Ny, Nx, int(increase),
         stream_handle())
     check_status(KERNEL_LIN2.name, status)
-    KERNEL_LIN2.launches += 1
+    KERNEL_LIN2.count()
     return out
 
 
@@ -326,5 +326,5 @@ def lwa_dense(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
         B, Ny, Nx, int(increase), _PARTS[part], int(variant2),
         stream_handle())
     check_status(record.name, status)
-    record.launches += 1
+    record.count()
     return out

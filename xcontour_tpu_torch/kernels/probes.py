@@ -80,7 +80,7 @@ def lwa_structure(q: torch.Tensor, Q: torch.Tensor,
         q.data_ptr(), W.data_ptr(), Q.data_ptr(), out.data_ptr(), B, Ny, Nx,
         stream_handle())
     check_status(name, status)
-    KERNEL_LWA.launches += 1
+    KERNEL_LWA.count()
     return out
 
 
@@ -137,7 +137,7 @@ def hist_structure(values: torch.Tensor, edges: torch.Tensor,
         partial.data_ptr(), out.data_ptr(), B, G, N, nblk, wchunk,
         stream_handle())
     check_status(name, status)
-    KERNEL_HIST.launches += 1
+    KERNEL_HIST.count()
     return out
 
 
@@ -189,7 +189,7 @@ def length_structure(data: torch.Tensor, levels: torch.Tensor,
         partial.data_ptr(), out.data_ptr(), B, Ny, Nx, N, n_rb, n_cb,
         int(yc.dim() == 2), int(xc.dim() == 2), stream_handle())
     check_status(name, status)
-    KERNEL_LENGTH.launches += 1
+    KERNEL_LENGTH.count()
     return out
 
 
@@ -217,5 +217,5 @@ def scaled_copy(q: torch.Tensor) -> torch.Tensor:
     status = library().xc_scaled_copy(q.data_ptr(), out.data_ptr(), B, Ny, Nx,
                                       stream_handle())
     check_status(name, status)
-    KERNEL_COPY.launches += 1
+    KERNEL_COPY.count()
     return out

@@ -160,5 +160,5 @@ def window_means(data: torch.Tensor, window: int, stride: int,
         data.element_size(), TX, TY, ntx, nty, threads, cols, nch,
         stream_handle())
     check_status(name, status)
-    KERNEL.launches += 1
+    KERNEL.count()
     return out

@@ -85,5 +85,5 @@ def squared_gradient(q: torch.Tensor, rdx: torch.Tensor, rdy: torch.Tensor,
         q.data_ptr(), rdx.data_ptr(), rdy.data_ptr(), out.data_ptr(),
         B, Ny, Nx, int(periodic_x), _BC_Y[bc_y], stream_handle())
     check_status(KERNEL.name, status)
-    KERNEL.launches += 1
+    KERNEL.count()
     return out

@@ -7,10 +7,19 @@ sorted-state + local wave activity chain, the combined step that runs both
 from one shared sorted state, the contour-length chain and the
 fractal-dimension chain, over a batch of (..., Ny, Nx) snapshots; and
 :func:`local_length_pipeline`, the windowed local contour lengths of
-``diagnostics/local_length.py`` in the same signature.  They run eagerly;
-the JAX versions' static flags are plain Python arguments.
-:func:`flatten_output` and :func:`as_dataset` label a step's outputs as a
-netCDF-ready :class:`.utils.ncio.Dataset`.
+``diagnostics/local_length.py`` in the same signature.  The JAX versions'
+static flags are plain Python arguments.  :func:`flatten_output` and
+:func:`as_dataset` label a step's outputs as a netCDF-ready
+:class:`.utils.ncio.Dataset`.
+
+A step replays as one CUDA graph (:class:`Graphs`) where its input allows:
+a contiguous CUDA tracer, no gradient needed, the whole plane (no mesh
+layout), no capture already running, and the table given by the caller
+(:func:`local_length_pipeline` takes none).  The first call with a key
+runs eagerly and warms the caches a capture cannot fill (the library, the
+plans, ``Table._inc_values``); the second captures the eager body and
+replays it; later calls copy the tracer into the graph's input and replay.
+Every other call runs the eager body, as on the CPU.
 
 The Keff, LWA and contour-length steps reach the grid's x axis through a
 layout, at seven operations (the stencil, the levels, the histogram
@@ -23,12 +32,19 @@ through the private keyword ``_layout``.
 
 from __future__ import annotations
 
+import collections
+import functools
+import inspect
+import threading
+import warnings
+import weakref
 from typing import Optional
 
 import numpy as np
 import torch
 
 from . import core
+from . import kernels
 from .diagnostics import lwa as _lwa
 from .diagnostics.fractal import fractal_dimension
 from .diagnostics.length import box_counting_lengths, contour_lengths
@@ -40,7 +56,7 @@ from .ops.stencil import gradient, squared_gradient
 from .utils.coarsen import coarsen
 from .utils.constants import Rearth as _REARTH
 from .utils.ncio import Dataset
-from .utils.prof import span, spanned
+from .utils.prof import span
 
 _LMIN = ("analytic", "dxF", "frac")
 
@@ -110,7 +126,220 @@ class _Plane:
 _PLANE = _Plane()
 
 
-@spanned("pipeline.keff_pipeline")
+class _Graph:
+    """One captured step: the CUDA graph, its input buffer, its outputs (in
+    the graph's memory pool) and the launches of each kernel record that
+    its capture made."""
+
+    __slots__ = ("graph", "static", "out", "launches")
+
+    def __init__(self, graph, static, out, launches):
+        self.graph, self.static, self.out = graph, static, out
+        self.launches = launches
+
+
+# a key's state before it has a graph: its first call ran (the warm-up),
+# or its capture failed and its calls stay eager
+_WARM, _REFUSED = "warm", "refused"
+
+
+def _needs_grad(args) -> bool:
+    """Whether grad mode is on and a tensor among ``args``, or of a grid
+    or table among them, requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    for v in args:
+        if isinstance(v, (Grid, core.Table)):
+            if any(getattr(t, "requires_grad", False)
+                   for t in vars(v).values()):
+                return True
+        elif getattr(v, "requires_grad", False):
+            return True
+    return False
+
+
+# argument types a key takes as they are (a tensor's isinstance is slow)
+_PLAIN = (int, float, str, bool, type(None))
+
+
+def _part(v, held: list):
+    """An argument's part of a graph key: a tensor, grid or table by
+    identity (appended to ``held``), a list or tuple by its parts, any
+    other value as it is."""
+    if type(v) in _PLAIN:
+        return v
+    if isinstance(v, (list, tuple)):
+        return tuple(_part(x, held) for x in v)
+    if isinstance(v, (torch.Tensor, Grid, core.Table)):
+        held.append(v)
+        return type(v).__name__, id(v)
+    return v
+
+
+def graph_key(fn, tracer: torch.Tensor, grid: Grid, args: tuple,
+              kwargs: dict, stream: Optional[int] = None):
+    """(key, held) of a call of the entry body ``fn``: the entry, the
+    tracer's shape, dtype and device, the stream, the grid, tables and
+    other tensors by identity (``held``, the objects to hold by weak
+    reference) and every other argument by value.  Raises TypeError for
+    an argument that cannot be hashed."""
+    held = []
+    key = (fn, tuple(tracer.shape), tracer.dtype, tracer.device, stream,
+           _part(grid, held), _part(args, held),
+           tuple(sorted((k, _part(v, held)) for k, v in kwargs.items())))
+    hash(key)
+    return key, held
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def _fresh(out, copies: Optional[dict] = None):
+    """A copy of an output dict whose tensors own their memory (a graph's
+    outputs are overwritten by its next replay), by device copies alone,
+    no kernel: a contiguous tensor cloned, any other the same view of a
+    copy of its storage, each storage copied once (the CDF's channels
+    share one, as the eager body returns them)."""
+    copies = {} if copies is None else copies
+    if isinstance(out, dict):
+        return {k: _fresh(v, copies) for k, v in out.items()}
+    if not isinstance(out, torch.Tensor):
+        return out
+    if out.is_contiguous():
+        return out.clone()
+    src = out.untyped_storage()
+    whole = copies.get(src.data_ptr())
+    if whole is None:
+        whole = copies[src.data_ptr()] = out.new_empty(0).set_(src).clone()
+    return whole.as_strided(out.shape, out.stride(), out.storage_offset())
+
+
+class Graphs:
+    """The pipeline entries' CUDA graphs, at most :attr:`SIZE`, the least
+    recently used dropped first, and three counters of calls, read as
+    ``Kernel.launches`` is: ``captures``; ``replays`` (a capturing call's
+    replay among them); ``eager``, the calls that ran the eager body (not
+    eligible, a key's first call, a failed capture).  A key's grid, table
+    and tensor arguments are held by weak reference: freeing one drops its
+    graph.
+
+    A capture runs the eager body on ``torch.cuda.graph``'s side stream in
+    ``capture_error_mode='thread_local'`` (other threads' copies neither
+    break it nor are broken by it); the launches its wrappers count go to
+    the graph (:func:`.kernels.capturing`), and each replay adds them to
+    the kernels' ``launches``, since a replay launches those kernels."""
+
+    SIZE = 4
+
+    def __init__(self):
+        self.captures = self.replays = self.eager = 0
+        self._entries = collections.OrderedDict()  # key -> (state, weakrefs)
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def _drop(self, key) -> None:
+        self._entries.pop(key, None)
+
+    def hold(self, key, state, held) -> None:
+        """Keep ``state`` under ``key`` until an object of ``held`` is
+        freed or the key is the least recently used past :attr:`SIZE`."""
+        refs = [weakref.ref(o, lambda _, key=key: self._drop(key))
+                for o in held]
+        self._entries[key] = (state, refs)
+        self._entries.move_to_end(key)
+        while len(self._entries) > self.SIZE:
+            self._entries.popitem(last=False)
+
+    def _key(self, fn, takes_table: bool, tracer, grid, args, kwargs):
+        """The call's (key, held) where a graph may run it, else None."""
+        if not (isinstance(tracer, torch.Tensor) and _on_card(tracer)
+                and tracer.is_contiguous()):
+            return None
+        if kwargs.get("_layout", _PLANE) is not _PLANE or \
+                (takes_table and kwargs.get("table") is None):
+            return None
+        if _needs_grad((tracer, grid, *args, *kwargs.values())):
+            return None
+        if torch.cuda.is_current_stream_capturing():
+            return None
+        stream = torch.cuda.current_stream(tracer.device).cuda_stream
+        try:
+            return graph_key(fn, tracer, grid, args, kwargs, stream)
+        except TypeError:
+            return None
+
+    def call(self, fn, takes_table: bool, tracer, grid, args, kwargs):
+        """``fn(tracer, grid, *args, **kwargs)``, by a graph's replay where
+        the call is eligible and its key's graph exists or can be captured
+        now, else eagerly."""
+        found = self._key(fn, takes_table, tracer, grid, args, kwargs)
+        if found is not None:
+            key, held = found
+            with self._lock:
+                state = self._entries.get(key, (None,))[0]
+                if isinstance(state, _Graph):
+                    self._entries.move_to_end(key)
+                    return self._replay(state, tracer)
+                if state == _WARM:
+                    state = self._capture(fn, tracer, grid, args, kwargs)
+                    self.hold(key, state or _REFUSED, held)
+                    if state is not None:
+                        return self._replay(state, None)
+                elif state is None:
+                    self.hold(key, _WARM, held)
+        self.eager += 1
+        return fn(tracer, grid, *args, **kwargs)
+
+    def _capture(self, fn, tracer, grid, args, kwargs):
+        """A graph of ``fn`` on a copy of ``tracer``; None, with a warning,
+        where the capture fails."""
+        with span("graph.capture"):
+            static = tracer.clone()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with kernels.capturing() as tally, torch.cuda.graph(
+                        graph, capture_error_mode="thread_local"):
+                    out = fn(static, grid, *args, **kwargs)
+            except RuntimeError as err:
+                warnings.warn(f"{fn.__name__}: no CUDA graph ({err}); its "
+                              "calls run eagerly", RuntimeWarning)
+                return None
+            self.captures += 1
+            return _Graph(graph, static, out, tally)
+
+    def _replay(self, g: _Graph, tracer) -> dict:
+        """Copy ``tracer`` into the graph's input (the capturing call's is
+        there already), replay, and return fresh copies of the outputs."""
+        with span("graph.replay"):
+            if tracer is not None:
+                g.static.copy_(tracer)
+            g.graph.replay()
+            for record, n in g.launches.items():
+                record.launches += n
+            self.replays += 1
+            return _fresh(g.out)
+
+
+GRAPHS = Graphs()
+
+
+def _entry(fn):
+    """A pipeline entry: each call inside the span ``pipeline.<name>``,
+    through :data:`GRAPHS`."""
+    name = f"pipeline.{fn.__name__}"
+    takes_table = "table" in inspect.signature(fn).parameters
+
+    @functools.wraps(fn)
+    def call(tracer, grid, *args, **kwargs):
+        with span(name):
+            return GRAPHS.call(fn, takes_table, tracer, grid, args, kwargs)
+    return call
+
+
+@_entry
 def keff_pipeline(tracer: torch.Tensor, grid: Grid,
                   grdS: Optional[torch.Tensor] = None,
                   mask: Optional[torch.Tensor] = None,
@@ -176,7 +405,7 @@ def keff_pipeline(tracer: torch.Tensor, grid: Grid,
     return out
 
 
-@spanned("pipeline.lwa_pipeline")
+@_entry
 def lwa_pipeline(tracer: torch.Tensor, grid: Grid,
                  mask: Optional[torch.Tensor] = None, *, N: int = 121,
                  increase: bool = True, lt: bool = True, part: str = "all",
@@ -224,7 +453,7 @@ def lwa_pipeline(tracer: torch.Tensor, grid: Grid,
                 lwa2=lwa2)
 
 
-@spanned("pipeline.keff_lwa_pipeline")
+@_entry
 def keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
                       grdS: Optional[torch.Tensor] = None,
                       mask: Optional[torch.Tensor] = None,
@@ -298,7 +527,7 @@ def keff_lwa_pipeline(tracer: torch.Tensor, grid: Grid,
     return out
 
 
-@spanned("pipeline.clength_pipeline")
+@_entry
 def clength_pipeline(tracer: torch.Tensor, grid: Grid,
                      mask: Optional[torch.Tensor] = None, *, N: int = 121,
                      increase: bool = True, lt: bool = True,
@@ -361,7 +590,7 @@ def clength_pipeline(tracer: torch.Tensor, grid: Grid,
                 cmInvGrd=cmInvGrd)
 
 
-@spanned("pipeline.fractal_pipeline")
+@_entry
 def fractal_pipeline(tracer: torch.Tensor, grid: Grid, *, N: int = 121,
                      strides=(1, 2, 4, 8, 16, 32), increase: bool = True,
                      lt: bool = True, box_counting: bool = True,
@@ -405,7 +634,7 @@ def fractal_pipeline(tracer: torch.Tensor, grid: Grid, *, N: int = 121,
 
     with span("stage.dimension"):
         reso = grid.xdef[1] - grid.xdef[0]
-        rulers = (torch.as_tensor(strides, dtype=dtype, device=tracer.device)
+        rulers = (core.device_constant(tuple(strides), dtype, tracer.device)
                   * torch.cos(torch.deg2rad(Yeq))[..., None]
                   * torch.deg2rad(reso).to(dtype) * _REARTH)
         out = dict(contour=ctr, Yeq=Yeq, lengths=L, rulers=rulers,
@@ -418,7 +647,7 @@ def fractal_pipeline(tracer: torch.Tensor, grid: Grid, *, N: int = 121,
     return out
 
 
-@spanned("pipeline.local_length_pipeline")
+@_entry
 def local_length_pipeline(tracer: torch.Tensor, grid: Grid, *,
                           window: int = 101, stride: int = 10,
                           min_count: int = 1) -> dict:

@@ -10,7 +10,6 @@ pipeline needs:
   an entry ``(name, native thread id, start_ns, end_ns)`` of a bounded
   in-process span log on the ``time.perf_counter_ns`` clock, on whatever
   thread it runs (a profiler records only the threads it profiles);
-* :func:`spanned` -- a function's every call inside a span;
 * :func:`logging` -- the span log on without a profiler;
 * :func:`spans` -- the span log, the newest :data:`LOG_SIZE` spans;
 * :func:`trace` -- a ``torch.profiler`` run over the CPU, every thread and,
@@ -21,7 +20,6 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import functools
 import os
 import threading
 import time
@@ -109,17 +107,6 @@ def span(name: str):
     says when it opens."""
     state = tracing()
     return _Span(name, state) if state else _OFF
-
-
-def spanned(name: str):
-    """Decorator: each call of the function inside ``span(name)``."""
-    def wrap(fn):
-        @functools.wraps(fn)
-        def call(*args, **kwargs):
-            with span(name):
-                return fn(*args, **kwargs)
-        return call
-    return wrap
 
 
 @contextlib.contextmanager
