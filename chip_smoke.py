@@ -17,7 +17,8 @@ and the geometry paths ``clength_pipeline`` (ERA5, N=121 and N=401),
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build the kernels with nvcc (one process per source, in parallel);
-  3. kernel checks: K1-K5 (K4 in both variants) against their plain PyTorch
+  3. kernel checks: K1-K5 (K4 in both variants, and in split mode, both
+     halves a launch) against their plain PyTorch
      versions on the same CUDA tensors at ERA5 and headline shapes; K2 also
      at the A(Y_eq) table build (1x(721*1440) row latitudes under a NaN
      mask, N = 721, one channel), clength_pipeline's five channels at
@@ -63,7 +64,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      table plus one step that builds its own, and one own-table step
      alone) and at the headline shape;
      lwa_pipeline at ERA5 (metric='dy', 'auto' and 'dense', the same
-     streaming), part='upper' at the headline shape, the LAPE
+     streaming; part='split', two K4 launches a step and no K3 or K5),
+     part='upper' at the headline shape, the LAPE
      configuration (one K2, one K3 and one K5 launch a step with the
      table passed in) and the tall grid ('dense', K6); keff_pipeline at ERA5
      (hist=True, pre_y) and at the headline shape (hist=False);
@@ -75,7 +77,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      floor, empty extreme levels, positive interior lengths, the median
      fractal dimension in [1, 2)).  Then each benchmark step cell's entry
      at its shape (keff_lwa and clength at 16x721x1440, fractal at the
-     headline shape, local_length at 16x721x1440, the LAPE lwa) through
+     headline shape, local_length at 16x721x1440, the LAPE lwa, the
+     split lwa at 16x721x1440) through
      the pipeline's CUDA graphs: a warm-up call, a capture on another
      input and a replay on the first, each bit for bit with the eager
      body on the same input and counting its launches;
@@ -89,7 +92,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      instructions over instruction rate) and the share of it reached, and the
      launches per step of the kernel's path (K7's and K8's crossed pairs,
      counted from the inputs, in their bounds); K2 at its three other shapes;
-     K4 part='upper' at ERA5; K3 and K5 at the LAPE step, with their
+     K4 part='upper' and part='split' at ERA5, and K4's split in turns
+     with its upper and lower launches (LWA and LWA2; the halves bit for
+     bit); K3 and K5 at the LAPE step, with their
      share of the bound and launches a step of its path; the
      device time of each CUDA kernel K3 and K5 launch (prep against
      surface kernel, torch.profiler) and the SM clock and power that
@@ -287,7 +292,7 @@ K2_SHAPES = ("table", "clength5", "noise")
 BOX_BOUND = 2e-6
 KERNEL_BOUNDS = dict(squared_gradient=1e-6, weighted_cdf=1e-5,
                      lwa_lin=1.5e-4, lwa_dense=5e-6, lwa_dense_v2=5e-6,
-                     lwa_dense_upper=5e-6,
+                     lwa_dense_upper=5e-6, lwa_dense_split=5e-6,
                      lwa_lin2=1.5e-4, lwa_dense_tall=1e-5,
                      lwa_dense_tall_v2=1e-5, contour_lengths=2e-6,
                      local_lengths=2e-6, lwa_structure_probe=1.5e-4,
@@ -609,7 +614,7 @@ def clock_under_load(fn, seconds=2.0):
 
 def kernel_cases(q, grid, N):
     """name -> (kernel call, plain call, (bytes, instructions)) for K1-K5
-    (K4 in both variants and part='upper'), at the shapes the main path
+    (K4 in both variants, part='upper' and part='split'), at the shapes the main path
     gives them: the inputs are what keff_lwa_pipeline computes on the
     way (work: utils.roofline's stencil_work, cdf_work, lwa_work)."""
     import xcontour_tpu_torch as xt
@@ -653,6 +658,11 @@ def kernel_cases(q, grid, N):
             lambda: lwa.lwa_dense_plain(q, Q, W, increase=True,
                                         part="upper"),
             lwa_work(B, Ny, Nx, B * Nx * Ny * (Ny + 1) // 2)),
+        # both halves stacked, from one pass over every pair
+        "lwa_dense_split": (
+            lambda: lwa.lwa_dense(q, Q, W, increase=True, part="split"),
+            lambda: lwa.lwa_dense_plain(q, Q, W, increase=True,
+                                        part="split"), lwa_all),
         "lwa_lin2": (
             lambda: lwa.lwa_lin2(q, Q, W, increase=True),
             lambda: lwa.lwa_lin2_plain(q, Q, W, increase=True), lwa_all),
@@ -1476,6 +1486,64 @@ def check_lwa_step(out, shape, N, lo, hi, where):
     _finite(out, out.keys(), where)
     _monotone(out["intArea"], where, "intArea")
     _in_range(out["latEq"], lo, hi, where, "latEq")
+
+
+def check_split_step(out, shape, N, where):
+    """lwa_pipeline(part='split')'s outputs: the four halves in place of
+    lwa and lwa2, every key finite, areas monotone, LWA's halves >= 0 and
+    LWA2's <= 0 (an increasing tracer)."""
+    B, Ny, Nx = shape
+    _shapes(out, dict(contour=(B, N), intArea=(B, N), latEq=(B, N),
+                      Q=(B, Ny), lwa_upper=shape, lwa_lower=shape,
+                      lwa2_upper=shape, lwa2_lower=shape), where)
+    _finite(out, out.keys(), where)
+    _monotone(out["intArea"], where, "intArea")
+    for k, sign in (("lwa_upper", 1), ("lwa_lower", 1), ("lwa2_upper", -1),
+                    ("lwa2_lower", -1)):
+        _expect(bool((sign * out[k] >= 0).all()), f"{where}: {k} has the "
+                                                   "wrong sign")
+
+
+def split_turns(q, grid, N, dev):
+    """K4's split mode against its upper and lower launches at the ERA5
+    step, in turns (LWA and LWA2): the device ms of each, their share of
+    the bound of every pair at 3 instructions, and whether the halves are
+    the single parts' bit for bit (else their relative gap)."""
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch.diagnostics.lwa import nanmax
+    from xcontour_tpu_torch.kernels import lwa
+    Q = xt.keff_lwa_pipeline(q, grid, N=N)["Q"].contiguous()
+    W = (grid.dA / nanmax(grid.dA) * grid.dA).contiguous()
+    b_ms = bound_ms(lwa_work(*q.shape))[0]
+    out = {}
+    for v2 in (False, True):
+        kw = dict(increase=True, variant2=v2)
+
+        def split(kw=kw):
+            return lwa.lwa_dense(q, Q, W, part="split", **kw)
+
+        def parts(kw=kw):
+            return (lwa.lwa_dense(q, Q, W, part="upper", **kw),
+                    lwa.lwa_dense(q, Q, W, part="lower", **kw))
+        s, p = split(), parts()
+        same = all(bool(torch.equal(a, b)) for a, b in zip(s, p))
+        rel = max(rel_err(a, b)[1] for a, b in zip(s, p))
+        del s, p
+        s_ms, p_ms = time_alternating([split, parts], dev, reps=20)
+        name = "lwa2" if v2 else "lwa"
+        out[name] = dict(split_ms=s_ms, parts_ms=p_ms, bound_ms=b_ms,
+                         split_pct=100 * b_ms / s_ms,
+                         parts_pct=100 * b_ms / p_ms, bit_for_bit=same,
+                         rel=rel)
+        log(f"phase 6 kernel K4 split {name} era5 {tuple(q.shape)}: split "
+            f"{s_ms:.4f} ms ({100 * b_ms / s_ms:.2f}% of bound "
+            f"{b_ms:.4f}), upper + lower {p_ms:.4f} ms "
+            f"({100 * b_ms / p_ms:.2f}%), halves "
+            f"{'bit for bit' if same else f'rel {rel:.3e}'}")
+        _expect(same, f"K4 split {name}: halves differ from the single "
+                      f"parts (rel {rel:.3e})")
+    log(f"phase 6 K4 split json {json.dumps(out)}")
+    return out
 
 
 def check_lape(out, shape, N, where):
@@ -4441,6 +4509,24 @@ def main() -> int:
             f"{[round(t, 5) for t in times]}, own-table step {own_t[0]:.5f} "
             f"s: checks OK")
 
+    # the split (era5.lwa_split): K4 once for LWA and once for LWA2, both
+    # halves a launch, no K3 or K5
+    def run_split():
+        table = era_table()
+        return timed_steps(
+            lambda q: xt.lwa_pipeline(q, era_grid, N=ERA5["N"],
+                                      part="split", table=table),
+            era_steps[:S])
+    outs, times = drive("lwa era5 split", {"weighted_cdf": S}, run_split,
+                        exact=dict(lwa_dense=2 * S, lwa_lin=0, lwa_lin2=0,
+                                   weighted_cdf=S + 1))
+    for i, out in enumerate(outs):
+        check_split_step(out, eshape, ERA5["N"], f"lwa era5 split step {i}")
+    rates["lwa_era5_split"] = (ERA5["B"] / statistics.median(times), None,
+                               times)
+    log(f"phase 4 lwa era5 split: {S} steps with table reuse, step s "
+        f"{[round(t, 5) for t in times]}: checks OK")
+
     hshape = (HEADLINE["B"], HEADLINE["nlat"], HEADLINE["nlon"])
     outs, times = drive(
         "lwa headline upper", {"weighted_cdf": 5, "lwa_dense": 10},
@@ -4573,7 +4659,9 @@ def main() -> int:
         ("era5.local", xt.local_length_pipeline, era_shape, LOCAL),
         ("lape.lwa", xt.lwa_pipeline, (LAPE["B"], LAPE["nz"], LAPE["nx"]),
          dict(N=121, increase=False, lt=False, lwa_method="auto",
-              table=True))])
+              table=True)),
+        ("era5.lwa_split", xt.lwa_pipeline, era_shape,
+         dict(N=241, part="split", lwa_method="auto", table=True))])
     log(f"phase 4 launches over all paths: {totals}")
     # the decode runs through the runner alone: phase 10
     missing = [n for n, c in totals.items()
@@ -4731,6 +4819,7 @@ def main() -> int:
             f"{path_counts['lape'][name] / S:g} launches per step of 'lape'")
     for key in (*(("era5", f"weighted_cdf_{t}") for t in K2_SHAPES),
                 ("era5", "lwa_dense_v2"), ("era5", "lwa_dense_upper"),
+                ("era5", "lwa_dense_split"),
                 "lwa_dense_tall_v2", f"contour_lengths_n{CLENGTH_N[1]}",
                 "contour_lengths_cartesian",
                 *(f"local_lengths_w{w}s{s}" for w, s in K8_WINDOWS)):
@@ -4766,6 +4855,8 @@ def main() -> int:
         f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / k_ms:.2f}% of bound, "
         f"{path_counts['local era5'][rolling.KERNEL.name] / S:g} launches "
         "per step of 'local era5', library call none")
+
+    split_turns(era_steps[0], era_grid, ERA5["N"], dev)
 
     # 7. gradients: the autograd Functions on the card
     t0 = time.perf_counter()

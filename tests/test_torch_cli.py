@@ -472,7 +472,8 @@ def test_cli_lwa_part_cyclone_maps_to_upper(synth_nc, tmp_path):
     np.testing.assert_array_equal(a["lwa"], b["lwa"])
 
 
-@pytest.mark.parametrize("part", ["upper", "lower", "cyclone", "anticyclone"])
+@pytest.mark.parametrize("part", ["upper", "lower", "cyclone", "anticyclone",
+                                  "split"])
 def test_cli_lwa_lin_rejects_part_split(synth_nc, part):
     path, *_ = synth_nc
     with pytest.raises(SystemExit, match="lwa-method lin"):

@@ -722,7 +722,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     _add_common(pl)
     pl.add_argument("--part", default="all",
                     choices=("all", "cyclone", "anticyclone", "upper",
-                             "lower"),
+                             "lower", "split"),
                     help="W+/W- region selection (Huang-Nakamura 2016): "
                          "'cyclone' = the reference's 'upper' (W+), "
                          "'anticyclone' = 'lower' (W-) — these aliases "
@@ -730,7 +730,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "increasing poleward); for SH relative vorticity "
                          "or reversed conventions the physical labels swap, "
                          "so prefer the exact 'upper'/'lower' names, which "
-                         "are accepted verbatim")
+                         "are accepted verbatim; 'split' writes both halves "
+                         "(lwa_upper, lwa_lower, lwa2_upper, lwa2_lower) "
+                         "from one pass")
     pl.add_argument("--lwa-method", choices=("auto", "lin", "dense", "fast"),
                     default="auto", help="execution path (docs/API.md)")
     pl.add_argument("--metric", choices=("dA", "dy"), default="dA",

@@ -19,7 +19,8 @@
 //   LWA[j, x] = -sum_y qz * mask3(qe, y >= j) * Wz[y, x],
 //   qe = q(y, x) - Q_j (variant 1)  or  q(y_j, x) - Q(y) (variant 2),
 //
-// with the reference's 3-valued mask, parts all/upper/lower, NaN qe -> 0.
+// with the reference's 3-valued mask, parts all/upper/lower, NaN qe -> 0,
+// and a split mode that writes the upper and lower halves in one launch.
 // Variant 2 builds the mask with the flipped increase flag and selects
 // parts with the original one.  Like the JAX twin (_lwa_dense_xla) it takes
 // weights with NaN zeroed (the TPU kernel leaves a NaN weight in), and an
@@ -55,7 +56,9 @@
 // q(y_j, x) in variant 2) and running sums in registers, and every staged
 // value feeds kJ surfaces per thread.  K3 and K4 keep kJ = 16 (128 surfaces
 // a block; 64 registers a thread): against 8 it halves the shared loads per
-// FMA, and at 8 they took 9-20% longer on an H100.  K5 keeps 8.  A K4
+// FMA, and at 8 they took 9-20% longer on an H100.  K4's split mode keeps
+// 16 too: its second accumulators take it to 93 (v1) and 110 (v2)
+// registers for sm_90a, with no spill.  K5 keeps 8.  A K4
 // warp whose surfaces all lie past Ny stages its rows but sums none (the
 // same skip made K3 5% slower at ERA5 on an H100, so K3 has none).  Every
 // surface reduction is x-separable (the mask depends only on the row
@@ -295,22 +298,35 @@ __device__ __forceinline__ void dense_rows(float (&acc)[kJ],
 // share a panel more often, so fewer warps wait at the panel's barrier
 constexpr int kDP = 64;
 
-// kPart: 0 all, 1 upper, 2 lower.  kV2: variant 2 (impulse-Casimir), whose
+// kPart: 0 all, 1 upper, 2 lower, 3 split (both halves in one pass:
+// upper to out, lower to out2).  kV2: variant 2 (impulse-Casimir), whose
 // per-thread operands are the surface values q(y_j, x) and whose staged
 // panel is the profile Q(y); v1 holds Q_j and stages q(y, x).
+//
+// Split mode keeps a second accumulator a surface: acc sums the side
+// y >= j and acc2 the side y < j, each with the calls (and so the FMAs,
+// in the same y order) of the single-part kernel that keeps that side, so
+// each half equals that kernel's output bit for bit.  A pair lies on one
+// side, so the spans cost what part='all' costs; only the straddling rows
+// and flagged panels run twice, once an accumulator.
 template <bool kInc, int kPart, bool kV2>
-__global__ void __launch_bounds__(kTX * kJG)
-lwa_dense_kernel(const float* __restrict__ q, const float* __restrict__ Wz,
-                 const float* __restrict__ Q, float* __restrict__ out, int Ny,
-                 int Nx) {
+__device__ __forceinline__ void dense_body(const float* __restrict__ q,
+                                           const float* __restrict__ Wz,
+                                           const float* __restrict__ Q,
+                                           float* __restrict__ out,
+                                           float* __restrict__ out2, int Ny,
+                                           int Nx) {
   static_assert(kDP % kTX == 0, "warp 0 stages a profile panel");
+  constexpr bool kSplit = kPart == 3;
   // variant 2 builds its mask with the flipped flag, and selects parts with
   // the original one (lwa_pallas.py:52-70)
   constexpr bool kMaskInc = kV2 ? !kInc : kInc;
   // the sides a part keeps: upper keeps mask > 0 (side y >= j) for an
   // increasing tracer, mask < 0 (side y < j) otherwise; lower the reverse
-  constexpr bool kKeepGE = kPart == 0 || (kPart == 1) == kInc;
-  constexpr bool kKeepLT = kPart == 0 || (kPart == 1) != kInc;
+  constexpr bool kKeepGE = kSplit || kPart == 0 || (kPart == 1) == kInc;
+  constexpr bool kKeepLT = kSplit || kPart == 0 || (kPart == 1) != kInc;
+  // the sides acc sums (split: y >= j alone; acc2 sums y < j)
+  constexpr bool kAccLT = kKeepLT && !kSplit;
   __shared__ float sq[kV2 ? 1 : 2][kV2 ? 1 : kDP][kTX];
   __shared__ float sQ[2][kDP];
   __shared__ float sw[2][kDP][kTX];
@@ -322,7 +338,7 @@ lwa_dense_kernel(const float* __restrict__ q, const float* __restrict__ Wz,
   const float* qb = q + b * plane;
   const float* Qb = Q + (long long)b * Ny;
 
-  float s[kJ], acc[kJ];
+  float s[kJ], acc[kJ], acc2[kSplit ? kJ : 1];
   bool reg_inf = false;
 #pragma unroll
   for (int k = 0; k < kJ; ++k) {
@@ -333,6 +349,7 @@ lwa_dense_kernel(const float* __restrict__ q, const float* __restrict__ Wz,
       s[k] = j < Ny ? Qb[j] : 0.0f;
     reg_inf |= isinf(s[k]);
     acc[k] = 0.0f;
+    if constexpr (kSplit) acc2[k] = 0.0f;
   }
   // an infinite register operand makes every panel of the block exact
   const bool block_inf = __syncthreads_or(reg_inf);
@@ -378,8 +395,11 @@ lwa_dense_kernel(const float* __restrict__ q, const float* __restrict__ Wz,
     else vp = &sq[buf][0][tx];
     const float* wp = &sw[buf][0][tx];
     if (exact) {
-      dense_rows<kExact, kMaskInc, kKeepGE, kKeepLT, kV2>(
+      dense_rows<kExact, kMaskInc, kKeepGE, kAccLT, kV2>(
           acc, s, vp, wp, y0, 0, rows, j0);
+      if constexpr (kSplit)
+        dense_rows<kExact, kMaskInc, false, true, kV2>(
+            acc2, s, vp, wp, y0, 0, rows, j0);
       continue;
     }
     // warp-uniform: the warp's surfaces are [j0, j0 + kJ), so rows
@@ -387,13 +407,22 @@ lwa_dense_kernel(const float* __restrict__ q, const float* __restrict__ Wz,
     // the side y >= j, and only rows [r_lt, r_ge) (at most kJ - 1) straddle
     const int r_lt = min(max(j0 - y0, 0), rows);
     const int r_ge = min(max(j0 + kJ - 1 - y0, r_lt), rows);
-    if (kKeepLT)
-      dense_rows<kLT, kMaskInc, kKeepGE, kKeepLT, kV2>(
-          acc, s, vp, wp, y0, 0, r_lt, j0);
-    dense_rows<kMixed, kMaskInc, kKeepGE, kKeepLT, kV2>(
-        acc, s, vp, wp, y0, r_lt, r_ge, j0);
+    if constexpr (kSplit) {
+      dense_rows<kLT, kMaskInc, false, true, kV2>(
+          acc2, s, vp, wp, y0, 0, r_lt, j0);
+      dense_rows<kMixed, kMaskInc, true, false, kV2>(
+          acc, s, vp, wp, y0, r_lt, r_ge, j0);
+      dense_rows<kMixed, kMaskInc, false, true, kV2>(
+          acc2, s, vp, wp, y0, r_lt, r_ge, j0);
+    } else {
+      if (kKeepLT)
+        dense_rows<kLT, kMaskInc, kKeepGE, kKeepLT, kV2>(
+            acc, s, vp, wp, y0, 0, r_lt, j0);
+      dense_rows<kMixed, kMaskInc, kKeepGE, kKeepLT, kV2>(
+          acc, s, vp, wp, y0, r_lt, r_ge, j0);
+    }
     if (kKeepGE)
-      dense_rows<kGE, kMaskInc, kKeepGE, kKeepLT, kV2>(
+      dense_rows<kGE, kMaskInc, kKeepGE, kAccLT, kV2>(
           acc, s, vp, wp, y0, r_ge, rows, j0);
   }
 
@@ -401,8 +430,34 @@ lwa_dense_kernel(const float* __restrict__ q, const float* __restrict__ Wz,
 #pragma unroll
   for (int k = 0; k < kJ; ++k) {
     const int j = j0 + k;
-    if (j < Ny) out[b * plane + (long long)j * Nx + x] = -acc[k];
+    if (j >= Ny) continue;
+    const long long o = b * plane + (long long)j * Nx + x;
+    if constexpr (kSplit) {
+      // upper is the side y >= j for an increasing tracer, y < j else
+      out[o] = -(kInc ? acc[k] : acc2[k]);
+      out2[o] = -(kInc ? acc2[k] : acc[k]);
+    } else {
+      out[o] = -acc[k];
+    }
   }
+}
+
+// K4 for one part
+template <bool kInc, int kPart, bool kV2>
+__global__ void __launch_bounds__(kTX * kJG)
+lwa_dense_kernel(const float* __restrict__ q, const float* __restrict__ Wz,
+                 const float* __restrict__ Q, float* __restrict__ out, int Ny,
+                 int Nx) {
+  dense_body<kInc, kPart, kV2>(q, Wz, Q, out, nullptr, Ny, Nx);
+}
+
+// K4 in split mode: upper to out, lower to out2, in one launch
+template <bool kInc, bool kV2>
+__global__ void __launch_bounds__(kTX * kJG)
+lwa_dense_kernel(const float* __restrict__ q, const float* __restrict__ Wz,
+                 const float* __restrict__ Q, float* __restrict__ out,
+                 float* __restrict__ out2, int Ny, int Nx) {
+  dense_body<kInc, 3, kV2>(q, Wz, Q, out, out2, Ny, Nx);
 }
 
 // K5 prep: one thread per (b, x) column walks y in order and writes the
@@ -534,6 +589,14 @@ constexpr DenseKernel kDenseKernels[12] = {XC_DENSE_PARTS(false),
 
 #undef XC_DENSE_PARTS
 
+using SplitKernel = void (*)(const float*, const float*, const float*, float*,
+                             float*, int, int);
+
+// indexed by variant2 * 2 + increase
+constexpr SplitKernel kSplitKernels[4] = {
+    lwa_dense_kernel<false, false>, lwa_dense_kernel<true, false>,
+    lwa_dense_kernel<false, true>, lwa_dense_kernel<true, true>};
+
 dim3 surface_grid(int B, int Ny, int Nx, int per_block) {
   return dim3((Ny + per_block - 1) / per_block, (Nx + kTX - 1) / kTX, B);
 }
@@ -573,20 +636,28 @@ extern "C" int xc_lwa_lin(const void* q, const void* W, const void* Q,
   return (int)cudaSuccess;
 }
 
+// part 0 all, 1 upper, 2 lower into out; 3 split: upper into out, lower
+// into out2 (unused by the other parts)
 extern "C" int xc_lwa_dense(const void* q, const void* Wz, const void* Q,
-                            void* out, int B, int Ny, int Nx, int increase,
-                            int part, int variant2, void* stream) {
-  if (part < 0 || part > 2) return (int)cudaErrorInvalidValue;
-  const DenseKernel kernel =
-      kDenseKernels[((variant2 ? 1 : 0) * 3 + part) * 2 + (increase ? 1 : 0)];
+                            void* out, void* out2, int B, int Ny, int Nx,
+                            int increase, int part, int variant2,
+                            void* stream) {
+  if (part < 0 || part > 3) return (int)cudaErrorInvalidValue;
+  const int v2 = variant2 ? 1 : 0, inc = increase ? 1 : 0;
   const long long plane = (long long)Ny * Nx;
   for (int b0 = 0; b0 < B; b0 += kBatchChunk) {
     const int bc = B - b0 < kBatchChunk ? B - b0 : kBatchChunk;
-    kernel<<<surface_grid(bc, Ny, Nx, kJG * kJ), dim3(kTX, kJG), 0,
-             (cudaStream_t)stream>>>(
-        (const float*)q + b0 * plane, (const float*)Wz,
-        (const float*)Q + (long long)b0 * Ny, (float*)out + b0 * plane, Ny,
-        Nx);
+    const dim3 grid = surface_grid(bc, Ny, Nx, kJG * kJ), block(kTX, kJG);
+    const float* qb = (const float*)q + b0 * plane;
+    const float* Qb = (const float*)Q + (long long)b0 * Ny;
+    float* ob = (float*)out + b0 * plane;
+    if (part == 3)
+      kSplitKernels[v2 * 2 + inc]<<<grid, block, 0, (cudaStream_t)stream>>>(
+          qb, (const float*)Wz, Qb, ob, (float*)out2 + b0 * plane, Ny, Nx);
+    else
+      kDenseKernels[(v2 * 3 + part) * 2 + inc]<<<grid, block, 0,
+                                                 (cudaStream_t)stream>>>(
+          qb, (const float*)Wz, Qb, ob, Ny, Nx);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

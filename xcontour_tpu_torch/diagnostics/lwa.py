@@ -145,9 +145,9 @@ _FAST_NY_CROSSOVER = 3072
 
 
 def _resolve_method(method: str, part: str, ny: int) -> str:
-    """'auto' gives 'dense' for part selections, 'fast' at Ny >=
-    ``_FAST_NY_CROSSOVER`` and 'lin' below it; 'lin' and 'fast' take only
-    part='all'."""
+    """'auto' gives 'dense' for part selections ('split' among them),
+    'fast' at Ny >= ``_FAST_NY_CROSSOVER`` and 'lin' below it; 'lin' and
+    'fast' take only part='all'."""
     if method not in ("auto", "lin", "dense", "fast"):
         raise ValueError(f"method={method!r} not in "
                          "['auto', 'lin', 'dense', 'fast']")
@@ -174,7 +174,9 @@ class _LWA(torch.autograd.Function):
     """K3/K5 ('lin') or K4/K6 ('dense') with the plain twin's VJP (JAX:
     ``diagnostics/lwa._lwa_pallas_ad``): the lin twin for 'lin', the dense
     twin for 'dense' and part selections, recomputed 16 surfaces at a time
-    (:func:`..kernels.lwa.lwa_vjp`)."""
+    (:func:`..kernels.lwa.lwa_vjp`).  For part='split' the output is the
+    two halves stacked, and each half's cotangent goes through its own
+    part's twin."""
 
     @staticmethod
     def forward(ctx, q, Q, W, method, increase, part, variant2):
@@ -214,6 +216,8 @@ def _lwa(q, Q, dA, ydef, increase, part, weight, method, variant2):
         out = _LWA.apply(qf, Qf, W, *args)
     else:
         out = _launch(qf.detach(), Qf.detach(), W.detach(), *args)
+    if part == "split":
+        return tuple(out.reshape((2,) + batch + (Ny, Nx)).unbind(0))
     return out.reshape(batch + (Ny, Nx))
 
 
@@ -231,6 +235,9 @@ def local_wave_activity(q: torch.Tensor, Q: torch.Tensor, dA: torch.Tensor,
     ``method``: 'auto', 'lin', 'dense' or 'fast' (module docstring);
     :func:`_resolve_method` gives the 'auto' policy.  'fast' runs no kernel
     and is differentiated by autograd through sort, gather and cumsum.
+    ``part``: 'all', 'upper' (W+, the mask's +1 side), 'lower' (W-, its -1
+    side), or 'split', which returns the tuple (upper, lower) from one
+    pairwise pass ('dense'; one K4 launch on the card).
     """
     return _lwa(q, Q, dA, ydef, increase, part, weight, method, False)
 

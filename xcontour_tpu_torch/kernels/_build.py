@@ -38,8 +38,9 @@ SIGNATURES = {
     "xc_weighted_cdf": [P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     # q, W, Q, c0, E, tot, out, B, Ny, Nx, increase, stream
     "xc_lwa_lin": [P, P, P, P, P, P, P, I, I, I, I, P],
-    # q, Wz, Q, out, B, Ny, Nx, increase, part, variant2, stream
-    "xc_lwa_dense": [P, P, P, P, I, I, I, I, I, I, P],
+    # q, Wz, Q, out, out2 (part 3, split: the lower half), B, Ny, Nx,
+    # increase, part, variant2, stream
+    "xc_lwa_dense": [P, P, P, P, P, I, I, I, I, I, I, P],
     # q, Q, W, c0, E, out, B, Ny, Nx, increase, stream
     "xc_lwa_lin2": [P, P, P, P, P, P, I, I, I, I, P],
     # data, levels, order, y, x, acc, out, B, Ny, Nx, N, n_rb, n_cb,

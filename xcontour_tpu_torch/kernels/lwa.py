@@ -12,9 +12,11 @@ plain version is ``_lwa_lin_xla(variant2=True)``.
 
 K4 (:func:`lwa_dense`) replaces ``_kernel`` of the same file (pairwise,
 both variants): the reference's 3-valued mask times qe*W summed over y,
-parts all/upper/lower.  Its plain version is ``_lwa_dense_xla``.  Both the
-kernel and the plain version zero NaN weights like ``_lwa_dense_xla`` (the
-TPU kernel does not).  K6 replaces ``_kernel_yblocked``, the TPU's form of
+parts all/upper/lower.  Its plain version is ``_lwa_dense_xla``.  A fourth
+part, 'split', has no JAX counterpart: the upper and lower halves, stacked
+as (2, B, Ny, Nx), from one pass over the pairs (one launch), each equal
+to its single part's output.  Both the kernel and the plain version zero
+NaN weights like ``_lwa_dense_xla`` (the TPU kernel does not).  K6 replaces ``_kernel_yblocked``, the TPU's form of
 the same sum for Ny > 3072; here one CUDA kernel serves every Ny, and a
 launch at such a Ny counts as K6's.
 
@@ -44,7 +46,7 @@ KERNEL_LIN2 = Kernel("lwa_lin2", "xcontour_tpu_torch/csrc/lwa.cu",
 KERNEL_DENSE_TALL = Kernel("lwa_dense_tall", "xcontour_tpu_torch/csrc/lwa.cu",
                            "xcontour_tpu/kernels/lwa_pallas.py:262")
 
-_PARTS = {"all": 0, "upper": 1, "lower": 2}
+_PARTS = {"all": 0, "upper": 1, "lower": 2, "split": 3}
 
 # rows per chunk of K3's E prep (kCH in csrc/lwa.cu)
 E_CHUNK = 32
@@ -191,13 +193,14 @@ def lwa_dense_plain(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
     """Pairwise LWA in plain PyTorch (``_lwa_dense_xla``): excluded and NaN
     terms are exact zeros, NaN weights count as zero.  ``variant2`` takes
     qe = q(y_j, x) - Q(y) with the mask built from ``not increase`` and
-    the part selected with ``increase`` (the reference's LWA2)."""
-    if part not in _PARTS:
-        raise ValueError("part must be in ['all', 'upper', 'lower']")
+    the part selected with ``increase`` (the reference's LWA2).
+    ``part='split'`` gives the upper and lower halves stacked, (2, B, Ny,
+    Nx), each the same values as its own part gives."""
+    _check_part(part)
     parts = _dense_parts(q, Q, W)
     kw = dict(increase=increase, part=part, variant2=variant2)
     return torch.cat([_dense_rows(parts, js, **kw)
-                      for js in _surface_chunks(q.shape[1])], dim=1)
+                      for js in _surface_chunks(q.shape[1])], dim=-2)
 
 
 def _dense_parts(q, Q, W):
@@ -206,9 +209,15 @@ def _dense_parts(q, Q, W):
     return q, Q, torch.where(torch.isnan(W), torch.zeros_like(W), W)
 
 
+def _check_part(part: str) -> None:
+    if part not in _PARTS:
+        raise ValueError(f"part must be in {list(_PARTS)}")
+
+
 def _dense_rows(parts, js: slice, *, increase: bool, part: str,
                 variant2: bool):
-    """lwa_dense_plain's surfaces ``js`` (B, c, Nx) from its parts."""
+    """lwa_dense_plain's surfaces ``js`` (B, c, Nx) from its parts; (2, B,
+    c, Nx) for part='split'."""
     q, Q, Wz = parts
     iy = torch.arange(q.shape[1], device=q.device)
     jj = torch.arange(js.start, js.stop, device=q.device)
@@ -219,16 +228,19 @@ def _dense_rows(parts, js: slice, *, increase: bool, part: str,
         qe = q[:, None] - Q[:, js, None, None]              # (B, c, Ny, Nx)
     m = (iy[None, :] >= jj[:, None])[None, :, :, None]
     mask = _mask3(qe, m, increase != variant2)
-    mz = _part_zero(mask, part, increase)
     qz = torch.where(torch.isnan(qe), zero, qe)
-    return -(qz * mz * Wz).sum(2)
+    halves = ("upper", "lower") if part == "split" else (part,)
+    rows = [-(qz * _part_zero(mask, h, increase) * Wz).sum(2)
+            for h in halves]
+    return torch.stack(rows) if part == "split" else rows[0]
 
 
 def lwa_vjp(kind: str, q, Q, W, g, needs, **kw):
     """Cotangents of (q, Q, W) of the plain version ``kind`` ('lin',
     'lin2' or 'dense', keyword arguments ``kw``) for the cotangent g
-    (B, Ny, Nx): its per-field terms once, its surfaces recomputed and
-    differentiated 16 at a time, so the backward holds one chunk's
+    (B, Ny, Nx), or (2, B, Ny, Nx) for 'dense' with part='split' (the
+    halves' cotangents): its per-field terms once, its surfaces recomputed
+    and differentiated 16 at a time, so the backward holds one chunk's
     (B, 16, Ny, Nx) temporaries (the JAX package differentiates the same
     twins: 'lin' for method 'lin', 'dense' for 'dense' and parts)."""
     prep, rows = {"lin": (_lin_parts, _lin_rows),
@@ -236,7 +248,7 @@ def lwa_vjp(kind: str, q, Q, W, g, needs, **kw):
                   "dense": (_dense_parts, _dense_rows)}[kind]
     if kind != "dense":
         prep = functools.partial(prep, **kw)
-    pieces = [(functools.partial(rows, js=js, **kw), g[:, js])
+    pieces = [(functools.partial(rows, js=js, **kw), g[..., js, :])
               for js in _surface_chunks(q.shape[1])]
     return vjp(pieces, (q, Q, W), needs, prep=prep)
 
@@ -306,11 +318,11 @@ def lwa_lin2(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
 def lwa_dense(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
               increase: bool, part: str = "all",
               variant2: bool = False) -> torch.Tensor:
-    """Pairwise LWA (or LWA2 with ``variant2``) for part all/upper/lower.
-    CPU tensors take the plain version; CUDA tensors launch K4, counted as
-    K6 when Ny > ``TALL_NY``."""
-    if part not in _PARTS:
-        raise ValueError("part must be in ['all', 'upper', 'lower']")
+    """Pairwise LWA (or LWA2 with ``variant2``) for part all/upper/lower,
+    or both halves stacked, (2, B, Ny, Nx), for part='split'.  CPU tensors
+    take the plain version; CUDA tensors launch K4 (one launch for any
+    part, split included), counted as K6 when Ny > ``TALL_NY``."""
+    _check_part(part)
     if q.device.type == "cpu":
         return lwa_dense_plain(q, Q, W, increase=increase, part=part,
                                variant2=variant2)
@@ -320,11 +332,13 @@ def lwa_dense(q: torch.Tensor, Q: torch.Tensor, W: torch.Tensor, *,
     from ._build import library
     B, Ny, Nx = q.shape
     Wz = torch.where(torch.isnan(W), torch.zeros_like(W), W)
-    out = torch.empty_like(q)
+    split = part == "split"
+    out = q.new_empty((2,) + q.shape if split else q.shape)
+    first, second = out.unbind(0) if split else (out, None)
     status = library().xc_lwa_dense(
-        q.data_ptr(), Wz.data_ptr(), Q.data_ptr(), out.data_ptr(),
-        B, Ny, Nx, int(increase), _PARTS[part], int(variant2),
-        stream_handle())
+        q.data_ptr(), Wz.data_ptr(), Q.data_ptr(), first.data_ptr(),
+        second.data_ptr() if split else None, B, Ny, Nx, int(increase),
+        _PARTS[part], int(variant2), stream_handle())
     check_status(record.name, status)
     record.count()
     return out

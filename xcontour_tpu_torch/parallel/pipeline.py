@@ -66,7 +66,8 @@ from .mesh import X, x_block
 from .stencil import sharded_gradient, sharded_squared_gradient
 
 # the outputs that are the rank's x block of a plane field
-X_SHARDED = frozenset({"lwa", "lwa2"})
+X_SHARDED = frozenset({"lwa", "lwa2", "lwa_upper", "lwa_lower", "lwa2_upper",
+                       "lwa2_lower"})
 
 
 def sharded_contours(tracer: torch.Tensor, N: int, mesh: DeviceMesh, *,
@@ -151,7 +152,8 @@ def sharded_lwa_pipeline(tracer: torch.Tensor, grid: Grid, mesh: DeviceMesh,
                          lwa_method: str = "auto",
                          table: Optional[core.Table] = None) -> dict:
     """:func:`..pipeline.lwa_pipeline` on the rank's block: LWA (K3) and
-    LWA2 (K5) on each slab for 'auto'."""
+    LWA2 (K5) on each slab for 'auto' (K4 for a part, 'split' among them:
+    both halves a launch)."""
     return lwa_pipeline(tracer, grid, mask, N=N, increase=increase, lt=lt,
                         part=part, metric=metric, lwa_method=lwa_method,
                         table=table, _layout=_MeshLayout(mesh))

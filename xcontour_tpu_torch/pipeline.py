@@ -420,8 +420,12 @@ def lwa_pipeline(tracer: torch.Tensor, grid: Grid,
     lwa_method : 'auto', 'lin', 'dense' or 'fast' (see
         :func:`diagnostics.lwa.local_wave_activity`).
     table : a precomputed A(Y_eq) table, reusable across snapshots.
+    part : 'all', 'upper', 'lower' or 'split': both halves from one sorted
+        state and one pairwise pass each for LWA and LWA2.
 
-    Returns a dict with contour, intArea, latEq, Q, lwa and lwa2.
+    Returns a dict with contour, intArea, latEq, Q, lwa and lwa2; for
+    part='split' lwa_upper, lwa_lower, lwa2_upper and lwa2_lower in place
+    of lwa and lwa2.
     """
     _check_modes(metric=metric)
     dtype = tracer.dtype
@@ -449,8 +453,13 @@ def lwa_pipeline(tracer: torch.Tensor, grid: Grid,
         lwa = _layout.lwa(tracer, Q, dA, ydef, **kw)
     with span("stage.lwa2"):
         lwa2 = _layout.lwa2(tracer, Q, dA, ydef, **kw)
-    return dict(contour=ctr, intArea=intArea, latEq=latEq, Q=Q, lwa=lwa,
-                lwa2=lwa2)
+    out = dict(contour=ctr, intArea=intArea, latEq=latEq, Q=Q)
+    if part.lower() == "split":
+        out.update(lwa_upper=lwa[0], lwa_lower=lwa[1], lwa2_upper=lwa2[0],
+                   lwa2_lower=lwa2[1])
+    else:
+        out.update(lwa=lwa, lwa2=lwa2)
+    return out
 
 
 @_entry
@@ -685,6 +694,12 @@ _ATTRS = {
     "Q": dict(long_name="sorted tracer profile on the equivalent coordinate"),
     "lwa": dict(long_name="local finite-amplitude wave activity"),
     "lwa2": dict(long_name="local wave activity (impulse-Casimir form)"),
+    "lwa_upper": dict(long_name="local wave activity, upper half (W+)"),
+    "lwa_lower": dict(long_name="local wave activity, lower half (W-)"),
+    "lwa2_upper": dict(long_name="impulse-Casimir local wave activity, "
+                       "upper half (W+)"),
+    "lwa2_lower": dict(long_name="impulse-Casimir local wave activity, "
+                       "lower half (W-)"),
     "lengths": dict(long_name="contour perimeter length", units="m"),
     "cmGrd": dict(long_name="contour mean of |grad q|"),
     "cmInvGrd": dict(long_name="contour mean of 1/|grad q|"),
