@@ -55,7 +55,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      headline shape, N = 121, strides 1-32) against its plain version run
      in float64 and in float32, one launch a call, two runs bit for bit;
      K3 and K5 at the LAPE step (64x100x4480, increase=False, the
-     profile of its lwa_pipeline) against their plain versions;
+     profile of its lwa_pipeline) against their plain versions; G
+     (``kernels.gradw``, clength_pipeline's five CDF weights) on the ERA5
+     step and in six modes on K1's odd shapes (a flat patch where
+     |grad q| = 0), bit for bit with its plain version;
   4. the paths: for each, every launch count set to 0 just before it and
      read just after; a path fails if a kernel it runs was not launched.
      K2's counts must be exact: one launch per step and one per table
@@ -70,7 +73,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      table passed in) and the tall grid ('dense', K6); keff_pipeline at ERA5
      (hist=True, pre_y) and at the headline shape (hist=False);
      keff_lwa_pipeline(with_lwa2=True) once; clength_pipeline at ERA5
-     (N=121 and N=401, the same streaming), fractal_pipeline at the
+     (N=121 and N=401, the same streaming; one G launch a step),
+     fractal_pipeline at the
      headline shape, local_length_pipeline on the ERA5 steps (one K8
      launch a step).  The outputs are checked (shapes, finite values,
      monotone areas, coordinates in range, LAPE positive-definite to the float32
@@ -102,7 +106,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      peak device memory of each path; D in its six layouts in turns with
      its plain version and Tensor.copy_ of its output (device times); B at
      the t170.fractal step in turns with its plain version, against its
-     bound (two FP32 compares a (box, level) test, or its bytes);
+     bound (two FP32 compares a (box, level) test, or its bytes); R at the
+     era5.local step and G at the ERA5 and era5.clength steps in turns
+     with their plain versions, against their bytes bounds (G: 24 a
+     cell);
   7. gradients: every kernel wrapper raises on a CUDA tensor that requires
      grad; each autograd Function (K1-K8) on the card: its forward against
      the wrapper's bits (K2 within its bound: float atomics) and its
@@ -173,7 +180,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      bounds); lwa ('auto' and 'dense'), keff, clength -N 401 and
      local-length on one time, fractal on the headline grid and lwa
      'dense' on the tall grid (K6), each with its exact launch counts (D
-     once a chunk, none under --transfer or --mesh);
+     once a chunk, none under --transfer or --mesh); clength_pipeline's G
+     once a call, eager and replayed from its CUDA graph;
      --f64 on the card and nc4 without h5py refused with their messages,
      and info;
  11. the sharded path (``xcontour_tpu_torch.parallel``): (a) in this
@@ -718,6 +726,44 @@ def k2_cases(q, grid, N):
     return cases
 
 
+def clength_weights_case(q, grid):
+    """(kernel call, plain call, (bytes, instructions)) of G on the step q
+    as clength_pipeline hands it over: the grid's dx, dy and dA.  Bytes: q
+    read and five channels written once, 24 a cell, and dx, dy and dA
+    once (the batch shares them)."""
+    from xcontour_tpu_torch.kernels import gradw
+    from xcontour_tpu_torch.ops import stencil as ops_stencil
+    dy, dx = ops_stencil._spacing(grid, q.dtype)
+    args = (q, dx.contiguous(), dy.contiguous(),
+            grid.dA.to(q.dtype).contiguous())
+    kw = dict(periodic_x=grid.periodic_x, bc_y=grid.bc_y)
+    B, Ny, Nx = q.shape
+    nbytes = q.element_size() * (B * Ny * Nx * (1 + gradw.CHANNELS)
+                                 + 2 * Ny * Nx + Ny)
+    return (lambda: gradw.clength_weights(*args, **kw),
+            lambda: gradw.clength_weights_plain(*args, **kw), (nbytes, 0))
+
+
+def clength_weights_checks(q, grid, errs):
+    """Phase 3: G on the ERA5 step (its below-ground NaN boxes) against its
+    plain version on the same card tensors, bit for bit, one launch."""
+    from xcontour_tpu_torch.kernels import gradw
+    kern, plain, _ = clength_weights_case(q, grid)
+    n0 = gradw.KERNEL.launches
+    got = kern()
+    torch.cuda.synchronize()
+    _expect(gradw.KERNEL.launches == n0 + 1,
+            f"clength_weights: {gradw.KERNEL.launches - n0} launches, not 1")
+    want = plain()
+    _expect(same_bits(got, want), f"clength_weights era5 "
+            f"{tuple(got.shape)}: differs from its plain version")
+    errs["clength_weights_era5"] = 0.0
+    log(f"phase 3 kernel clength_weights era5 {tuple(got.shape)}: bit for "
+        f"bit with its plain version OK ({int(torch.isnan(q).sum())} NaN "
+        f"cells of q, {int(torch.isnan(got[:, 4]).sum())} NaN cells in "
+        "channel 4)")
+
+
 def tall_cases(q, grid, N):
     """K6: the dense kernel in both variants at a grid taller than 3072
     rows, with the sorted profile of the grid's own lwa_pipeline."""
@@ -949,8 +995,9 @@ def odd_shape_checks(dev):
     channels (a group of 8 and one of 1) on uneven edges, with values below
     e[0], on interior edges and on the top edge, NaN values and NaN
     weights, within its bound and the NaN pattern."""
-    from xcontour_tpu_torch.kernels import hist, probes, stencil
+    from xcontour_tpu_torch.kernels import gradw, hist, probes, stencil
     rng = np.random.default_rng(9)
+    rg = np.random.default_rng(10)     # G's spacings and areas
     T = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
     for Nx, offset in ((182, 0), (361, 0), (360, 1), (8192, 0), (8190, 0),
                        (8192, 1)):
@@ -974,10 +1021,26 @@ def odd_shape_checks(dev):
         _expect(same_bits(probes.scaled_copy(qv), probes.scaled_copy_plain(qv)),
                 f"{probes.KERNEL_COPY.name} Nx={Nx} offset {offset}: differs "
                 f"from q * {probes.SCALE}")
+        # G on the same view with a flat patch (|grad q| = 0)
+        gflat = torch.empty_like(flat)
+        qg = gflat[offset:].view(q.shape)
+        qg.copy_(qv)
+        qg[1, 10:14, 20:30] = 0.5
+        sx, sy, da = (T(rg.uniform(0.5, 2.0, s)) for s in ((Ny, Nx), Ny,
+                                                           (Ny, Nx)))
+        for periodic in (True, False):
+            for bc in ("extend", "fill", "reflect"):
+                kw = dict(periodic_x=periodic, bc_y=bc)
+                _expect(same_bits(
+                    gradw.clength_weights(qg, sx, sy, da, **kw),
+                    gradw.clength_weights_plain(qg, sx, sy, da, **kw)),
+                    f"clength_weights Nx={Nx} offset {offset} {kw}: differs "
+                    "from its plain version")
         lanes = 4 if Nx % 4 == 0 and qv.data_ptr() % 16 == 0 else 1
         log(f"phase 3 odd shapes squared_gradient 3x{Ny}x{Nx} offset "
             f"{offset} ({lanes} column(s) a lane): six modes bit for bit OK; "
-            f"{probes.KERNEL_COPY.name} bit for bit OK")
+            f"{probes.KERNEL_COPY.name} bit for bit OK; clength_weights six "
+            "modes bit for bit OK")
     B, G, N, C = 3, 50 * 97, 17, 9
     v = rng.standard_normal((B, G))
     e = np.sort(rng.standard_normal((B, N + 1)), -1)
@@ -1948,14 +2011,14 @@ def adjoint_ms(loss, q, N):
 
 
 def kernel_records():
-    """K1-K8's, the archive decode's, box counting's and the window means'
-    launch records."""
-    from xcontour_tpu_torch.kernels import (boxcount, decode, hist, length,
-                                            lwa, rolling, stencil)
+    """K1-K8's, the archive decode's, box counting's, the window means' and
+    the contour-length weights' launch records."""
+    from xcontour_tpu_torch.kernels import (boxcount, decode, gradw, hist,
+                                            length, lwa, rolling, stencil)
     return (stencil.KERNEL, hist.KERNEL, lwa.KERNEL_LIN, lwa.KERNEL_DENSE,
             lwa.KERNEL_LIN2, lwa.KERNEL_DENSE_TALL, length.KERNEL_LENGTHS,
             length.KERNEL_LOCAL_LENGTHS, decode.KERNEL, boxcount.KERNEL,
-            rolling.KERNEL)
+            rolling.KERNEL, gradw.KERNEL)
 
 
 def kernel_counts():
@@ -3377,7 +3440,8 @@ def cli_phase(dev, drive, path_counts, peaks, card, then=None):
                  "nkeff", (A["level"], 121)),
                 ("clength N=401", "clength", ["-N", "401"],
                  {"weighted_cdf": 2, "contour_lengths": 1,
-                  "decode_planes": 1}, "lengths", (A["level"], 401)),
+                  "clength_weights": 1, "decode_planes": 1}, "lengths",
+                 (A["level"], 401)),
                 ("local-length", "local-length",
                  ["--window", str(LOCAL["window"]), "--stride",
                   str(LOCAL["stride"])], {"local_lengths": 1,
@@ -3421,6 +3485,39 @@ def cli_phase(dev, drive, path_counts, peaks, card, then=None):
 
         refusal_checks(path, tmp)
     return res, labels
+
+
+def clength_launch_checks(era_steps, era_grid):
+    """Phase 10: one launch of G a clength_pipeline call, eager (no table,
+    as the CLI's clength calls it) and replayed (the table given, as
+    era5.clength calls it: a warm-up, a capture, two replays), a fresh
+    graph cache."""
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch import pipeline
+    from xcontour_tpu_torch.kernels import gradw
+    kept = pipeline.GRAPHS
+    pipeline.GRAPHS = g = pipeline.Graphs()
+    try:
+        table = xt.cal_area_eqCoord_table_hist(
+            era_grid.fluid_mask(), era_grid.ydef, era_grid.dA, increase=True,
+            lt=True)
+        per_call = []
+        for q, t in [(era_steps[0], None)] + [(era_steps[i % 2], table)
+                                               for i in range(4)]:
+            n0 = gradw.KERNEL.launches
+            xt.clength_pipeline(q, era_grid, N=CLENGTH_N[1], table=t)
+            torch.cuda.synchronize()
+            per_call.append(gradw.KERNEL.launches - n0)
+        _expect(per_call == [1] * 5 and (g.captures, g.replays) == (1, 3),
+                f"phase 10 clength: G launches a call {per_call}, captures "
+                f"{g.captures}, replays {g.replays}")
+        log(f"phase 10 clength launches: G {per_call} a call (eager without "
+            f"a table; then warm-up, capture, replay, replay), captures "
+            f"{g.captures}, replays {g.replays}")
+    finally:
+        pipeline.GRAPHS = kept
+        del g
+        torch.cuda.empty_cache()
 
 
 def check_cli_output(path, var, shape, label):
@@ -3563,7 +3660,9 @@ def parallel_adjoints(drive, q, grid, table, mesh):
             g[side] = drive(path, expect, lambda: adjoint_ms(loss, q, N)[2])
             counts[side] = kernel_counts()
         labels.append(f"parallel adjoint {label} era5 B={GRAD_ERA5_B}")
-        _expect(counts["sharded"] == counts["unsharded"],
+        # the mesh layout forms clength's weights without G
+        want = dict(counts["unsharded"], clength_weights=0)
+        _expect(counts["sharded"] == want,
                 f"phase 11 adjoint {label}: the sharded step launches "
                 f"{counts['sharded']}, the unsharded {counts['unsharded']}")
         share, worst = grad_agree(
@@ -3690,9 +3789,10 @@ def parallel_inprocess(dev, drive, q, grid, table):
                      P.sharded_clength_pipeline, xt.clength_pipeline,
                      dict(N=CLENGTH_N[0]))):
                 labels.append(f"parallel {label}")
+                # the mesh layout forms clength's weights without G
                 got = drive(f"parallel {label}", expect,
                             lambda: sfn(q, grid, mesh, **dict(kw, **extra)),
-                            exact=dict(weighted_cdf=1))
+                            exact=dict(weighted_cdf=1, clength_weights=0))
                 par_step_vs(label, got, fn(q, grid, **dict(kw, **extra)))
             labels.append("parallel local era5")
             drive("parallel local era5",
@@ -4304,8 +4404,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing is run", file=sys.stderr)
         return 1
     import xcontour_tpu_torch as xt
-    from xcontour_tpu_torch.kernels import (_build, boxcount, decode, hist,
-                                            length, lwa, stencil)
+    from xcontour_tpu_torch.kernels import (_build, boxcount, decode, gradw,
+                                            hist, length, lwa, stencil)
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4401,6 +4501,7 @@ def main() -> int:
     limit_checks(dev, era_steps[0], era_grid)
     decode_checks(dev, errs)
     boxcount_checks(head_q, head_grid, HEADLINE["N"], errs)
+    clength_weights_checks(era_steps[0], era_grid, errs)
 
     # 4. the paths, through the entry points a user calls
     totals = {r.name: 0 for r in records}
@@ -4605,7 +4706,8 @@ def main() -> int:
             return outs + own, times, own_t
         outs, times, own_t = drive(f"clength era5 N={N}",
                                    {"weighted_cdf": SE, "contour_lengths": SE},
-                                   run, exact={"weighted_cdf": SE + 2})
+                                   run, exact={"weighted_cdf": SE + 2,
+                                               "clength_weights": SE})
         shares = [check_clength(out, era_steps[i], N,
                                 f"clength era5 N={N} step {i}")
                   for i, out in enumerate(outs)]
@@ -4783,6 +4885,14 @@ def main() -> int:
     work["window_means"] = window_means_work(
         *local_q.shape, LOCAL["window"], LOCAL["stride"],
         local_q.element_size())
+    # G in turns with its plain version at the ERA5 step and at the
+    # era5.clength step (16 snapshots)
+    g_steps = (("era5", era_steps[0]), ("era5.clength", local_q))
+    for label, gq in g_steps:
+        kern, plain, w = clength_weights_case(gq, era_grid)
+        key = f"clength_weights_{label}"
+        timing[key] = tuple(time_alternating([kern, plain], dev, reps=20))
+        work[key] = w
 
     # K1-K8 against their bounds, with launches per step of their paths
     # (the table builds of the streamed runs included)
@@ -4855,6 +4965,17 @@ def main() -> int:
         f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / k_ms:.2f}% of bound, "
         f"{path_counts['local era5'][rolling.KERNEL.name] / S:g} launches "
         "per step of 'local era5', library call none")
+    g_path = f"clength era5 N={CLENGTH_N[0]}"
+    for label, gq in g_steps:
+        key = f"clength_weights_{label}"
+        bounds[key] = bound_ms(work[key])
+        (k_ms, p_ms), (b_ms, b_by) = timing[key], bounds[key]
+        log(f"phase 6 kernel G {gradw.KERNEL.name} {label} step "
+            f"{'x'.join(map(str, gq.shape))}: {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: 24 a cell, the "
+            f"grid's dx, dy, dA once), {100 * b_ms / k_ms:.2f}% of bound, "
+            f"{path_counts[g_path][gradw.KERNEL.name] / SE:g} launches per "
+            f"step of '{g_path}', library call none")
 
     split_turns(era_steps[0], era_grid, ERA5["N"], dev)
 
@@ -4906,6 +5027,7 @@ def main() -> int:
             drive, {r.name: 0 for r in records}, path, base, got, T, tmp))
     cli_res, cli_labels = cli_phase(dev, drive, path_counts, peaks, card,
                                     then=mesh_cli)
+    clength_launch_checks(era_steps, era_grid)
     cli_counts = {r.name: sum(path_counts[label][r.name]
                               for label in cli_labels) for r in records}
     log(f"phase 10 launches over the CLI's paths: {cli_counts}")
@@ -5048,7 +5170,8 @@ def main() -> int:
         + [probe_entry(key) for key in ("lwa", "hist_cdf2", "length",
                                         "stencil")]
         + [decode_entry(), boxcount_entry(),
-           window_entry(rolling.KERNEL, "window_means")]}
+           window_entry(rolling.KERNEL, "window_means"),
+           window_entry(gradw.KERNEL, "clength_weights_era5")]}
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,8 @@ P, I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # q, rdx, rdy, out, B, Ny, Nx, periodic_x, bc_y, stream
     "xc_squared_gradient": [P, P, P, P, I, I, I, I, I, P],
+    # q, dx, dy, dA, out, B, Ny, Nx, periodic_x, bc_y, stream
+    "xc_clength_weights": [P, P, P, P, P, I, I, I, I, I, P],
     # values, edges, weights, partial, out, B, G, N, C, nrange, nblk,
     # wchunk, ncopy, stream
     "xc_weighted_cdf": [P, P, P, P, P, I, I, I, I, I, I, I, I, P],

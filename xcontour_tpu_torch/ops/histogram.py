@@ -125,6 +125,35 @@ def weighted_cdf_multi(values: torch.Tensor, bins: torch.Tensor,
             for c in _finish(asc, bincrease, lt)]
 
 
+def weighted_cdf_stacked(values: torch.Tensor, bins: torch.Tensor, stacked,
+                         lt: bool) -> List[torch.Tensor]:
+    """:func:`weighted_cdf_multi` of weights already stacked as K2 reads
+    them, (..., C, Ny, Nx) over values (..., Ny, Nx): one launch on the
+    stack as it is, with no broadcast or stack of its own (the
+    contour-length chain's five, written by G).  Where the stack needs a
+    gradient its channels go through :class:`_WeightedCDF` one by one, as
+    :func:`weighted_cdf_multi` sends them; so does a tuple of the C
+    (..., Ny, Nx) channels (the form that keeps a channel no
+    differentiated output uses free of cotangents).  Returns a list of C
+    (..., N) tensors."""
+    batch_shape = values.shape[:-2]
+    G = values.shape[-2] * values.shape[-1]
+    N = bins.shape[-1]
+    vf = values.reshape(-1, G).contiguous()
+    bf = torch.broadcast_to(bins, batch_shape + (N,)).reshape(-1, N)
+    bincrease, edges = _edges(bf)
+    edges = edges.contiguous()
+    if isinstance(stacked, tuple) or needs_grad(stacked):
+        chans = stacked if isinstance(stacked, tuple) else stacked.unbind(-3)
+        asc = _WeightedCDF.apply(vf, edges, *(w.reshape(-1, G).contiguous()
+                                              for w in chans))
+    else:
+        asc = _k2.weighted_cdf(vf.detach(), edges.detach(), stacked.reshape(
+            -1, stacked.shape[-3], G).contiguous().detach())
+    return [c.reshape(batch_shape + (c.shape[-1],))
+            for c in _finish(asc, bincrease, lt)]
+
+
 def weighted_cdf_both(values: torch.Tensor, bins: torch.Tensor,
                       weights: torch.Tensor, lt: bool):
     """(the ``lt`` CDF, the ``not lt`` CDF) of one weight from one digitize:

@@ -58,6 +58,7 @@ from ..grid import Grid
 from ..kernels import needs_grad
 from ..pipeline import (clength_pipeline, keff_lwa_pipeline, keff_pipeline,
                         lwa_pipeline)
+from ..utils.prof import span
 from . import _comm
 from .histogram import sharded_weighted_cdf_multi
 from .length import sharded_contour_lengths
@@ -108,7 +109,6 @@ class _MeshLayout:
     def __init__(self, mesh: DeviceMesh):
         self.mesh = mesh
         self.squared_gradient = partial(sharded_squared_gradient, mesh=mesh)
-        self.gradient = partial(sharded_gradient, mesh=mesh)
         self.contours = partial(sharded_contours, mesh=mesh)
         self.cdf = partial(sharded_weighted_cdf_multi, mesh=mesh)
         self.lwa = partial(sharded_local_wave_activity, mesh=mesh)
@@ -117,6 +117,21 @@ class _MeshLayout:
 
     def block(self, dA, nx: int):
         return x_block(self.mesh, dA, nx)
+
+    def clength_cdf(self, tracer, grid, ctr, dA_x, lt):
+        """The contour-length chain's five integrals from the sharded
+        gradient on the halo slab: the weights as
+        ``core.cal_contour_mean_hist`` forms them, (f * grdm) * dA, one K2
+        launch and one sum over 'x'."""
+        with span("stage.gradient"):
+            qy, qx = sharded_gradient(tracer, grid, self.mesh)
+            grdS = qx * qx + qy * qy
+            grdm = torch.sqrt(grdS)
+        with span("stage.cdf"):
+            return sharded_weighted_cdf_multi(
+                tracer, ctr, [dA_x, grdS * dA_x, (grdm * grdm) * dA_x,
+                              grdm * dA_x, ((1.0 / grdm) * grdm) * dA_x], lt,
+                self.mesh)
 
     def hist_table(self, mask, ydef, dA, *, increase, lt):
         return replicated_table(core.cal_area_eqCoord_table_hist(

@@ -22,12 +22,13 @@ replays it; later calls copy the tracer into the graph's input and replay.
 Every other call runs the eager body, as on the CPU.
 
 The Keff, LWA and contour-length steps reach the grid's x axis through a
-layout, at seven operations (the stencil, the levels, the histogram
-table, the CDF, the broadcast integral, LWA and LWA2, K7's lengths) and
-the x block of ``dA`` the CDF weights use.  :data:`_PLANE`, the default,
-holds the whole plane and makes the unsharded calls; the sharded steps
-of :mod:`.parallel.pipeline` are these steps given a mesh's layout
-through the private keyword ``_layout``.
+layout, at eight operations (the stencil, the levels, the histogram
+table, the CDF, the contour-length chain's weights and CDF, the broadcast
+integral, LWA and LWA2, K7's lengths) and the x block of ``dA`` the CDF
+weights use.  :data:`_PLANE`, the default, holds the whole plane and
+makes the unsharded calls; the sharded steps of :mod:`.parallel.pipeline`
+are these steps given a mesh's layout through the private keyword
+``_layout``.
 """
 
 from __future__ import annotations
@@ -50,9 +51,9 @@ from .diagnostics.fractal import fractal_dimension
 from .diagnostics.length import box_counting_lengths, contour_lengths
 from .diagnostics.local_length import local_lengths_and_means
 from .grid import Grid, latitude_lengths_at, to_numpy
-from .ops.histogram import weighted_cdf_multi
+from .ops.histogram import weighted_cdf_multi, weighted_cdf_stacked
 from .ops.interp import interp1d
-from .ops.stencil import gradient, squared_gradient
+from .ops.stencil import clength_weights, squared_gradient
 from .utils.coarsen import coarsen
 from .utils.constants import Rearth as _REARTH
 from .utils.ncio import Dataset
@@ -112,8 +113,16 @@ class _Plane:
     def block(dA, nx: int):
         return dA
 
+    @staticmethod
+    def clength_cdf(tracer, grid: Grid, ctr, dA_x, lt: bool):
+        """The contour-length chain's five integrals: G writes the weights
+        as K2 reads them, one K2 launch digitizes them."""
+        with span("stage.gradient"):
+            w = clength_weights(tracer, grid, dA_x)
+        with span("stage.cdf"):
+            return weighted_cdf_stacked(tracer, ctr, w, lt)
+
     squared_gradient = staticmethod(squared_gradient)
-    gradient = staticmethod(gradient)
     contours = staticmethod(core.cal_contours)
     hist_table = staticmethod(core.cal_area_eqCoord_table_hist)
     cdf = staticmethod(weighted_cdf_multi)
@@ -551,7 +560,9 @@ def clength_pipeline(tracer: torch.Tensor, grid: Grid,
     The five conditional integrals (area, |grad q|^2, and the numerators
     and denominator of the two contour means) share one digitize pass (one
     K2 launch, with or without gradients: a channel that no differentiated
-    output uses carries no cotangent).
+    output uses carries no cotangent).  On the whole plane one G launch
+    writes their weights as K2 reads them; a mesh's layout forms them from
+    the sharded gradient.
 
     Returns a dict with contour, intArea, Yeq, lengths, Lmin, Leq2, nkeff,
     cmGrd and cmInvGrd.
@@ -562,22 +573,16 @@ def clength_pipeline(tracer: torch.Tensor, grid: Grid,
     dA_x = _layout.block(dA, tracer.shape[-1])
     if mask is None:
         mask = grid.fluid_mask(dtype)
-    with span("stage.gradient"):
-        qy, qx = _layout.gradient(tracer, grid)
-        grdS = qx * qx + qy * qy
-        grdm = torch.sqrt(grdS)
-
     if table is None:
         with span("stage.table"):
             table = _layout.hist_table(mask, ydef, dA, increase=increase,
                                        lt=lt)
     with span("stage.contours"):
         ctr = _layout.contours(tracer, N, increase=increase)
-    # the weights as cal_contour_mean_hist forms them: (f * grdm) * dA
-    with span("stage.cdf"):
-        intArea, intgrdS, int_gg, int_g, int_ig = _layout.cdf(
-            tracer, ctr, [dA_x, grdS * dA_x, (grdm * grdm) * dA_x,
-                          grdm * dA_x, ((1.0 / grdm) * grdm) * dA_x], lt)
+    # the weights as cal_contour_mean_hist forms them, (f * grdm) * dA, and
+    # their integrals (spans stage.gradient and stage.cdf)
+    intArea, intgrdS, int_gg, int_g, int_ig = _layout.clength_cdf(
+        tracer, grid, ctr, dA_x, lt)
     with span("stage.lookup"):
         Yeq = table.lookup_coordinates(intArea)
 
