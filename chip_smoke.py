@@ -85,7 +85,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      split lwa at 16x721x1440) through
      the pipeline's CUDA graphs: a warm-up call, a capture on another
      input and a replay on the first, each bit for bit with the eager
-     body on the same input and counting its launches;
+     body on the same input and counting its launches; keff_lwa and
+     clength at 16x721x1440 timed by stage (tracing on): the timed
+     replay bit for bit with the plain one, one stage record a call, the
+     stages and the time outside them against a pair of events around
+     the replay, the event nodes' device cost and a record's read on the
+     host, and the stage split (``phase 4 timed graph json``);
   5. card against CPU: one small step of keff_lwa_pipeline, lwa_pipeline
      ('auto' and 'dense'), the LAPE configuration, keff_pipeline (hist
      True and False), clength_pipeline, fractal_pipeline and
@@ -1741,6 +1746,110 @@ def graph_checks(dev, records, cases):
             torch.cuda.empty_cache()
     finally:
         pipeline.GRAPHS = kept
+
+
+def timed_graph_checks(dev, cases):
+    """Phase 4: each entry's step at its shape timed by stage (tracing on
+    through ``utils.prof.logging``), a fresh cache a cell: the plain
+    warm-up, capture and replay, then the timed ones, the timed replay bit
+    for bit with the plain one, one stage record a timed call; a timed
+    call's stages and the time outside them against a pair of events
+    around the call; the event nodes' device cost (the timed graph's
+    replays against the plain graph's, in turns) and the host's cost of
+    reading a record.  Returns each cell's stage split and costs."""
+    import xcontour_tpu_torch as xt
+    from xcontour_tpu_torch import pipeline
+    from xcontour_tpu_torch.utils import prof
+
+    def replays_ms(graph, n=20):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(n):
+            graph.graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / n
+
+    kept = pipeline.GRAPHS
+    res = {}
+    try:
+        for label, fn, shape, kw in cases:
+            pipeline.GRAPHS = g = pipeline.Graphs()
+            grid = xt.from_cartesian(np.arange(shape[1], dtype=np.float64),
+                                     np.arange(shape[2], dtype=np.float64),
+                                     device=dev)
+            kw = dict(kw, table=xt.cal_area_eqCoord_table_hist(
+                grid.fluid_mask(), grid.ydef, grid.dA, increase=True,
+                lt=True))
+            q0, q1 = exact_field(dev, shape, 1), exact_field(dev, shape, 2)
+            plain = [fn(q, grid, **kw) for q in (q0, q1, q0)]
+            n0, lost0 = len(prof.stage_times()), prof.stage_records_lost()
+            timed = []
+            with prof.logging():
+                for q in (q0, q1, q0):
+                    timed.append(fn(q, grid, **kw))
+                    # finished before the next call reads its record
+                    torch.cuda.synchronize()
+            recs = prof.stage_times()[n0:]
+            for i, (got, want) in enumerate(zip(timed, plain)):
+                _bits_equal(got, want, f"timed graph {label} call {i}")
+            _expect([r.kind for r in recs] == ["eager", "replay", "replay"]
+                    and prof.stage_records_lost() == lost0,
+                    f"timed graph {label}: records "
+                    f"{[r.kind for r in recs]}")
+            graphs = {k[-1]: st for k, (st, _) in g._entries.items()}
+            _expect(g.captures == 2 and set(graphs) == {False, True}
+                    and graphs[False].stages is None,
+                    f"timed graph {label}: no timed and plain graph")
+            entry = recs[-1].entry
+            sums, around, read_us = [], [], []
+            with prof.logging():
+                for _ in range(5):
+                    a, b = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(2))
+                    a.record()
+                    fn(q0, grid, **kw)
+                    b.record()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter_ns()
+                    prof.settle(entry)
+                    read_us.append((time.perf_counter_ns() - t0) / 1e3)
+                    rec = prof.stage_times()[-1]
+                    sums.append(sum(ms for _, _, ms in rec.stages)
+                                + rec.outside_ms)
+                    around.append(a.elapsed_time(b))
+            body, pair = statistics.median(sums), statistics.median(around)
+            _expect(rec.kind == "replay"
+                    and 0.95 * pair <= body <= 1.001 * pair,
+                    f"timed graph {label}: stages and outside {body:.4f} "
+                    f"ms, the replaying call {pair:.4f} ms")
+            turns = [replays_ms(graphs[t]) for t in
+                     (False, True, True, False)]
+            nodes_us = 1e3 * ((turns[1] + turns[2]) - (turns[0] + turns[3])) \
+                / 2
+            split = {}
+            for n, _, ms in rec.stages:
+                split[n] = split.get(n, 0.0) + ms
+            split["outside"] = rec.outside_ms
+            res[label] = dict(stages_ms=split, body_ms=body,
+                              call_ms=pair, event_nodes=2 * len(rec.stages),
+                              event_nodes_us=nodes_us,
+                              read_record_us=statistics.median(read_us))
+            log(f"phase 4 timed graph {label} {shape}: bit for bit with the "
+                f"plain replay; records eager, replay, replay; stages and "
+                f"outside {body:.4f} ms against {pair:.4f} ms around the "
+                f"replaying call; {2 * len(rec.stages)} event nodes "
+                f"{nodes_us:.1f} us a replay on the device (plain "
+                f"{turns[0]:.4f}, {turns[3]:.4f} ms; timed {turns[1]:.4f}, "
+                f"{turns[2]:.4f} ms); reading a record "
+                f"{statistics.median(read_us):.1f} us on the host; stage ms "
+                + json.dumps({k: round(v, 4) for k, v in split.items()}))
+            del g, plain, timed, graphs
+            pipeline.GRAPHS = kept
+            torch.cuda.empty_cache()
+    finally:
+        pipeline.GRAPHS = kept
+    return res
 
 
 def lape_data(nt, seed=2):
@@ -4764,6 +4873,11 @@ def main() -> int:
               table=True)),
         ("era5.lwa_split", xt.lwa_pipeline, era_shape,
          dict(N=241, part="split", lwa_method="auto", table=True))])
+    timed = timed_graph_checks(dev, [
+        ("era5.keff_lwa", xt.keff_lwa_pipeline, era_shape,
+         dict(N=241, lwa_method="auto")),
+        ("era5.clength", xt.clength_pipeline, era_shape, dict(N=401))])
+    log("phase 4 timed graph json " + json.dumps(timed))
     log(f"phase 4 launches over all paths: {totals}")
     # the decode runs through the runner alone: phase 10
     missing = [n for n, c in totals.items()

@@ -3,12 +3,17 @@
 On the CPU: every call the rule leaves eager (CPU tensors, a gradient, a
 mesh layout, no table given) runs the eager body and counts no capture or
 replay; the keys and the bounded, weakly held cache; the constants made
-without a copy from the host give the bits of the forms they replace.
+without a copy from the host give the bits of the forms they replace;
+stage timing through fake graphs and timing events (the untraced key and
+graph unchanged, the timed key held apart, one record a call read before
+the next call's span, a lost record, records that outlive their graph).
 
 On the card (``-m cuda``; skipped without one): each entry's replay bit
 for bit with its eager body; outputs that outlive the next call; one graph
 for many inputs; the kernels' launch counts; a capture beside a thread
-that copies on its own stream.  K2 adds floats with atomics in no fixed
+that copies on its own stream; a replay timed by stage bit for bit with
+the plain replay, one stage record a replay, and its stages and the time
+outside them summing to the device time of the replay.  K2 adds floats with atomics in no fixed
 order, so two eager runs agree bit for bit only where its sums are exact:
 the card's fields make every sum exact (:func:`_exact_field`).  Run there
 with ``python -m pytest --noconftest -m cuda
@@ -18,6 +23,7 @@ tests/test_torch_pipeline_graph.py``.
 import gc
 import os
 import threading
+import time
 import warnings
 
 import numpy as np
@@ -31,6 +37,7 @@ from xcontour_tpu_torch.diagnostics import fractal
 from xcontour_tpu_torch.kernels import (boxcount, gradw, hist, length, lwa,
                                         rolling, stencil)
 from xcontour_tpu_torch.parallel import pipeline as sp
+from xcontour_tpu_torch.utils import prof
 from xcontour_tpu_torch.utils.synth import synth_pv
 
 ENTRIES = ("keff", "lwa", "keff_lwa", "clength", "fractal", "local")
@@ -219,6 +226,200 @@ def test_the_cache_stays_at_its_bound():
     assert keys[4][0] not in kept and keys[-1][0] in kept
 
 
+# ---------------------------------------------- stage timing on the CPU
+class _Event:
+    """A timing event on a clock that each record moves on by 1 ms; one
+    recorded in a capture is a node of the capturing graph."""
+
+    now = 0.0
+    made = []
+
+    def __init__(self, external):
+        self.external, self.t, self.done = external, None, True
+        _Event.made.append(self)
+
+    def record(self, stream=None):
+        if _Graph.capturing is not None:   # a node: no time passes
+            assert self.external and stream == "capturing"
+            _Graph.capturing.nodes.append(self)
+            return
+        assert not self.external and stream == "current"
+        _Event.now += 1.0
+        self.t = _Event.now
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+    def elapsed_time(self, other):
+        return other.t - self.t
+
+
+class _Graph:
+    """A CUDA graph whose replay records its event nodes, 1 ms apart (it
+    runs no kernel: its outputs are the capture's)."""
+
+    capturing = None
+
+    def __init__(self):
+        self.nodes = []
+
+    def replay(self):
+        for ev in self.nodes:
+            _Event.now += 1.0
+            ev.t, ev.done = _Event.now, True
+
+
+class _Capture:
+    def __init__(self, graph, **kw):
+        self.graph = graph
+
+    def __enter__(self):
+        _Graph.capturing = self.graph
+
+    def __exit__(self, *exc):
+        _Graph.capturing = None
+        return False
+
+
+@pytest.fixture
+def timed_cpu(graphs, monkeypatch):
+    """CPU calls taken as calls on the card, captured into fake graphs
+    and timed with fake events; no stage record of other tests."""
+    _as_if_on_card(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: _Graph.capturing is not None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
+    monkeypatch.setattr(torch.cuda, "graph", _Capture)
+    monkeypatch.setattr(prof, "_event", _Event)
+    # the stream current where a body's events are made
+    monkeypatch.setattr(prof, "_current", lambda device: (
+        "capturing" if _Graph.capturing is not None else "current"))
+    monkeypatch.setattr(prof, "_records", type(prof._records)(
+        maxlen=prof.LOG_SIZE))
+    monkeypatch.setattr(prof, "_pending", {})
+    monkeypatch.setattr(prof, "_lost", [0])
+    monkeypatch.setattr(_Event, "made", [])
+    return graphs
+
+
+KEFF_LWA_STAGES = ["stage.gradient", "stage.contours", "stage.cdf",
+                   "stage.lookup", "stage.lmin", "stage.keff",
+                   "stage.interp", "stage.lwa"]
+
+
+def test_untraced_keys_and_graphs_time_nothing(timed_cpu):
+    q, grid = _field("cpu")
+    table = _table(grid)
+    fn, kw = _call("keff_lwa", grid, table)
+    for _ in range(3):                 # warm-up, capture and replay, replay
+        fn(q, grid, **kw)
+    assert (timed_cpu.captures, timed_cpu.replays, timed_cpu.eager) == \
+        (1, 2, 1)
+    ((key, (g, _)),) = timed_cpu._entries.items()
+    # the key as before stage timing, with False where timing is on
+    held = []
+    assert key == (fn.__wrapped__, tuple(q.shape), q.dtype, q.device, 0,
+                   pipeline._part(grid, held), (),
+                   tuple(sorted((k, pipeline._part(v, held))
+                                for k, v in kw.items())), False)
+    assert g.stages is None and not _Event.made
+    assert prof.stage_times() == []
+
+
+def test_timed_and_untimed_keys_are_held_apart(timed_cpu):
+    q, grid = _field("cpu")
+    fn, kw = _call("keff_lwa", grid, _table(grid))
+    fn(q, grid, **kw)
+    fn(q, grid, **kw)                  # the untimed graph
+    with prof.logging():
+        for _ in range(3):             # the timed key's warm-up, capture
+            fn(q, grid, **kw)          # and replay, replay
+    fn(q, grid, **kw)                  # the untimed graph again
+    assert (timed_cpu.captures, timed_cpu.replays, timed_cpu.eager) == \
+        (2, 4, 2)
+    keys = list(timed_cpu._entries)
+    assert len(keys) == 2 and [k[-1] for k in keys] == [True, False]
+    assert keys[0][:-1] == keys[1][:-1]
+    timed, untimed = (timed_cpu._entries[k][0] for k in keys)
+    assert untimed.stages is None and timed.stages is not None
+    # the bound counts them as two: SIZE - 1 other keys drop the timed
+    other = pipeline.lwa_pipeline.__wrapped__
+    for n in range(timed_cpu.SIZE - 1):
+        key, held = pipeline.graph_key(other, q, grid, (), dict(N=n))
+        timed_cpu.hold(key, "graph", held)
+    assert keys[0] not in timed_cpu._entries
+    assert keys[1] in timed_cpu._entries
+    assert len(prof.stage_times()) == 3
+
+
+def test_each_timed_call_leaves_one_record(timed_cpu, monkeypatch):
+    q, grid = _field("cpu")
+    fn, kw = _call("keff_lwa", grid, _table(grid))
+    settled = []
+    settle = prof.settle
+    monkeypatch.setattr(prof, "settle", lambda entry: (
+        settled.append((entry, time.perf_counter_ns())), settle(entry)))
+    with prof.logging():
+        for _ in range(4):
+            fn(q, grid, **kw)
+    recs = prof.stage_times()
+    assert [(r.kind, r.ordinal) for r in recs] == \
+        [("eager", 1), ("replay", 1), ("replay", 2), ("replay", 3)]
+    for r in recs:
+        assert r.entry == "pipeline.keff_lwa_pipeline"
+        assert [n for n, _, _ in r.stages] == KEFF_LWA_STAGES
+        # each stage 1 ms, 2 ms apart from the body's first event; the
+        # body's 17 ms less the stages'
+        assert [(a, ms) for _, a, ms in r.stages] == \
+            [(1.0 + 2 * i, 1.0) for i in range(8)]
+        assert r.outside_ms == 9.0
+    assert all(a.launch_ns < b.launch_ns for a, b in zip(recs, recs[1:]))
+    # each call read the last one's record before its entry's span opened
+    opened = [s[2] for s in prof.spans()
+              if s[0] == "pipeline.keff_lwa_pipeline"][-4:]
+    assert [e for e, _ in settled] == ["pipeline.keff_lwa_pipeline"] * 4
+    assert all(t < a for (_, t), a in zip(settled, opened))
+    assert all(a < r.launch_ns for a, r in zip(opened, recs))
+
+
+def test_a_replay_unfinished_at_the_next_call_is_lost(timed_cpu):
+    q, grid = _field("cpu")
+    fn, kw = _call("lwa", grid, _table(grid))
+    with prof.logging():
+        fn(q, grid, **kw)
+        fn(q, grid, **kw)
+        graph = next(iter(timed_cpu._entries.values()))[0]
+        graph.stages.events[-1][3].done = False
+        prof._pending["pipeline.lwa_pipeline"][-1]._end.done = False
+        fn(q, grid, **kw)
+    assert prof.stage_records_lost() == 1
+    assert [(r.kind, r.ordinal) for r in prof.stage_times()] == \
+        [("eager", 1), ("replay", 2)]
+
+
+def test_records_outlive_their_graph(timed_cpu):
+    q, grid = _field("cpu")
+    table = _table(grid)
+    fn, kw = _call("clength", grid, table)
+    with prof.logging():
+        for _ in range(3):
+            fn(q, grid, **kw)
+    assert len(timed_cpu) == 1
+    del kw, table
+    gc.collect()
+    assert len(timed_cpu) == 0         # the table freed drops the graph
+    recs = prof.stage_times()
+    assert [r.kind for r in recs] == ["eager", "replay", "replay"]
+    assert [n for n, _, _ in recs[-1].stages] == [
+        "stage.contours", "stage.gradient", "stage.cdf", "stage.lookup",
+        "stage.lengths", "stage.lmin", "stage.keff"]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_constants_keep_their_bits(dtype):
     q, grid = _field("cpu", dtype)
@@ -323,6 +524,72 @@ def test_a_replay_counts_each_launch_once(cuda, graphs, name):
     assert graphs.captures == 1 and graphs.replays == 2
     assert any(per_call[0])
     assert per_call[1] == per_call[0] and per_call[2] == per_call[0]
+
+
+@pytest.fixture
+def fresh_records(monkeypatch):
+    """No stage record of other tests."""
+    monkeypatch.setattr(prof, "_records", type(prof._records)(
+        maxlen=prof.LOG_SIZE))
+    monkeypatch.setattr(prof, "_pending", {})
+    monkeypatch.setattr(prof, "_lost", [0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ENTRIES)
+def test_a_timed_replay_is_the_plain_replay_bit_for_bit(cuda, graphs, name,
+                                                        fresh_records):
+    q0, grid = _exact_field(cuda, seed=1)
+    q1, _ = _exact_field(cuda, seed=2)
+    fn, kw = _call(name, grid, _table(grid))
+    plain = [fn(q, grid, **kw) for q in (q0, q1, q0)]
+    timed = []
+    with prof.logging():
+        for q in (q0, q1, q0):
+            timed.append(fn(q, grid, **kw))
+            # finished before the next call reads its record
+            torch.cuda.synchronize()
+    for i, (got, want) in enumerate(zip(timed, plain)):
+        _same(got, want, f"call {i}")
+    assert (graphs.captures, graphs.replays, graphs.eager, len(graphs)) == \
+        (2, 4, 2, 2)
+    recs = prof.stage_times()
+    assert [(r.kind, r.ordinal) for r in recs] == \
+        [("eager", 2), ("replay", 3), ("replay", 4)]
+    assert prof.stage_records_lost() == 0
+    assert all(r.entry == f"pipeline.{fn.__name__}" and r.stages
+               for r in recs)
+    assert [n for n, _, _ in recs[1].stages] == \
+        [n for n, _, _ in recs[0].stages]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ENTRIES)
+def test_stages_and_outside_sum_to_the_replaying_call(cuda, graphs, name,
+                                                      fresh_records):
+    # an ERA5-sized step, so that launching it is a small part of the pair
+    # of events around it
+    q, grid = _exact_field(cuda, B=16, ny=720, nx=1440)
+    fn, kw = _call(name, grid, _table(grid))
+    sums, around = [], []
+    with prof.logging():
+        for i in range(7):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn(q, grid, **kw)
+            b.record()
+            torch.cuda.synchronize()
+            rec = prof.stage_times()[-1]
+            if i >= 2:                 # the warm-up and capture done
+                assert rec.kind == "replay"
+                sums.append(sum(ms for _, _, ms in rec.stages)
+                            + rec.outside_ms)
+                around.append(a.elapsed_time(b))
+    assert all(0.0 <= ms for r in prof.stage_times() for _, _, ms in
+               r.stages)
+    sums.sort()
+    around.sort()
+    assert sums[2] == pytest.approx(around[2], rel=0.05)
 
 
 @pytest.mark.cuda

@@ -2,8 +2,11 @@
 the CPU: spans off (nothing entered), on under a profiler (ranges in the
 trace, the pipelines' stages nested in their entry) and in the span log
 (the runner's read-thread spans, placed on a trace's axis by the
-benchmark's ``xcbench/program_spans.py``), and ``trace`` writing a Chrome
-trace of every thread."""
+benchmark's ``xcbench/program_spans.py``), the stage records of timed
+bodies built from fake timing events (exclusive durations, the time
+outside stages, records lost or read late, records that outlive the
+graph holding their events), and ``trace`` writing a Chrome trace of
+every thread."""
 
 import glob
 import json
@@ -225,6 +228,145 @@ def test_runner_read_thread_spans_logged_not_traced(tmp_path):
     placed = program_spans.on_trace(tr, set(WORKER), log=log)
     assert len(placed) == 12
     assert all(tr.t0 <= a < b <= tr.t1 for _, a, b, _ in placed)
+
+
+class FakeEvent:
+    """A timing event on a clock the test moves (``FakeEvent.now``, ms):
+    ``record`` stamps the clock, ``done`` says whether the device has
+    reached it."""
+
+    now = 0.0
+    made = []
+
+    def __init__(self, external):
+        self.external, self.t, self.done = external, None, True
+        FakeEvent.made.append(self)
+
+    def record(self, stream=None):
+        self.t = FakeEvent.now
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+    def elapsed_time(self, other):
+        assert self.done and other.done
+        return other.t - self.t
+
+
+@pytest.fixture
+def fake_events(monkeypatch):
+    """Fake timing events, and no stage record of other tests."""
+    monkeypatch.setattr(prof, "_event", FakeEvent)
+    monkeypatch.setattr(prof, "_records", type(prof._records)(
+        maxlen=prof.LOG_SIZE))
+    monkeypatch.setattr(prof, "_pending", {})
+    monkeypatch.setattr(prof, "_lost", [0])
+    monkeypatch.setattr(FakeEvent, "now", 0.0)
+    monkeypatch.setattr(FakeEvent, "made", [])
+    return FakeEvent
+
+
+def _tick(ms):
+    FakeEvent.now += ms
+
+
+CPU_DEV = torch.device("cpu")
+
+
+def _timed_call(entry="pipeline.test_pipeline", kind="eager", ordinal=7):
+    """A call of 20.5 ms: 2 ms outside stages, a stage 'a' of 4.5 ms
+    holding a nested 'b' of 1.5, a span that is no stage (10 ms,
+    outside), and 'a' again (4 ms)."""
+    with prof.Body(entry, CPU_DEV) as body:
+        with prof.Stages(CPU_DEV, capturing=False) as stages:
+            _tick(2.0)
+            with prof.span("stage.a"):
+                _tick(3.0)
+                with prof.span("stage.b"):
+                    _tick(1.5)
+            with prof.span("runner.x"):
+                _tick(10.0)
+            with prof.span("stage.a"):
+                _tick(4.0)
+        body.took(kind, ordinal, stages)
+    return body
+
+
+def test_stage_spans_off_make_no_event(fake_events):
+    assert prof.tracing() == prof.OFF
+    body = _timed_call()
+    assert prof.span("stage.a") is prof._OFF
+    # the call's own pair alone: no span opened, so no stage recorded
+    assert body.stages.events == [] and len(FakeEvent.made) == 2
+    q, grid = _snapshot()
+    n = len(FakeEvent.made)
+    xt.keff_lwa_pipeline(q, grid, N=9)
+    assert len(FakeEvent.made) == n
+
+
+def test_stage_record_exclusive_durations_and_outside(fake_events):
+    with prof.logging():
+        body = _timed_call()
+    assert all(not e.external for e in FakeEvent.made)
+    (rec,) = prof.stage_times()
+    assert (rec.entry, rec.kind, rec.ordinal, rec.launch_ns) == \
+        ("pipeline.test_pipeline", "eager", 7, body.launch_ns)
+    assert rec.stages == [("stage.a", 2.0, 3.0), ("stage.b", 5.0, 1.5),
+                          ("stage.a", 16.5, 4.0)]
+    assert rec.outside_ms == 12.0
+    assert sum(ms for _, _, ms in rec.stages) + rec.outside_ms == 20.5
+    # read once: a second call returns the same record alone
+    assert prof.stage_times() == [rec]
+
+
+def test_a_call_that_raised_or_timed_nothing_leaves_no_record(fake_events):
+    with prof.logging():
+        with pytest.raises(ValueError):
+            with prof.Body("pipeline.test_pipeline", CPU_DEV) as body:
+                body.took("eager", 1, prof.Stages(CPU_DEV, False))
+                raise ValueError
+        with prof.Body("pipeline.test_pipeline", CPU_DEV):
+            pass
+    assert prof.stage_times() == []
+
+
+def test_stage_records_read_at_the_next_call_or_lost(fake_events):
+    with prof.logging():
+        first = _timed_call(kind="replay", ordinal=1)
+        second = _timed_call("pipeline.other", "replay", 2)
+    # the device has not reached the first call's end: lost, not waited
+    # for; another entry's record stays pending
+    first._end.done = False
+    prof.settle("pipeline.test_pipeline")
+    assert prof.stage_records_lost() == 1 and not prof._records
+    assert list(prof._pending) == ["pipeline.other"]
+    # stage_times() flushes the pending one, waiting for its call
+    second._end.done = False
+    (rec,) = prof.stage_times()
+    assert (rec.entry, rec.ordinal, rec.launch_ns) == \
+        ("pipeline.other", 2, second.launch_ns)
+    assert not prof._pending and prof.stage_records_lost() == 1
+
+
+def test_stage_records_outlive_their_events_owner(fake_events):
+    import gc
+    import weakref
+
+    class Owner:                       # a graph holding its events
+        pass
+
+    with prof.logging():
+        owner = Owner()
+        owner.stages = _timed_call(kind="replay").stages
+    gone = weakref.ref(owner)
+    del owner
+    gc.collect()
+    assert gone() is None
+    (rec,) = prof.stage_times()
+    assert rec.outside_ms == 12.0 and len(rec.stages) == 3
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -21,6 +21,13 @@ plans, ``Table._inc_values``); the second captures the eager body and
 replays it; later calls copy the tracer into the graph's input and replay.
 Every other call runs the eager body, as on the CPU.
 
+While tracing is on (:func:`.utils.prof.tracing`), a call on the card
+is timed by stage (:class:`.utils.prof.Body`): its key is another, so its
+graph is captured with the stages' timing events as nodes, and the
+untraced calls replay a graph without them.  Each timed replay or eager
+call leaves one record of :func:`.utils.prof.stage_times`, read at the
+entry's next timed call, before its span opens.
+
 The Keff, LWA and contour-length steps reach the grid's x axis through a
 layout, at eight operations (the stencil, the levels, the histogram
 table, the CDF, the contour-length chain's weights and CDF, the broadcast
@@ -34,6 +41,7 @@ are these steps given a mesh's layout through the private keyword
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import inspect
 import threading
@@ -54,6 +62,7 @@ from .grid import Grid, latitude_lengths_at, to_numpy
 from .ops.histogram import weighted_cdf_multi, weighted_cdf_stacked
 from .ops.interp import interp1d
 from .ops.stencil import clength_weights, squared_gradient
+from .utils import prof
 from .utils.coarsen import coarsen
 from .utils.constants import Rearth as _REARTH
 from .utils.ncio import Dataset
@@ -137,14 +146,15 @@ _PLANE = _Plane()
 
 class _Graph:
     """One captured step: the CUDA graph, its input buffer, its outputs (in
-    the graph's memory pool) and the launches of each kernel record that
-    its capture made."""
+    the graph's memory pool), the launches of each kernel record that its
+    capture made, and the timing events it records (a timed capture's
+    :class:`.utils.prof.Stages`, else None)."""
 
-    __slots__ = ("graph", "static", "out", "launches")
+    __slots__ = ("graph", "static", "out", "launches", "stages")
 
-    def __init__(self, graph, static, out, launches):
+    def __init__(self, graph, static, out, launches, stages):
         self.graph, self.static, self.out = graph, static, out
-        self.launches = launches
+        self.launches, self.stages = launches, stages
 
 
 # a key's state before it has a graph: its first call ran (the warm-up),
@@ -186,16 +196,19 @@ def _part(v, held: list):
 
 
 def graph_key(fn, tracer: torch.Tensor, grid: Grid, args: tuple,
-              kwargs: dict, stream: Optional[int] = None):
+              kwargs: dict, stream: Optional[int] = None,
+              timed: bool = False):
     """(key, held) of a call of the entry body ``fn``: the entry, the
     tracer's shape, dtype and device, the stream, the grid, tables and
     other tensors by identity (``held``, the objects to hold by weak
-    reference) and every other argument by value.  Raises TypeError for
-    an argument that cannot be hashed."""
+    reference), every other argument by value, and whether the body is
+    timed by stage.  Raises TypeError for an argument that cannot be
+    hashed."""
     held = []
     key = (fn, tuple(tracer.shape), tracer.dtype, tracer.device, stream,
            _part(grid, held), _part(args, held),
-           tuple(sorted((k, _part(v, held)) for k, v in kwargs.items())))
+           tuple(sorted((k, _part(v, held)) for k, v in kwargs.items())),
+           timed)
     hash(key)
     return key, held
 
@@ -237,7 +250,12 @@ class Graphs:
     ``capture_error_mode='thread_local'`` (other threads' copies neither
     break it nor are broken by it); the launches its wrappers count go to
     the graph (:func:`.kernels.capturing`), and each replay adds them to
-    the kernels' ``launches``, since a replay launches those kernels."""
+    the kernels' ``launches``, since a replay launches those kernels.
+
+    A timed call (tracing on, the tracer on the card, a
+    :class:`.utils.prof.Body` given) has a key of its own: its graph holds
+    the stages' timing events, and the call says in its body whether it
+    replayed or ran eagerly, and which events timed its stages."""
 
     SIZE = 4
 
@@ -262,7 +280,8 @@ class Graphs:
         while len(self._entries) > self.SIZE:
             self._entries.popitem(last=False)
 
-    def _key(self, fn, takes_table: bool, tracer, grid, args, kwargs):
+    def _key(self, fn, takes_table: bool, tracer, grid, args, kwargs,
+             timed: bool):
         """The call's (key, held) where a graph may run it, else None."""
         if not (isinstance(tracer, torch.Tensor) and _on_card(tracer)
                 and tracer.is_contiguous()):
@@ -276,50 +295,64 @@ class Graphs:
             return None
         stream = torch.cuda.current_stream(tracer.device).cuda_stream
         try:
-            return graph_key(fn, tracer, grid, args, kwargs, stream)
+            return graph_key(fn, tracer, grid, args, kwargs, stream, timed)
         except TypeError:
             return None
 
-    def call(self, fn, takes_table: bool, tracer, grid, args, kwargs):
+    def call(self, fn, takes_table: bool, tracer, grid, args, kwargs,
+             body: Optional[prof.Body] = None):
         """``fn(tracer, grid, *args, **kwargs)``, by a graph's replay where
         the call is eligible and its key's graph exists or can be captured
-        now, else eagerly."""
-        found = self._key(fn, takes_table, tracer, grid, args, kwargs)
+        now, else eagerly; ``body``: the call's timing by stage."""
+        found = self._key(fn, takes_table, tracer, grid, args, kwargs,
+                          body is not None)
         if found is not None:
             key, held = found
             with self._lock:
                 state = self._entries.get(key, (None,))[0]
                 if isinstance(state, _Graph):
                     self._entries.move_to_end(key)
-                    return self._replay(state, tracer)
+                    return self._replay(state, tracer, body)
                 if state == _WARM:
-                    state = self._capture(fn, tracer, grid, args, kwargs)
+                    state = self._capture(fn, tracer, grid, args, kwargs,
+                                          body is not None)
                     self.hold(key, state or _REFUSED, held)
                     if state is not None:
-                        return self._replay(state, None)
+                        return self._replay(state, None, body)
                 elif state is None:
                     self.hold(key, _WARM, held)
         self.eager += 1
-        return fn(tracer, grid, *args, **kwargs)
+        if body is None:
+            return fn(tracer, grid, *args, **kwargs)
+        with prof.Stages(tracer.device, capturing=False) as stages:
+            out = fn(tracer, grid, *args, **kwargs)
+        body.took("eager", self.eager, stages)
+        return out
 
-    def _capture(self, fn, tracer, grid, args, kwargs):
-        """A graph of ``fn`` on a copy of ``tracer``; None, with a warning,
-        where the capture fails."""
+    def _capture(self, fn, tracer, grid, args, kwargs, timed: bool):
+        """A graph of ``fn`` on a copy of ``tracer`` (``timed``: with its
+        stages' timing events); None, with a warning, where the capture
+        fails."""
         with span("graph.capture"):
             static = tracer.clone()
             graph = torch.cuda.CUDAGraph()
             try:
                 with kernels.capturing() as tally, torch.cuda.graph(
                         graph, capture_error_mode="thread_local"):
-                    out = fn(static, grid, *args, **kwargs)
+                    # made inside the capture: its events go on the
+                    # capturing stream
+                    stages = prof.Stages(static.device, capturing=True) \
+                        if timed else None
+                    with stages or contextlib.nullcontext():
+                        out = fn(static, grid, *args, **kwargs)
             except RuntimeError as err:
                 warnings.warn(f"{fn.__name__}: no CUDA graph ({err}); its "
                               "calls run eagerly", RuntimeWarning)
                 return None
             self.captures += 1
-            return _Graph(graph, static, out, tally)
+            return _Graph(graph, static, out, tally, stages)
 
-    def _replay(self, g: _Graph, tracer) -> dict:
+    def _replay(self, g: _Graph, tracer, body) -> dict:
         """Copy ``tracer`` into the graph's input (the capturing call's is
         there already), replay, and return fresh copies of the outputs."""
         with span("graph.replay"):
@@ -329,6 +362,8 @@ class Graphs:
             for record, n in g.launches.items():
                 record.launches += n
             self.replays += 1
+            if body is not None:
+                body.took("replay", self.replays, g.stages)
             return _fresh(g.out)
 
 
@@ -337,14 +372,22 @@ GRAPHS = Graphs()
 
 def _entry(fn):
     """A pipeline entry: each call inside the span ``pipeline.<name>``,
-    through :data:`GRAPHS`."""
+    through :data:`GRAPHS`; timed by stage while tracing is on and the
+    tracer is on the card, its previous timed call's records read first."""
     name = f"pipeline.{fn.__name__}"
     takes_table = "table" in inspect.signature(fn).parameters
 
     @functools.wraps(fn)
     def call(tracer, grid, *args, **kwargs):
-        with span(name):
-            return GRAPHS.call(fn, takes_table, tracer, grid, args, kwargs)
+        if not (prof.tracing() and isinstance(tracer, torch.Tensor)
+                and _on_card(tracer)):
+            with span(name):
+                return GRAPHS.call(fn, takes_table, tracer, grid, args,
+                                   kwargs)
+        prof.settle(name)
+        with span(name), prof.Body(name, tracer.device) as body:
+            return GRAPHS.call(fn, takes_table, tracer, grid, args, kwargs,
+                               body)
     return call
 
 
