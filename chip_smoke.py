@@ -58,11 +58,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      profile of its lwa_pipeline) against their plain versions; G
      (``kernels.gradw``, clength_pipeline's five CDF weights) on the ERA5
      step and in six modes on K1's odd shapes (a flat patch where
-     |grad q| = 0), bit for bit with its plain version;
+     |grad q| = 0), bit for bit with its plain version; E
+     (``kernels.extrema``, the contour levels) in both modes at the
+     era5.*, t170.fractal and lape.lwa steps, bit for bit with the plain
+     chain;
   4. the paths: for each, every launch count set to 0 just before it and
      read just after; a path fails if a kernel it runs was not launched.
      K2's counts must be exact: one launch per step and one per table
-     build (an own-table keff_lwa step launches it twice).
+     build (an own-table keff_lwa step launches it twice); E's too: one
+     call a step wherever levels are computed (the replayed graphs
+     included), none in local_length_pipeline.
      keff_lwa_pipeline at ERA5 ('auto' and 'dense', 4 steps reusing one
      table plus one step that builds its own, and one own-table step
      alone) and at the headline shape;
@@ -114,7 +119,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      bound (two FP32 compares a (box, level) test, or its bytes); R at the
      era5.local step and G at the ERA5 and era5.clength steps in turns
      with their plain versions, against their bytes bounds (G: 24 a
-     cell);
+     cell); E at the era5.*, t170.fractal and lape.lwa steps in turns with
+     the plain chain, against its bytes bound (the tracer read once);
   7. gradients: every kernel wrapper raises on a CUDA tensor that requires
      grad; each autograd Function (K1-K8) on the card: its forward against
      the wrapper's bits (K2 within its bound: float atomics) and its
@@ -166,7 +172,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      ERA5-width archive: pv(time=6, level=15, 721, 1440) float32, latitude
      stored descending, written as nc3 into a temporary directory.
      ``keff-lwa -N 241 --batch 15`` in process with --stem and in memory
-     (K1 once, K2 twice, K3 once and D once a chunk), each against
+     (K1 once, K2 twice, K3 once, D and E once a chunk), each against
      keff_lwa_pipeline on the same snapshots by phase 9's comparator, the
      latitude ascending; end-to-end snapshots/s (host clock around
      cli.main, the open and the nc3 write included), the runner's rate a
@@ -197,7 +203,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      lengths on K8) against its unsharded counterpart on the same card
      tensors, bit for bit or within KERNEL_BOUNDS; the sharded keff_lwa
      ('auto', 'dense'), lwa and clength (N = 121) steps and
-     sharded_local_lengths with every launch count from 0, against the
+     sharded_local_lengths with every launch count from 0 (E's extrema
+     mode once a step, none in the windowed lengths), against the
      unsharded steps by phase 9's comparator; the sharded keff_lwa step
      timed against keff_lwa_pipeline (CUDA events, in turns); on phase
      10's archive ``keff-lwa --mesh 1`` and ``--mesh 1x1`` against the run
@@ -206,8 +213,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      ranks (1x2) and 4 (2x2, 1x4) on the one card, each running the
      sharded keff_lwa step on its block of 30 ERA5 snapshots and the
      sharded lengths (K7, K8), joined and held against the unsharded step
-     on the card, with each rank's launch counts and step time (not a
-     scaling figure: the ranks share one card).
+     on the card, with each rank's launch counts (E twice: the step's
+     levels and the lengths') and step time (not a scaling figure: the
+     ranks share one card).
  12. the structure probes P1-P4 (``kernels.probes``, twins of K3, K2's
      first pass, K7 and K1 without their output machinery): each against
      its plain version on the same CUDA tensors at the ERA5 step (N = 241;
@@ -767,6 +775,38 @@ def clength_weights_checks(q, grid, errs):
         f"bit with its plain version OK ({int(torch.isnan(q).sum())} NaN "
         f"cells of q, {int(torch.isnan(got[:, 4]).sum())} NaN cells in "
         "channel 4)")
+
+
+def contour_levels_cases(era_q, head_q, lape_q):
+    """(label, tracer, N, increase) of E at the steps of the cells that
+    compute levels: the era5.* step (16x721x1440, era5.clength's N), the
+    t170.fractal step and the lape.lwa step (decreasing levels, rock as
+    NaN)."""
+    return (("era5", era_q, CLENGTH_N[1], True),
+            ("t170.fractal", head_q, HEADLINE["N"], True),
+            ("lape.lwa", lape_q, LAPE["N"], False))
+
+
+def contour_levels_checks(cases, errs):
+    """Phase 3: E's levels and its extrema mode against the plain chain on
+    the same card tensors, bit for bit, one launch a call."""
+    from xcontour_tpu_torch.kernels import extrema
+    for label, q, N, increase in cases:
+        n0 = extrema.KERNEL.launches
+        got = extrema.contour_levels(q, N, increase=increase)
+        lo, hi = extrema.masked_extrema(q)
+        torch.cuda.synchronize()
+        _expect(extrema.KERNEL.launches == n0 + 2, f"contour_levels "
+                f"{label}: {extrema.KERNEL.launches - n0} launches, not 2")
+        want = extrema.contour_levels_plain(q, N, increase=increase)
+        wlo, whi = extrema.masked_extrema_plain(q)
+        _expect(same_bits(got, want) and same_bits(lo, wlo)
+                and same_bits(hi, whi), f"contour_levels {label} "
+                f"{tuple(q.shape)}: differs from the plain chain")
+        errs[f"contour_levels_{label}"] = 0.0
+        log(f"phase 3 kernel contour_levels {label} {tuple(q.shape)} N={N} "
+            f"increase={increase}: levels and extrema bit for bit with the "
+            f"plain chain OK ({int(torch.isnan(q).sum())} NaN cells)")
 
 
 def tall_cases(q, grid, N):
@@ -1734,6 +1774,10 @@ def graph_checks(dev, records, cases):
                 _expect(call == eager, f"graph {label} call {i}: launches "
                                        f"{call}, eager {eager}")
                 _bits_equal(got, want, f"graph {label} call {i}")
+                e = call.get("contour_levels", 0)
+                _expect(e == int(fn is not xt.local_length_pipeline),
+                        f"graph {label} call {i}: {e} contour_levels "
+                        "launches")
                 launches.append(call)
             _expect((g.captures, g.replays, g.eager) == (1, 2, 1),
                     f"graph {label}: captures {g.captures}, replays "
@@ -2087,13 +2131,16 @@ def grad_losses(grid, table, local_window):
             t[k], grid.ydef, grid.xdef, **local_window)[0])
             for k in range(t.shape[0]))
     return {"keff_lwa auto": (keff_lwa("auto"), ("squared_gradient",
-                                                 "weighted_cdf", "lwa_lin")),
+                                                 "weighted_cdf", "lwa_lin",
+                                                 "contour_levels")),
             "keff_lwa dense": (keff_lwa("dense"), ("squared_gradient",
                                                    "weighted_cdf",
-                                                   "lwa_dense")),
+                                                   "lwa_dense",
+                                                   "contour_levels")),
             "keff_lwa with_lwa2": (keff_lwa("auto", True),
-                                   ("lwa_lin", "lwa_lin2")),
-            "clength": (clength, ("weighted_cdf", "contour_lengths")),
+                                   ("lwa_lin", "lwa_lin2", "contour_levels")),
+            "clength": (clength, ("weighted_cdf", "contour_lengths",
+                                  "contour_levels")),
             "local": (local, ("local_lengths",))}
 
 
@@ -2120,14 +2167,15 @@ def adjoint_ms(loss, q, N):
 
 
 def kernel_records():
-    """K1-K8's, the archive decode's, box counting's, the window means' and
-    the contour-length weights' launch records."""
-    from xcontour_tpu_torch.kernels import (boxcount, decode, gradw, hist,
-                                            length, lwa, rolling, stencil)
+    """K1-K8's, the archive decode's, box counting's, the window means',
+    the contour-length weights' and the contour levels' launch records."""
+    from xcontour_tpu_torch.kernels import (boxcount, decode, extrema, gradw,
+                                            hist, length, lwa, rolling,
+                                            stencil)
     return (stencil.KERNEL, hist.KERNEL, lwa.KERNEL_LIN, lwa.KERNEL_DENSE,
             lwa.KERNEL_LIN2, lwa.KERNEL_DENSE_TALL, length.KERNEL_LENGTHS,
             length.KERNEL_LOCAL_LENGTHS, decode.KERNEL, boxcount.KERNEL,
-            rolling.KERNEL, gradw.KERNEL)
+            rolling.KERNEL, gradw.KERNEL, extrema.KERNEL)
 
 
 def kernel_counts():
@@ -2765,8 +2813,8 @@ def facade_phase(dev, drive, path_counts, era_steps, era_grid, sort_table,
         return table, [keff_chain(xc.Contour2D(grid, qs, lt=True), grid,
                                   table, N) for qs in era_steps[:S]]
     table, outs = run("facade keff era5",
-                      {"squared_gradient": S, "weighted_cdf": 2 * S + 1},
-                      keff_run)
+                      {"squared_gradient": S, "weighted_cdf": 2 * S + 1,
+                       "contour_levels": S}, keff_run)
     for i, out in enumerate(outs):
         _check_keff(out, f"facade keff era5 step {i}")
     want = xt.keff_pipeline(q, grid, N=N, lmin="analytic",
@@ -2774,7 +2822,8 @@ def facade_phase(dev, drive, path_counts, era_steps, era_grid, sort_table,
     facade_vs("keff era5", outs[0], want,
               ("contour", "intArea", "intgrdS", "Yeq", "dgrdSdA", "dqdA",
                "Leq2", "Lmin", "nkeff"))
-    run("facade keff era5 step", {"squared_gradient": 1, "weighted_cdf": 2},
+    run("facade keff era5 step", {"squared_gradient": 1, "weighted_cdf": 2,
+                                  "contour_levels": 1},
         lambda: keff_chain(an, grid, table, N))
     chain("keff", lambda: keff_chain(an, grid, table, N),
           lambda: xt.keff_pipeline(q, grid, N=N, lmin="analytic",
@@ -2782,7 +2831,7 @@ def facade_phase(dev, drive, path_counts, era_steps, era_grid, sort_table,
           "facade keff era5 step")
 
     # the LWA chain (notebook 2)
-    Q = run("facade Q era5", {"weighted_cdf": 1},
+    Q = run("facade Q era5", {"weighted_cdf": 1, "contour_levels": 1},
             lambda: lwa_profile(an, table, N))
     lwa, contours, masks = run(
         "facade lwa era5 mask_idx", {"lwa_lin": 1},
@@ -2819,7 +2868,7 @@ def facade_phase(dev, drive, path_counts, era_steps, era_grid, sort_table,
     lwa_vs("lwa upper", upper, part="upper")
     del upper
     run("facade lwa era5 step", {"weighted_cdf": 1, "lwa_lin": 1,
-                                 "lwa_lin2": 1},
+                                 "lwa_lin2": 1, "contour_levels": 1},
         lambda: (lambda Q: (an.cal_local_wave_activity(q, Q),
                             an.cal_local_wave_activity2(q, Q)))(
             lwa_profile(an, table, N)))
@@ -2839,7 +2888,8 @@ def facade_phase(dev, drive, path_counts, era_steps, era_grid, sort_table,
 
     # geometry: K7 through the facade, and against the host traversal
     N7 = CLENGTH_N[0]
-    lengths = run(f"facade lengths era5 N={N7}", {"contour_lengths": 1},
+    lengths = run(f"facade lengths era5 N={N7}",
+                  {"contour_lengths": 1, "contour_levels": 1},
                   lambda: an.cal_contour_lengths(N7, latlon=True))
     cl = xt.clength_pipeline(q, grid, N=N7, table=table)
     field_rel(f"facade lengths era5 N={N7} against clength_pipeline", lengths,
@@ -2856,7 +2906,8 @@ def facade_phase(dev, drive, path_counts, era_steps, era_grid, sort_table,
         name = "cal_contours_at" + ("" if method == "broadcast"
                                     else f"_{method}")
         fn = lambda name=name: getattr(an, name)(predef, sort_table)
-        levels = run(f"facade {name} era5", {"weighted_cdf": k2}, fn)
+        levels = run(f"facade {name} era5",
+                     {"weighted_cdf": k2, "contour_levels": 1}, fn)
         field_rel(f"facade {name} era5 against phase 8's {method}", levels,
                   sort_levels[method], LEVELS_BOUND)
         chain(name, fn, sort_timing[f"contours_at {method}"][0],
@@ -2870,7 +2921,8 @@ def facade_phase(dev, drive, path_counts, era_steps, era_grid, sort_table,
     pre_y = torch.linspace(-88.0, 88.0, 177, device=dev)
     with tempfile.TemporaryDirectory() as tmp:
         out = run("facade dataset keff_lwa era5", {
-            "squared_gradient": 1, "weighted_cdf": 1, "lwa_lin": 1},
+            "squared_gradient": 1, "weighted_cdf": 1, "lwa_lin": 1,
+            "contour_levels": 1},
             lambda: xt.keff_lwa_pipeline(q[:DATASET_B], grid, N=N,
                                          pre_y=pre_y, table=table))
         torch.cuda.synchronize()
@@ -3239,7 +3291,7 @@ def kill_and_resume(drive, none, argv, stem, nchunk, root):
         "cli keff-lwa era5 resume", {}, lambda: run_cli(argv),
         exact=dict(none, squared_gradient=missing,
                    weighted_cdf=2 * missing, lwa_lin=missing,
-                   decode_planes=missing))
+                   decode_planes=missing, contour_levels=missing))
     seconds = time.perf_counter() - t0
     _expect(rc == 0, "phase 10 resume: the CLI failed")
     skipped = sum("exists, skipped" in ln for ln in lines)
@@ -3412,9 +3464,10 @@ def cli_phase(dev, drive, path_counts, peaks, card, then=None):
         S = T * A["level"]
         base = ["keff-lwa", path, "--var", "pv", "-N", str(N), "--batch",
                 str(A["level"]), "--format", "nc3", *dev_args]
-        # the nc3 memmap takes the runner's raw path: one decode a chunk
+        # the nc3 memmap takes the runner's raw path: one decode and one
+        # E call a chunk
         per_run = {"squared_gradient": T, "weighted_cdf": 2 * T,
-                   "lwa_lin": T, "decode_planes": T}
+                   "lwa_lin": T, "decode_planes": T, "contour_levels": T}
 
         # the reference: keff_lwa_pipeline on the same snapshots, on the card
         grid = xt.from_latlon(lat, lon, device=dev)
@@ -3516,7 +3569,8 @@ def cli_phase(dev, drive, path_counts, peaks, card, then=None):
         for mode in ("f16", "bf16"):
             out_w = os.path.join(tmp, f"wire_{mode}.nc")
             run(f"cli keff-lwa era5 --transfer {mode}",
-                {"squared_gradient": 1, "weighted_cdf": 2, "lwa_lin": 1},
+                {"squared_gradient": 1, "weighted_cdf": 2, "lwa_lin": 1,
+                 "contour_levels": 1},
                 base + ["--isel", "time=0", "--transfer", mode,
                         "--out", out_w])
             w, _ = nc_tensors(out_w, dev)
@@ -3539,17 +3593,21 @@ def cli_phase(dev, drive, path_counts, peaks, card, then=None):
         shapes = {}
         for label, cmd, extra, counts, var, shape in (
                 ("lwa", "lwa", [], {"weighted_cdf": 2, "lwa_lin": 1,
-                                    "lwa_lin2": 1, "decode_planes": 1},
+                                    "lwa_lin2": 1, "decode_planes": 1,
+                                    "contour_levels": 1},
                  "lwa2", (A["level"], A["nlat"], A["nlon"])),
                 ("lwa dense", "lwa", ["--lwa-method", "dense"],
-                 {"weighted_cdf": 2, "lwa_dense": 2, "decode_planes": 1},
+                 {"weighted_cdf": 2, "lwa_dense": 2, "decode_planes": 1,
+                  "contour_levels": 1},
                  "lwa", (A["level"], A["nlat"], A["nlon"])),
                 ("keff", "keff", [], {"squared_gradient": 1,
-                                      "weighted_cdf": 2, "decode_planes": 1},
+                                      "weighted_cdf": 2, "decode_planes": 1,
+                                      "contour_levels": 1},
                  "nkeff", (A["level"], 121)),
                 ("clength N=401", "clength", ["-N", "401"],
                  {"weighted_cdf": 2, "contour_lengths": 1,
-                  "clength_weights": 1, "decode_planes": 1}, "lengths",
+                  "clength_weights": 1, "decode_planes": 1,
+                  "contour_levels": 1}, "lengths",
                  (A["level"], 401)),
                 ("local-length", "local-length",
                  ["--window", str(LOCAL["window"]), "--stride",
@@ -3573,7 +3631,8 @@ def cli_phase(dev, drive, path_counts, peaks, card, then=None):
         run("cli fractal headline", {"weighted_cdf": 2,
                                      "contour_lengths":
                                          len(FRACTAL_STRIDES),
-                                     "decode_planes": 1, "box_counts": 1},
+                                     "decode_planes": 1, "box_counts": 1,
+                                     "contour_levels": 1},
             ["fractal", hpath, "--var", "pv", "-N", str(HEADLINE["N"]),
              "--batch", str(HEADLINE["B"]), "--format", "nc3", *dev_args,
              "--out", out_c])
@@ -3583,7 +3642,7 @@ def cli_phase(dev, drive, path_counts, peaks, card, then=None):
         tpath, _ = nc3_archive(tmp, "tall", tpv, tlat, tlon,
                                np.arange(TALL["B"]), time_axis=False)
         run("cli lwa dense tall", {"weighted_cdf": 2, "lwa_dense_tall": 2,
-                                   "decode_planes": 1},
+                                   "decode_planes": 1, "contour_levels": 1},
             ["lwa", tpath, "--var", "pv", "-N", str(TALL["N"]),
              "--lwa-method", "dense", "--format", "nc3", *dev_args,
              "--out", out_c])
@@ -3898,17 +3957,20 @@ def parallel_inprocess(dev, drive, q, grid, table):
                      P.sharded_clength_pipeline, xt.clength_pipeline,
                      dict(N=CLENGTH_N[0]))):
                 labels.append(f"parallel {label}")
-                # the mesh layout forms clength's weights without G
+                # the mesh layout forms clength's weights without G; its
+                # levels are E's extrema mode reduced over x
                 got = drive(f"parallel {label}", expect,
                             lambda: sfn(q, grid, mesh, **dict(kw, **extra)),
-                            exact=dict(weighted_cdf=1, clength_weights=0))
+                            exact=dict(weighted_cdf=1, clength_weights=0,
+                                       contour_levels=1))
                 par_step_vs(label, got, fn(q, grid, **dict(kw, **extra)))
             labels.append("parallel local era5")
             drive("parallel local era5",
                   dict(local_lengths=1, window_means=1),
                   lambda: P.sharded_local_lengths(q[0], grid.ydef, grid.xdef,
                                                   mesh, **LOCAL),
-                  exact=dict(local_lengths=1, window_means=1))
+                  exact=dict(local_lengths=1, window_means=1,
+                             contour_levels=0))
             # the sharded adjoints against phase 7's
             res["adjoint"], grad_labels, adj_grad = parallel_adjoints(
                 drive, q[:GRAD_ERA5_B].contiguous(), grid, table, mesh)
@@ -3956,7 +4018,8 @@ def parallel_cli(drive, none, path, base, got, T, tmp):
         out = os.path.join(tmp, f"mesh{spec}.nc")
         label = f"parallel cli keff-lwa era5 --mesh {spec}"
         labels.append(label)
-        counts = {"squared_gradient": T, "weighted_cdf": 2 * T, "lwa_lin": T}
+        counts = {"squared_gradient": T, "weighted_cdf": 2 * T, "lwa_lin": T,
+                  "contour_levels": T}
         rc, _, secs = drive(label, counts, lambda: run_cli(
             base + ["--mesh", spec, "--out", out]), exact=dict(none, **counts))
         _expect(rc == 0, f"phase 11 {label}: rc {rc}")
@@ -4211,6 +4274,10 @@ def parallel_ranks(dev, era_q, era_grid, table, tmp, adj_grad):
                      if c[k] == 0]
             _expect(not short, f"phase 11 {spec} rank {r}: {short} not "
                     f"launched ({c})")
+            # E's extrema mode for the keff_lwa step's levels and for the
+            # lengths' levels
+            _expect(c["contour_levels"] == 2, f"phase 11 {spec} rank {r}: "
+                    f"{c['contour_levels']} contour_levels launches, not 2")
         step_ms = [1e3 * statistics.median(r["step_s"]) for r in info]
         res[spec] = dict(launch_s=secs, counts=counts, step_ms=step_ms)
         if spec in PAR_GRAD_MESHES:
@@ -4611,6 +4678,8 @@ def main() -> int:
     decode_checks(dev, errs)
     boxcount_checks(head_q, head_grid, HEADLINE["N"], errs)
     clength_weights_checks(era_steps[0], era_grid, errs)
+    contour_levels_checks(contour_levels_cases(local_q, head_q, lape_q),
+                          errs)
 
     # 4. the paths, through the entry points a user calls
     totals = {r.name: 0 for r in records}
@@ -4655,11 +4724,11 @@ def main() -> int:
             outs, times = timed_steps(lambda q: fn(q, table), era_steps[:S])
             own, own_t = timed_steps(lambda q: fn(q, None), era_steps[S:])
             return outs + own, times, own_t
-        # K2: one launch per step and one per table build
+        # K2: one launch per step and one per table build; E one a step
         outs, times, own_t = drive(
             f"keff_lwa era5 {method}",
             {"squared_gradient": SE, "weighted_cdf": SE, lwa_k: SE}, run,
-            exact={"weighted_cdf": SE + 2})
+            exact={"weighted_cdf": SE + 2, "contour_levels": SE})
         for i, out in enumerate(outs):
             check_step(out, ERA5["B"], ERA5["nlat"], ERA5["N"],
                        f"keff_lwa era5 {method} step {i}")
@@ -4672,7 +4741,7 @@ def main() -> int:
                 {"squared_gradient": 1, "lwa_lin": 1},
                 lambda: xt.keff_lwa_pipeline(era_steps[0], era_grid,
                                              N=ERA5["N"]),
-                exact={"weighted_cdf": 2})
+                exact={"weighted_cdf": 2, "contour_levels": 1})
     check_step(out, ERA5["B"], ERA5["nlat"], ERA5["N"],
                "keff_lwa era5 own-table step")
     head_table = xt.cal_area_eqCoord_table_hist(
@@ -4686,7 +4755,7 @@ def main() -> int:
                 lambda q: xt.keff_lwa_pipeline(q, head_grid, N=HEADLINE["N"],
                                                lwa_method=method,
                                                table=head_table),
-                [head_q] * 5))
+                [head_q] * 5), exact={"contour_levels": 5})
         for out in outs:
             check_step(out, HEADLINE["B"], HEADLINE["nlat"], HEADLINE["N"],
                        f"keff_lwa headline {method}")
@@ -4709,7 +4778,8 @@ def main() -> int:
             return outs + own, times, own_t
         outs, times, own_t = drive(f"lwa era5 {method}",
                                    dict(expect, weighted_cdf=SE), run,
-                                   exact={"weighted_cdf": SE + 2})
+                                   exact={"weighted_cdf": SE + 2,
+                                          "contour_levels": SE})
         for i, out in enumerate(outs):
             check_lwa_step(out, eshape, ERA5["N"], -90.0, 90.0,
                            f"lwa era5 {method} step {i}")
@@ -4729,7 +4799,7 @@ def main() -> int:
             era_steps[:S])
     outs, times = drive("lwa era5 split", {"weighted_cdf": S}, run_split,
                         exact=dict(lwa_dense=2 * S, lwa_lin=0, lwa_lin2=0,
-                                   weighted_cdf=S + 1))
+                                   weighted_cdf=S + 1, contour_levels=S))
     for i, out in enumerate(outs):
         check_split_step(out, eshape, ERA5["N"], f"lwa era5 split step {i}")
     rates["lwa_era5_split"] = (ERA5["B"] / statistics.median(times), None,
@@ -4743,7 +4813,7 @@ def main() -> int:
         lambda: timed_steps(
             lambda q: xt.lwa_pipeline(q, head_grid, N=HEADLINE["N"],
                                       part="upper", table=head_table),
-            [head_q] * 5))
+            [head_q] * 5), exact={"contour_levels": 5})
     for out in outs:
         check_lwa_step(out, hshape, HEADLINE["N"], -90.0, 90.0,
                        "lwa headline upper")
@@ -4765,7 +4835,7 @@ def main() -> int:
     lape_outs, times = drive("lape", {"weighted_cdf": S, "lwa_lin": S,
                                       "lwa_lin2": S}, run_lape,
                              exact=dict(weighted_cdf=S + 1, lwa_lin=S,
-                                        lwa_lin2=S))
+                                        lwa_lin2=S, contour_levels=S))
     for out in lape_outs:
         check_lape(out, lshape, LAPE["N"], "lape")
     rates["lape"] = (LAPE["B"] / statistics.median(times), None, times)
@@ -4780,24 +4850,27 @@ def main() -> int:
                 for q, t in ((era_steps[0], table), (era_steps[1], None))]
     for i, out in enumerate(drive("keff era5 hist",
                                   {"squared_gradient": 2, "weighted_cdf": 2},
-                                  run_keff)):
+                                  run_keff, exact={"contour_levels": 2})):
         check_keff_pipeline(out, ERA5["B"], ERA5["N"], pre_y.shape[0],
                             f"keff era5 hist step {i}")
     out = drive("keff headline broadcast", {"squared_gradient": 1},
                 lambda: xt.keff_pipeline(head_q, head_grid, N=HEADLINE["N"],
-                                         hist=False))
+                                         hist=False),
+                exact={"contour_levels": 1})
     check_keff_pipeline(out, HEADLINE["B"], HEADLINE["N"], None,
                         "keff headline broadcast")
     out = drive("keff_lwa era5 with_lwa2",
                 {"squared_gradient": 1, "weighted_cdf": 1, "lwa_lin": 1,
                  "lwa_lin2": 1},
                 lambda: xt.keff_lwa_pipeline(era_steps[0], era_grid,
-                                             N=ERA5["N"], with_lwa2=True))
+                                             N=ERA5["N"], with_lwa2=True),
+                exact={"contour_levels": 1})
     check_step(out, ERA5["B"], ERA5["nlat"], ERA5["N"],
                "keff_lwa era5 with_lwa2")
     out = drive("lwa tall dense", {"weighted_cdf": 1, "lwa_dense_tall": 2},
                 lambda: xt.lwa_pipeline(tall_q, tall_grid, N=TALL["N"],
-                                        lwa_method="dense"))
+                                        lwa_method="dense"),
+                exact={"contour_levels": 1})
     check_lwa_step(out, tuple(tall_q.shape), TALL["N"], -90.0, 90.0,
                    "lwa tall dense")
     log("phase 4 keff era5 hist, keff headline broadcast, keff_lwa with_lwa2, "
@@ -4816,7 +4889,8 @@ def main() -> int:
         outs, times, own_t = drive(f"clength era5 N={N}",
                                    {"weighted_cdf": SE, "contour_lengths": SE},
                                    run, exact={"weighted_cdf": SE + 2,
-                                               "clength_weights": SE})
+                                               "clength_weights": SE,
+                                               "contour_levels": SE})
         shares = [check_clength(out, era_steps[i], N,
                                 f"clength era5 N={N} step {i}")
                   for i, out in enumerate(outs)]
@@ -4835,7 +4909,7 @@ def main() -> int:
             lambda q: xt.fractal_pipeline(q, head_grid, N=HEADLINE["N"],
                                           strides=FRACTAL_STRIDES,
                                           table=head_table),
-            [head_q] * nf), exact={"box_counts": nf})
+            [head_q] * nf), exact={"box_counts": nf, "contour_levels": nf})
     meds = [check_fractal(out, head_q, HEADLINE["N"], "fractal headline")
             for out in outs]
     rates["fractal_headline"] = (HEADLINE["B"] / statistics.median(times[1:]),
@@ -4849,7 +4923,8 @@ def main() -> int:
             era_steps[:S])
     outs, times = drive("local era5", {"local_lengths": S, "window_means": S},
                         run_local,
-                        exact={"local_lengths": S, "window_means": S})
+                        exact={"local_lengths": S, "window_means": S,
+                               "contour_levels": 0})
     for i, out in enumerate(outs):
         check_local([(out["llen"][k], out["y_window"], out["x_window"])
                      for k in range(ERA5["B"])], f"local era5 step {i}")
@@ -5007,6 +5082,18 @@ def main() -> int:
         key = f"clength_weights_{label}"
         timing[key] = tuple(time_alternating([kern, plain], dev, reps=20))
         work[key] = w
+    # E in turns with the plain chain at the three cells' steps; bytes: the
+    # tracer read once and the levels written
+    from xcontour_tpu_torch.kernels import extrema
+    e_cases = contour_levels_cases(local_q, head_q, lape_q)
+    for label, q, N, inc in e_cases:
+        key = f"contour_levels_{label}"
+        timing[key] = tuple(time_alternating(
+            [lambda q=q, N=N, inc=inc: extrema.contour_levels(
+                q, N, increase=inc),
+             lambda q=q, N=N, inc=inc: extrema.contour_levels_plain(
+                 q, N, increase=inc)], dev, reps=20))
+        work[key] = (q.element_size() * (q.numel() + q.shape[0] * N), 0)
 
     # K1-K8 against their bounds, with launches per step of their paths
     # (the table builds of the streamed runs included)
@@ -5090,6 +5177,22 @@ def main() -> int:
             f"grid's dx, dy, dA once), {100 * b_ms / k_ms:.2f}% of bound, "
             f"{path_counts[g_path][gradw.KERNEL.name] / SE:g} launches per "
             f"step of '{g_path}', library call none")
+    # each shape's phase-4 path and its steps
+    e_paths = {"era5": (era_auto, SE), "t170.fractal": ("fractal headline",
+                                                        nf),
+               "lape.lwa": ("lape", S)}
+    for label, q, N, inc in e_cases:
+        key = f"contour_levels_{label}"
+        bounds[key] = bound_ms(work[key])
+        (k_ms, p_ms), (b_ms, b_by) = timing[key], bounds[key]
+        path, steps = e_paths[label]
+        log(f"phase 6 kernel E {extrema.KERNEL.name} {label} step "
+            f"{'x'.join(map(str, q.shape))} N={N} increase={inc}: "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}: the tracer once, the levels out), "
+            f"{100 * b_ms / k_ms:.2f}% of bound, "
+            f"{path_counts[path][extrema.KERNEL.name] / steps:g} calls (two "
+            f"launches each) per step of '{path}', library call none")
 
     split_turns(era_steps[0], era_grid, ERA5["N"], dev)
 
@@ -5164,7 +5267,8 @@ def main() -> int:
         f"sharded adjoints: {par_grad_counts}")
     missing = [n for n in ("squared_gradient", "weighted_cdf", "lwa_lin",
                            "lwa_dense", "lwa_lin2", "contour_lengths",
-                           "local_lengths") if par_counts[n] == 0]
+                           "local_lengths", "contour_levels")
+               if par_counts[n] == 0]
     _expect(not missing, f"kernels never launched by the sharded paths: "
                          f"{missing}")
     log(f"phase 11 json {json.dumps(par_res)}")
@@ -5285,7 +5389,8 @@ def main() -> int:
                                         "stencil")]
         + [decode_entry(), boxcount_entry(),
            window_entry(rolling.KERNEL, "window_means"),
-           window_entry(gradw.KERNEL, "clength_weights_era5")]}
+           window_entry(gradw.KERNEL, "clength_weights_era5"),
+           window_entry(extrema.KERNEL, "contour_levels_era5")]}
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

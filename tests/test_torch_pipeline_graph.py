@@ -34,8 +34,8 @@ import torch.distributed as dist
 import xcontour_tpu_torch as xt
 from xcontour_tpu_torch import core, parallel, pipeline
 from xcontour_tpu_torch.diagnostics import fractal
-from xcontour_tpu_torch.kernels import (boxcount, gradw, hist, length, lwa,
-                                        rolling, stencil)
+from xcontour_tpu_torch.kernels import (boxcount, extrema, gradw, hist,
+                                        length, lwa, rolling, stencil)
 from xcontour_tpu_torch.parallel import pipeline as sp
 from xcontour_tpu_torch.utils import prof
 from xcontour_tpu_torch.utils.synth import synth_pv
@@ -44,7 +44,7 @@ ENTRIES = ("keff", "lwa", "keff_lwa", "clength", "fractal", "local")
 RECORDS = (stencil.KERNEL, hist.KERNEL, lwa.KERNEL_LIN, lwa.KERNEL_LIN2,
            lwa.KERNEL_DENSE, lwa.KERNEL_DENSE_TALL, length.KERNEL_LENGTHS,
            length.KERNEL_LOCAL_LENGTHS, boxcount.KERNEL, rolling.KERNEL,
-           gradw.KERNEL)
+           gradw.KERNEL, extrema.KERNEL)
 
 
 def _field(dev, dtype=torch.float32, B=3, nlat=64, nlon=128, seed=1):

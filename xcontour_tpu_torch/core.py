@@ -14,7 +14,6 @@ axis -2; contour-space tensors (..., N) with the contour index last.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -23,7 +22,8 @@ import torch
 from .diagnostics import length as _length
 from .diagnostics import lwa as _lwa
 from .grid import Grid, _device, from_metrics, to_numpy
-from .kernels import needs_grad
+from .kernels import needs_grad, vjp
+from .kernels import extrema as _extrema
 from .ops.gradient import gradient_index
 from .ops.histogram import weighted_cdf, weighted_cdf_both
 from .ops.interp import interp1d
@@ -32,24 +32,22 @@ from .utils.checks import check_monotonic
 from .utils.ncio import Dataset
 
 
-@functools.lru_cache(maxsize=None)
-def device_constant(value, dtype, device) -> torch.Tensor:
-    """``value``, a tuple of numbers or a float's name ('inf', 'nan'), as a
-    tensor on ``device``, made once and kept: a CUDA graph's capture
-    cannot copy from the host (the eager call before it makes the
-    constant), and a graph reads the tensor where it lies.  Read only."""
-    if isinstance(value, str):
-        value = float(value)
-    return torch.as_tensor(value, dtype=dtype, device=device)
-
-
 def cal_contours(tracer: torch.Tensor, N: int, *,
                  increase: bool = True) -> torch.Tensor:
     """N equally spaced levels between each batch element's NaN-skipping
     min and max, min->max if ``increase`` else max->min.  The last level is
     pinned to the extremum (np.linspace semantics), so the extreme cell is
-    never dropped from a >=-CDF; an all-NaN element gives NaN levels."""
-    return levels_from_extrema(*masked_extrema(tracer), N, increase=increase)
+    never dropped from a >=-CDF; an all-NaN element gives NaN levels.  One
+    call of E (:mod:`.kernels.extrema`) on the card, its plain version on
+    the CPU.  On the card the tracer is float32 or float64: E raises
+    ``TypeError`` for any other dtype (float16, bfloat16), which the plain
+    chain ran before E."""
+    x = _snapshots(tracer)
+    if needs_grad(x):
+        levels = _ContourLevels.apply(x, N, increase)
+    else:
+        levels = _extrema.contour_levels(x, N, increase=increase)
+    return levels.reshape(tracer.shape[:-2] + (N,))
 
 
 def masked_extrema(tracer: torch.Tensor):
@@ -57,29 +55,63 @@ def masked_extrema(tracer: torch.Tensor):
     skipped: +inf and -inf where every cell is NaN.  The sharded levels
     reduce these over the x axis before :func:`levels_from_extrema` maps
     the infinities to NaN, so an all-NaN slab does not poison the
-    reduction."""
-    isn = torch.isnan(tracer)
-    inf = device_constant("inf", tracer.dtype, tracer.device)
-    return (torch.where(isn, inf, tracer).amin(dim=(-2, -1)),
-            torch.where(isn, -inf, tracer).amax(dim=(-2, -1)))
+    reduction.  E's extrema mode on the card, float32 or float64 there
+    (``TypeError`` for any other dtype, as :func:`cal_contours`)."""
+    x = _snapshots(tracer)
+    if needs_grad(x):
+        mmin, mmax = _MaskedExtrema.apply(x)
+    else:
+        mmin, mmax = _extrema.masked_extrema(x)
+    return mmin.reshape(tracer.shape[:-2]), mmax.reshape(tracer.shape[:-2])
 
 
-def levels_from_extrema(mmin: torch.Tensor, mmax: torch.Tensor, N: int, *,
-                        increase: bool = True) -> torch.Tensor:
-    """:func:`cal_contours`' levels from :func:`masked_extrema`."""
-    inf = device_constant("inf", mmin.dtype, mmin.device)
-    nan = device_constant("nan", mmin.dtype, mmin.device)
-    mmin = torch.where(mmin == inf, nan, mmin)
-    mmax = torch.where(mmax == -inf, nan, mmax)
-    start, end = (mmin, mmax) if increase else (mmax, mmin)
-    # a true division on every device: CUDA divides by a Python scalar
-    # through its reciprocal, an ulp away from the CPU's (and XLA's) levels
-    steps = (end - start) / torch.full_like(end, N - 1.0)
-    levels = (steps[..., None] * torch.arange(N, dtype=mmin.dtype,
-                                              device=mmin.device)
-              + start[..., None])
-    levels[..., -1] = end
-    return levels
+# :func:`cal_contours`' levels from :func:`masked_extrema` (the sharded
+# levels reduce the extrema between the two)
+levels_from_extrema = _extrema.levels_plain
+
+
+def _snapshots(tracer: torch.Tensor) -> torch.Tensor:
+    """(..., Ny, Nx) as contiguous (B, Ny, Nx)."""
+    return tracer.reshape((-1,) + tracer.shape[-2:]).contiguous()
+
+
+class _ContourLevels(torch.autograd.Function):
+    """E's levels with the plain chain's VJP: ``amin`` and ``amax`` split
+    an extremum's cotangent equally between the cells that attain it (as
+    JAX's min and max do)."""
+
+    @staticmethod
+    def forward(ctx, x, N, increase):
+        ctx.save_for_backward(x)
+        ctx.kw = (N, increase)
+        return _extrema.contour_levels(x.detach(), N, increase=increase)
+
+    @staticmethod
+    def backward(ctx, g):
+        N, increase = ctx.kw
+
+        def plain(p):
+            return _extrema.levels_plain(*_extrema.masked_extrema_plain(p[0]),
+                                         N, increase=increase)
+        return (*vjp([(plain, g)], ctx.saved_tensors, (True,)), None, None)
+
+
+class _MaskedExtrema(torch.autograd.Function):
+    """E's extrema mode with the plain version's VJP."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x)
+        return _extrema.masked_extrema(x.detach())
+
+    @staticmethod
+    def backward(ctx, g_min, g_max):
+        pieces = [(lambda p, i=i: _extrema.masked_extrema_plain(p[0])[i], g)
+                  for i, g in enumerate((g_min, g_max)) if g is not None]
+        if not pieces:
+            return None
+        return tuple(vjp(pieces, ctx.saved_tensors, (True,)))
 
 
 def cal_integral_within_contours_hist(tracer, contours, dA, integrand=None, *,

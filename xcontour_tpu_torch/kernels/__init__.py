@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import threading
 from typing import Callable, Iterable, Optional, Sequence, Tuple
 
@@ -63,6 +64,17 @@ def capturing():
         yield tally
     finally:
         _capture.tally = None
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(value, dtype, device) -> torch.Tensor:
+    """``value``, a tuple of numbers or a float's name ('inf', 'nan'), as a
+    tensor on ``device``, made once and kept: a CUDA graph's capture
+    cannot copy from the host (the eager call before it makes the
+    constant), and a graph reads the tensor where it lies.  Read only."""
+    if isinstance(value, str):
+        value = float(value)
+    return torch.as_tensor(value, dtype=dtype, device=device)
 
 
 def check_cuda_inputs(name: str, **tensors: torch.Tensor) -> None:

@@ -61,6 +61,8 @@ SIGNATURES = {
     # itemsize, TX, TY, ntx, nty, threads, cols, nch_max, stream
     "xc_window_means": [P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I, I, I,
                         I, P],
+    # x, partial, out, B, M, chunks, N, increase, levels, itemsize, stream
+    "xc_contour_levels": [P, P, P, I, I, I, I, I, I, I, P],
     # the structure probes (csrc/probes.cu)
     # q, W, Q, out, B, Ny, Nx, stream
     "xc_lwa_structure": [P, P, P, P, I, I, I, P],

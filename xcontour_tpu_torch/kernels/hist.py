@@ -43,10 +43,17 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def blocks_a_plane(B: int, cells: int, sms: int, min_cells: int) -> int:
+    """Blocks each of B planes of ``cells`` cells is cut into: about
+    BLOCKS_PER_SM blocks an SM over the B planes, none under ``min_cells``
+    cells (K2's first pass and E's scan)."""
+    return max(1, min(-(-BLOCKS_PER_SM * sms // B), -(-cells // min_cells)))
+
+
 def plan(B: int, G: int, N: int, C: int, sms: int):
     """(nblk, wchunk, ncopy) of the first pass: blocks per batch element,
     cells per warp (a multiple of a warp step) and histogram copies."""
-    nblk = max(1, min(-(-BLOCKS_PER_SM * sms // B), -(-G // MIN_CELLS)))
+    nblk = blocks_a_plane(B, G, sms, MIN_CELLS)
     wchunk = -(-G // (nblk * WARPS))
     wchunk = -(-wchunk // STEP) * STEP
     nblk = -(-G // (wchunk * WARPS))

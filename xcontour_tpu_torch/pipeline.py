@@ -691,7 +691,8 @@ def fractal_pipeline(tracer: torch.Tensor, grid: Grid, *, N: int = 121,
 
     with span("stage.dimension"):
         reso = grid.xdef[1] - grid.xdef[0]
-        rulers = (core.device_constant(tuple(strides), dtype, tracer.device)
+        rulers = (kernels.device_constant(tuple(strides), dtype,
+                                          tracer.device)
                   * torch.cos(torch.deg2rad(Yeq))[..., None]
                   * torch.deg2rad(reso).to(dtype) * _REARTH)
         out = dict(contour=ctr, Yeq=Yeq, lengths=L, rulers=rulers,
